@@ -1,25 +1,37 @@
-"""Drive the PyTorch port's zero-shot segmentation path once on one CUDA card
-(an H100) and check it.
+"""Drive the PyTorch port's zero-shot segmentation path and its training
+step on one CUDA card (an H100) and check them.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
 
   1. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, at every main-path shape, in float32 (TF32 off) and bfloat16,
+     card, at every shape of both paths, in float32 (TF32 off) and bfloat16,
      with the tolerance stated beside each, and the time per call by CUDA
-     events;
-  2. the slice: ViT-B/16 at the default ModelConfig (bfloat16) from a seeded
-     random init; a 20-class text bank; four requests through
+     events: the attention forward (eval shapes, and training shapes with P
+     saved), the attention backward, the eval grouping and the Gumbel
+     (training) grouping; and the repaired fault: on CUDA, the outputs of
+     `attention` and `group_assign` require grad when their inputs do;
+  2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
+     seeded random init; a 20-class text bank; four requests through
      ZeroShotSegmenter (224×224 whole, 224×448 slide, a 300×500 image in
      slide mode answered at its original size, one group map); the kernels'
      launch counters must show every attention and grouping call of the
      path went through the kernels;
-  3. the path against its plain self: one request at float32 on the card and
-     on the CPU (where the wrappers take the plain versions);
+  3. the eval path against its plain self: one request at float32 on the
+     card and on the CPU (where the wrappers take the plain versions);
+  4. the training slice: ViT-B/16 at the default ModelConfig (bfloat16,
+     vision MAE and seglabel on, text MAE off) from `init_segclip(seed=0)`,
+     B = 96 synthetic pairs from numpy seed 0, 1 + 5 steps of
+     `make_train_step`: finite losses, frozen parameters bit-identical,
+     trainable ones moved, per-step launch counters equal to the path's
+     count (attention forward and backward, Gumbel grouping, and the MAE
+     decoder's plain-route attention), warm step time and peak memory;
+  5. the training step against its plain self: one float32 step at full
+     width with B = 2 and injected noise, on the card and on the CPU;
 then device time from torch.profiler: each kernel and its plain version at
-the phase-1 shapes (the "ms"/"plain_ms" of the JSON line, at the main
-shape: vision 2×196, bfloat16), and a profile of three warm requests.
+the phase-1 shapes (the "ms"/"plain_ms" of the JSON line, at each kernel's
+main shape), a profile of three warm requests and of one training step.
 
 Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, one JSON line of kernel results, and as its
@@ -45,9 +57,12 @@ VOC_CLASSES = (
 VOC_BG_THRESH = 0.80
 
 ATTN_SRC = "segclip_tpu_torch/csrc/attention_fwd.cu"
+ATTN_BWD_SRC = "segclip_tpu_torch/csrc/attention_bwd.cu"
 GROUP_SRC = "segclip_tpu_torch/csrc/group_assign.cu"
 ATTN_TPU = "segclip_tpu/ops/pallas/attention.py:60"
+ATTN_BWD_TPU = "segclip_tpu/ops/pallas/attention.py:96"
 GROUP_TPU = "segclip_tpu/ops/pallas/grouping.py:45"
+GROUP_ST_TPU = "segclip_tpu/ops/pallas/grouping.py:45 (training=True, entry :158)"
 
 # Attention shapes of the path: (name, B, Lq, Lk, heads, bias, kind).
 ATTN_CASES = (
@@ -58,11 +73,29 @@ ATTN_CASES = (
     ("text 20x77 causal", 20, 77, 77, 8, "causal", "self"),
     ("text 4x77 padding (off the path)", 4, 77, 77, 8, "padding", "self"),
 )
+# Attention shapes of the training step at B = 96: forward with P saved
+# and backward. The grouping path's vision blocks, cross blocks and group
+# stage; the MAE path's 48 kept patches (layers0, layers_mae2) and cross
+# blocks over 8 + 48; the text tower's 32 tokens.
+TRAIN_ATTN_CASES = (
+    ("train vision 96x196", 96, 196, 196, 12, None, "self"),
+    ("train cross 96x8x204", 96, 8, 204, 12, None, "cross"),
+    ("train group stage 96x8x8", 96, 8, 8, 12, None, "self"),
+    ("train MAE vision 96x48", 96, 48, 48, 12, None, "self"),
+    ("train MAE cross 96x8x56", 96, 8, 56, 12, None, "cross"),
+    ("train text 96x32 causal", 96, 32, 32, 8, "causal", "self"),
+)
 # Grouping shapes of the path: (name, N, G, L, D).
 GROUP_CASES = (
     ("eval 2x8x196x768 (slide)", 2, 8, 196, 768),
     ("eval 1x8x294x768 (whole 224x336)", 1, 8, 294, 768),
 )
+GROUP_ST_CASES = (
+    ("train 96x8x196x768", 96, 8, 196, 768),
+    ("train MAE 96x8x48x768", 96, 8, 48, 768),
+)
+TRAIN_BATCH = 96            # the JAX bench's per-chip batch
+TRAIN_STEPS = 5             # timed, after one cold step
 # Tolerances, kernel against plain on the same inputs (bf16 distances in
 # ulps of the plain value, as segclip_tpu_torch/ops/kernels/checks.py
 # defines them and explains the attention bound):
@@ -79,10 +112,29 @@ GROUP_CASES = (
 #    in bfloat16;
 #  - grouping hard: equal on every patch whose top-2 logits differ by more
 #    than NEAR_TIE.
+#  - attention backward float32: per output, max |err| ≤ 1e-5·(1 + max|ref|)
+#    (fp32 sums of products in another order);
+#  - attention backward bfloat16: at most a share ATTN_BF16_SHARE of each
+#    output more than one ulp apart — each element is one fp32 sum rounded
+#    once to bf16, so only values near a rounding midpoint can differ, and D
+#    (summed in another order) moves dS by fp32 ulps only;
+#  - saved P: float32 max |err| ≤ 1e-5; bfloat16 within the same share rule;
+#  - Gumbel grouping: soft and out as the eval grouping, y_soft max |err|
+#    ≤ 1e-4, hard equal away from near ties of the noised logits.
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BWD_REL_TOL_F32 = 1e-5
+P_TOL_F32 = 1e-5
 SOFT_TOL = 1e-4
+YSOFT_TOL = 1e-4
 OUT_TOL_F32 = 1e-5
 NEAR_TIE = 1e-3
+TAU = 0.9                   # ModelConfig.gumbel_tau
+# Phase 5: float32 training step, card vs CPU: the loss within this share
+# of itself; gradients, where no patch is near a tie, per tensor within
+# TRAIN_GRAD_TOL·(1 + max|g|) (fp32 sums in another order through ~30
+# blocks forward and back).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4
 # Phase 3: float32 whole-image logits on the card and on the CPU.
 E2E_PIXEL_TOL = 1e-3        # a pixel agrees if every class logit is within this
 E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
@@ -248,7 +300,133 @@ def phase_kernels(dev) -> tuple:
             timings.append((f"grouping {name} {str(dtype)[6:]}", kernel, plain))
             if name == GROUP_CASES[0][0] and dtype == torch.bfloat16:
                 summary["grouping"] = dict(max_abs_err=out_err, timing=len(timings) - 1)
+    training_kernels(dev, gen, summary, timings)
+    repaired_fault(dev)
     return summary, timings
+
+
+def bf16_share(out, ref) -> tuple:
+    from segclip_tpu_torch.ops.kernels.checks import bf16_ulps
+    ulps = bf16_ulps(out, ref)
+    return (ulps > 1).float().mean().item(), ulps.max().item()
+
+
+def training_kernels(dev, gen, summary, timings) -> None:
+    """Phase 1, training shapes: the forward with P saved, the backward from
+    that P, and the Gumbel grouping, each against its plain version."""
+    from segclip_tpu_torch.ops.kernels.attention import (
+        attention_bwd, attention_bwd_plain, attention_fwd, attention_fwd_plain)
+    from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
+    from segclip_tpu_torch.ops.kernels.grouping import (group_assign_fwd,
+                                                        group_assign_st_plain)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for case in TRAIN_ATTN_CASES:
+            q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
+            out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
+            ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
+            do = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            grads = attention_bwd(p, do, q, k, v)
+            grads_ref = attention_bwd_plain(p, do, q, k, v)
+            torch.cuda.synchronize()
+            check(all(torch.isfinite(g).all().item() for g in grads),
+                  f"attention backward {case[0]}: non-finite")
+            out_err = (out.float() - ref.float()).abs().max().item()
+            p_err = (p.float() - p_ref.float()).abs().max().item()
+            rel = [(g.float() - r.float()).abs().max().item()
+                   / (1 + r.float().abs().max().item()) for g, r in zip(grads, grads_ref)]
+            note = ""
+            if dtype == torch.float32:
+                check(out_err <= ATTN_TOL[dtype], f"{case[0]}: forward err {out_err}")
+                check(p_err <= P_TOL_F32, f"{case[0]}: saved P err {p_err}")
+                check(max(rel) <= BWD_REL_TOL_F32, f"{case[0]}: backward rel err {rel}")
+            else:
+                shares = [bf16_share(out, ref), bf16_share(p, p_ref)] + [
+                    bf16_share(g, r) for g, r in zip(grads, grads_ref)]
+                note = ("; >1 ulp share out/P/dQ/dK/dV " + " ".join(
+                    f"{sh:.1e}" for sh, _ in shares) + f" (max {max(m for _, m in shares):.1f} ulps)")
+                for (sh, _), what in zip(shares, ("out", "P", "dQ", "dK", "dV")):
+                    check(sh <= ATTN_BF16_SHARE, f"{case[0]} bf16 {what}: share {sh}")
+            fwd = functools.partial(attention_fwd, q, k, v, b2, bb, save_p=True)
+            fwd_plain = functools.partial(attention_fwd_plain, q, k, v, b2, bb)
+            bwd = functools.partial(attention_bwd, p, do, q, k, v)
+            bwd_plain = functools.partial(attention_bwd_plain, p, do, q, k, v)
+            print(f"  attention {case[0]:34s} {dname:8s} fwd err {out_err:.3e}, P err "
+                  f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
+                  f"{note}  fwd {call_ms(fwd):.4f} / {call_ms(fwd_plain):.4f} ms, bwd "
+                  f"{call_ms(bwd):.4f} / {call_ms(bwd_plain):.4f} ms")
+            timings.append((f"attention fwd+P {case[0]} {dname}", fwd, fwd_plain))
+            if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
+                summary["attention_fwd_train"] = dict(max_abs_err=out_err,
+                                                      timing=len(timings) - 1)
+            timings.append((f"attention bwd {case[0]} {dname}", bwd, bwd_plain))
+            if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
+                summary["attention_bwd"] = dict(
+                    max_abs_err=max((g.float() - r.float()).abs().max().item()
+                                    for g, r in zip(grads, grads_ref)),
+                    timing=len(timings) - 1)
+
+        for name, n, g, l, d in GROUP_ST_CASES:
+            q = torch.randn(n, g, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(n, l, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(n, l, d, generator=gen, device=dev).to(dtype)
+            u = torch.rand(n, g, l, generator=gen, device=dev)
+            noise = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+            out, hard, soft, y_soft = group_assign_fwd(q, k, v, noise, TAU)
+            _, hard_ref, soft_ref, y_ref = group_assign_st_plain(q, k, v, noise, TAU)
+            torch.cuda.synchronize()
+            logits = torch.matmul(q.double(), k.double().transpose(1, 2))
+            top2 = ((logits + noise.double()) / TAU).topk(2, dim=1).values
+            near = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
+            differ = (hard != hard_ref).any(dim=1)
+            n_near, n_bad = int(near.sum()), int((differ & ~near).sum())
+            soft_err = (soft - soft_ref).abs().max().item()
+            y_err = (y_soft - y_ref).abs().max().item()
+            counts = hard.sum(-1, keepdim=True).clamp(min=1.0)
+            out_ref = (torch.matmul(hard, v.float()) / counts).to(dtype)
+            out_err = (out.float() - out_ref.float()).abs().max().item()
+            if dtype == torch.bfloat16:
+                from segclip_tpu_torch.ops.kernels.checks import bf16_ulps
+                out_ulps = bf16_ulps(out, out_ref).max().item()
+                out_ok, out_note = out_ulps <= 1, f" ({out_ulps:g} ulps)"
+            else:
+                out_ok, out_note = out_err <= OUT_TOL_F32, ""
+            kernel = functools.partial(group_assign_fwd, q, k, v, noise, TAU)
+            plain = functools.partial(group_assign_st_plain, q, k, v, noise, TAU)
+            print(f"  gumbel grouping {name:28s} {dname:8s} soft err {soft_err:.3e} y_soft "
+                  f"err {y_err:.3e} out err {out_err:.3e}{out_note}; hard differs on "
+                  f"{int(differ.sum())} patches, {n_near} near-tie patches  "
+                  f"{call_ms(kernel):.4f} / {call_ms(plain):.4f} ms")
+            check(n_bad == 0, f"gumbel grouping {name}: hard differs on {n_bad} clear patches")
+            check(soft_err <= SOFT_TOL, f"gumbel grouping {name}: soft err {soft_err}")
+            check(y_err <= YSOFT_TOL, f"gumbel grouping {name}: y_soft err {y_err}")
+            check(out_ok, f"gumbel grouping {name} {dtype}: out err {out_err}{out_note}")
+            check(int(hard.sum()) == n * l, f"gumbel grouping {name}: hard is not one-hot")
+            timings.append((f"gumbel grouping {name} {dname}", kernel, plain))
+            if name == GROUP_ST_CASES[0][0] and dtype == torch.bfloat16:
+                summary["grouping_st"] = dict(max_abs_err=out_err, timing=len(timings) - 1)
+
+
+def repaired_fault(dev) -> None:
+    """On CUDA the kernel wrappers' outputs carry gradients: a loss over
+    them reaches the inputs, as on the CPU."""
+    from segclip_tpu_torch.ops.kernels.attention import attention
+    from segclip_tpu_torch.ops.kernels.grouping import group_assign, group_assign_st
+
+    x = torch.randn(2, 9, 3 * 64, device=dev, requires_grad=True)
+    out = attention(x[..., :64], x[..., 64:128], x[..., 128:])
+    q = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    k = torch.randn(2, 9, 64, device=dev, requires_grad=True)
+    grouped = group_assign(q, k, k)
+    grouped_st = group_assign_st(q, k, k, torch.zeros(2, 8, 9, device=dev), TAU)
+    check(out.requires_grad and all(t.requires_grad for t in grouped + grouped_st),
+          "a kernel output on CUDA does not require grad")
+    (out.sum() + grouped[0].sum() + grouped[2].sum() + grouped_st[0].sum()).backward()
+    check(x.grad.abs().sum().item() > 0 and q.grad.abs().sum().item() > 0,
+          "no gradient reached the kernels' inputs")
+    print("  repaired fault: attention and grouping outputs require grad on CUDA, and "
+          "their gradients reach q, k, v")
 
 
 def timed(fn):
@@ -257,6 +435,24 @@ def timed(fn):
     result = fn()
     torch.cuda.synchronize()
     return result, (time.perf_counter() - t0) * 1e3
+
+
+def reset_counters() -> None:
+    from segclip_tpu_torch.ops.attention import plain_route
+    from segclip_tpu_torch.ops.kernels.attention import attention, attention_bwd
+    from segclip_tpu_torch.ops.kernels.grouping import group_assign, group_assign_st
+    attention.launches = attention_bwd.launches = 0
+    group_assign.launches = group_assign_st.launches = 0
+    plain_route.calls = 0
+
+
+def read_counters() -> dict:
+    from segclip_tpu_torch.ops.attention import plain_route
+    from segclip_tpu_torch.ops.kernels.attention import attention, attention_bwd
+    from segclip_tpu_torch.ops.kernels.grouping import group_assign, group_assign_st
+    return {"attention_fwd": attention.launches, "attention_bwd": attention_bwd.launches,
+            "group_assign": group_assign.launches,
+            "group_assign_st": group_assign_st.launches, "plain_route": plain_route.calls}
 
 
 def phase_slice(dev, cfg) -> tuple:
@@ -276,8 +472,7 @@ def phase_slice(dev, cfg) -> tuple:
     img_300x500 = rng.standard_normal((224, 373, 3), dtype=np.float32)  # short side 224
     num_classes = len(VOC_CLASSES) + 1
 
-    attention.launches = 0
-    group_assign.launches = 0
+    reset_counters()
     bank, bank_ms = timed(lambda: build_text_bank(model, VOC_CLASSES, "simple",
                                                   cfg.context_length))
     check(tuple(bank.shape) == (20, cfg.embed_dim), f"text bank {tuple(bank.shape)}")
@@ -308,8 +503,9 @@ def phase_slice(dev, cfg) -> tuple:
                                     f"launches, expected 14 / 1")
         print(f"  {name}: cold {cold_ms:.1f} ms, labels {np.unique(pred).size} "
               f"distinct, launches attention {da} grouping {dg}")
-    counts = {"attention": attention.launches, "grouping": group_assign.launches}
-    check(counts == {"attention": 12 + 4 * 14, "grouping": 4},
+    counts = read_counters()
+    check(counts == {"attention_fwd": 12 + 4 * 14, "attention_bwd": 0, "group_assign": 4,
+                     "group_assign_st": 0, "plain_route": 0},
           f"path launch counts {counts}")
 
     for name, fn, _, _ in requests:                   # warm latency, uncounted
@@ -322,7 +518,183 @@ def phase_slice(dev, cfg) -> tuple:
     return model, seg, requests, counts
 
 
-def phase_device_time(seg, requests, timings) -> list:
+def train_path_counts(cfg) -> dict:
+    """Launches of one training step, from the configuration: the text
+    tower, the grouping path's vision tower (layers0, cross blocks, group
+    stage) and, with vision MAE, the masked vision forward (layers0, cross
+    blocks, layers_mae2) run the attention kernels forward and backward;
+    each SemanticLearner runs the Gumbel grouping once; the MAE decoders'
+    blocks take the plain route."""
+    vision = cfg.vision_layers + cfg.cross_layer          # layers0 + cross + second stage
+    attn = cfg.transformer_layers + vision
+    plain = 0
+    if cfg.use_vision_mae_recon:
+        attn += vision
+        plain += cfg.mae_decoder_depth
+    if cfg.use_text_mae_recon:
+        attn += cfg.transformer_layers
+        plain += cfg.mae_decoder_depth
+    st = 1 + int(cfg.use_vision_mae_recon)
+    return {"attention_fwd": attn, "attention_bwd": attn, "group_assign": 0,
+            "group_assign_st": st, "plain_route": plain}
+
+
+def synthetic_batch(b: int, cfg, seed: int, device) -> dict:
+    """uint8 images, (B, 14, 14) superpixel ids and 32-token captions (BOS,
+    3-20 words, EOT, zero padding), from numpy."""
+    rng = np.random.default_rng(seed)
+    res, grid, length = cfg.image_resolution, cfg.grid_size, cfg.max_words
+    ids = np.zeros((b, length), np.int64)
+    for i, n in enumerate(rng.integers(3, min(21, length - 1), size=b)):
+        ids[i, 0] = cfg.vocab_size - 2                      # BOS
+        ids[i, 1:n + 1] = rng.integers(1, cfg.vocab_size - 2, size=n)
+        ids[i, n + 1] = cfg.vocab_size - 1                  # EOT, the row's max id
+    batch = {"input_ids": ids, "attention_mask": (ids != 0).astype(np.int64),
+             "image": rng.integers(0, 256, size=(b, res, res, 3), dtype=np.uint8),
+             "image_seg": rng.integers(0, 12, size=(b, grid, grid))}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def phase_train(dev) -> tuple:
+    """Phase 4: the training step at ViT-B/16 width, B = 96."""
+    from segclip_tpu.config import Config
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    cfg = Config()
+    mcfg = cfg.model
+    model = init_segclip(mcfg, seed=0, device=dev)
+    optimizer = create_optimizer(model, cfg, t_total=100)
+    step = make_train_step(model, optimizer, cfg)
+    state = TrainState(step=0, seed=0)
+    batch = synthetic_batch(TRAIN_BATCH, mcfg, 0, dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    expected = train_path_counts(mcfg)
+    print(f"phase 4: training step, ViT-B/16 ({mcfg.compute_dtype}), B={TRAIN_BATCH}, "
+          f"{len(frozen)} frozen parameter tensors; expected launches per step {expected}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    totals, times = {}, []
+    for i in range(1 + TRAIN_STEPS):
+        reset_counters()
+        metrics, ms = timed(lambda: step(state, batch))
+        counts = read_counters()
+        check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
+        for key, n in counts.items():
+            totals[key] = totals.get(key, 0) + n
+        values = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in values.values()), f"step {i}: {values}")
+        check(values["skipped_nan"] == 0.0, f"step {i} was skipped")
+        times.append(ms)
+        print(f"  step {i} ({'cold' if i == 0 else 'warm'}): {ms:.1f} ms; " + ", ".join(
+            f"{k} {v:.5f}" for k, v in values.items()))
+    warm = sorted(times[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    print(f"  warm step time: median {statistics.median(warm):.2f} ms (min {warm[0]:.2f}, "
+          f"max {warm[-1]:.2f}, {len(warm)} steps); "
+          f"{TRAIN_BATCH * 1000 / statistics.median(warm):.1f} img/s; "
+          f"peak device memory {peak:.0f} MiB")
+    moved_not = [n for n, p in model.named_parameters()
+                 if p.requires_grad and torch.equal(p, before[n])]
+    changed_frozen = [n for n in frozen if not torch.equal(dict(model.named_parameters())[n],
+                                                           before[n])]
+    check(not changed_frozen, f"frozen parameters changed: {changed_frozen[:5]}")
+    check(not moved_not, f"trainable parameters that did not move: {moved_not[:5]}")
+    check(state.step == 1 + TRAIN_STEPS and optimizer.step_count == 1 + TRAIN_STEPS,
+          f"steps: state {state.step}, optimizer {optimizer.step_count}")
+    print(f"  {len(frozen)} frozen tensors bit-identical, every trainable tensor moved; "
+          f"launches over {1 + TRAIN_STEPS} steps {totals}")
+    return model, step, state, batch, totals
+
+
+class GroupingProbe:
+    """Records, for each SemanticLearner call, the hard assignment and the
+    margin between the two largest noised logits of every patch."""
+
+    def __init__(self, learner, noises):
+        self.noises, self.records = list(noises), []
+        self.handle = learner.register_forward_hook(self.hook)
+        self.learner = learner
+
+    def hook(self, module, args, output):
+        x, noise = args[0], self.noises[len(self.records)]
+        with torch.no_grad():
+            k = module.k_ln(module.k_conv(module.norm(x)))
+            logits = torch.matmul(output[3].double(), k.double().transpose(1, 2))
+            top2 = ((logits + noise.double()) / module.tau).topk(2, dim=1).values
+        self.records.append((output[1].detach().cpu(), (top2[:, 0] - top2[:, 1]).cpu()))
+
+
+def phase_train_plain_self(dev, model) -> None:
+    """Phase 5: one float32 training step at full width, B = 2, with the
+    same injected noise on the card and on the CPU."""
+    from segclip_tpu.config import Config, ModelConfig
+    from segclip_tpu_torch.models.segclip import SegCLIP
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    mcfg = ModelConfig(compute_dtype="float32")
+    cfg = Config(model=mcfg)
+    b, g, l = 2, mcfg.group_num, mcfg.num_patches
+    kept = int((l + 1) * (1 - mcfg.mae_vis_mask_ratio)) - 1
+    rng = np.random.default_rng(5)
+    noise = {"gumbel": rng.gumbel(size=(b, g, l)), "gumbel_mae": rng.gumbel(size=(b, g, kept)),
+             "mask_vis": rng.random((b, l + 1))}
+    noise = {k: torch.from_numpy(v.astype(np.float32)) for k, v in noise.items()}
+    batch = synthetic_batch(b, mcfg, 1, "cpu")
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        m = SegCLIP(mcfg)
+        m.load_state_dict(model.state_dict())
+        m = m.to(device)
+        step = make_train_step(m, create_optimizer(m, cfg, t_total=100), cfg)
+        probe = GroupingProbe(m.clip.visual.transformer.semantic_layer2,
+                              [noise["gumbel"].to(device), noise["gumbel_mae"].to(device)])
+        kernels_before = {k: v for k, v in read_counters().items() if k != "plain_route"}
+        metrics = step(TrainState(), {k: v.to(device) for k, v in batch.items()},
+                       {k: v.to(device) for k, v in noise.items()})
+        probe.handle.remove()
+        moved = {k: v for k, v in read_counters().items() if k != "plain_route"} \
+            != kernels_before
+        check(moved == (device.type == "cuda"),
+              f"{device}: kernel launches {'' if moved else 'not '}counted")
+        runs.append((float(metrics["loss"]), probe.records,
+                     {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                      if p.grad is not None}))
+    (loss_gpu, rec_gpu, grads_gpu), (loss_cpu, rec_cpu, grads_cpu) = runs
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    n_near = n_bad = 0
+    for (hard_gpu, _), (hard_cpu, margin) in zip(rec_gpu, rec_cpu):
+        near = margin < NEAR_TIE
+        differ = (hard_gpu != hard_cpu).any(dim=1)
+        n_near += int(near.sum())
+        n_bad += int((differ & ~near).sum())
+    print(f"phase 5: float32 training step, B=2, card vs CPU: loss {loss_gpu:.7f} / "
+          f"{loss_cpu:.7f} (rel {rel:.2e}); hard assignments differ on {n_bad} clear "
+          f"patches, {n_near} near-tie patches (margin < {NEAR_TIE:g})")
+    check(np.isfinite(loss_gpu) and rel <= TRAIN_LOSS_RTOL, f"loss rel err {rel}")
+    check(n_bad == 0, f"hard assignments differ on {n_bad} clear patches")
+    check(grads_gpu.keys() == grads_cpu.keys(), "different parameters got gradients")
+    if n_near:
+        print(f"  near-tie patches present: gradients not compared")
+        return
+    worst = max(((grads_gpu[n] - grads_cpu[n]).abs().max().item()
+                 / (1 + grads_cpu[n].abs().max().item()), n) for n in grads_cpu)
+    print(f"  no near-tie patch: gradients compared on {len(grads_cpu)} tensors, worst "
+          f"{worst[0]:.2e}·(1 + max|g|) at {worst[1]} (tol {TRAIN_GRAD_TOL:g})")
+    check(worst[0] <= TRAIN_GRAD_TOL, f"gradient of {worst[1]} off by {worst[0]}")
+
+
+def print_profile(name: str, fn) -> None:
+    box = {}
+    rows = device_rows(lambda: box.setdefault("wall", timed(fn)[1]))
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"  {name}, profiled: wall {box['wall']:.2f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / box['wall']:.3f}; top:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+
+
+def phase_device_time(seg, requests, timings, train_step) -> list:
     """Device time from torch.profiler, last: profiling slows the launches
     that follow it, so nothing is timed by the host clock after this."""
     print("device time (torch.profiler; ms per call, kernel / plain)")
@@ -331,14 +703,8 @@ def phase_device_time(seg, requests, timings) -> list:
         ms.append((device_ms(kernel), device_ms(plain)))
         print(f"  {name:58s} {ms[-1][0]:.4f} / {ms[-1][1]:.4f}")
     for name, fn, _, _ in requests[:3]:
-        box = {}
-        rows = device_rows(lambda: box.setdefault("wall", timed(fn)[1]))
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        print(f"  {name}, profiled: wall {box['wall']:.2f} ms, device busy "
-              f"{busy:.3f} ms, idle share {1 - busy / box['wall']:.3f}; top:")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"    {e.self_device_time_total / 1e3:7.3f} ms {e.count:4d}x  "
-                  f"{e.key[:80]}")
+        print_profile(name, fn)
+    print_profile(f"training step B={TRAIN_BATCH}", train_step)
     return ms
 
 
@@ -402,16 +768,22 @@ def main() -> int:
 
     summary, timings = phase_kernels(dev)
     cfg = ModelConfig()
-    model, seg, requests, counts = phase_slice(dev, cfg)
+    model, seg, requests, eval_counts = phase_slice(dev, cfg)
     phase_plain_self(dev, model, cfg)
-    ms = phase_device_time(seg, requests, timings)
+    train_model, step, state, batch, train_counts = phase_train(dev)
+    phase_train_plain_self(dev, train_model)
+    ms = phase_device_time(seg, requests, timings, lambda: step(state, batch))
 
     kernels = []
-    for name, src, tpu, key in (("attention_fwd", ATTN_SRC, ATTN_TPU, "attention"),
-                                ("group_assign", GROUP_SRC, GROUP_TPU, "grouping")):
+    for name, src, tpu, key, counter in (
+            ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "attention_fwd"),
+            ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd", "attention_bwd"),
+            ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
+            ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
         kernel_ms, plain_ms = ms[summary[key]["timing"]]
+        by_path = {"eval": eval_counts[counter], "train": train_counts[counter]}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=tpu,
-                            launches=counts[key],
+                            launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=summary[key]["max_abs_err"],
                             ms=kernel_ms, plain_ms=plain_ms))
     print(json.dumps({"kernels": kernels}))

@@ -7,11 +7,15 @@ JAX layouts (images NHWC, attention operands (B, L, H·64), group maps
 and never jax or flax.
 
 Layout (bottom-up):
-  csrc/         hand-written CUDA kernels (attention forward, group assignment)
+  csrc/         hand-written CUDA kernels (attention forward and backward,
+                group assignment with and without Gumbel noise)
   kernels/      nvcc build-on-first-use + ctypes loading
   ops/          plain tensor functions; ops/kernels wraps each CUDA kernel
                 beside its plain PyTorch version
-  models/       nn.Modules in the reference state-dict key layout
+  models/       nn.Modules in the reference state-dict key layout, and the
+                pretraining losses
+  parallel/     collectives of the contrastive loss (world size 1)
+  train/        parameter groups, AdaptAdamW, the training step
   checkpoint/   JAX params / reference .bin → the port's state dict
   evalseg/      text bank and zero-shot segmentation inference
   cli/          command-line entry points

@@ -1,6 +1,7 @@
 """Weights into the port's state dict, which is the reference torch key
 layout (`clip.visual.transformer.layers0.N.*`, `…k_conv.weight` of shape
-(g·d_out, d_in, 1), `clip.visual.conv1.weight` (W, 3, p, p), …).
+(g·d_out, d_in, 1), `clip.visual.conv1.weight` (W, 3, p, p),
+`vis_mae_decoder.decoder_blocks.N.attn.qkv.weight`, …).
 
 Two sources:
   - JAX params (the flax tree as numpy arrays) through
@@ -8,10 +9,13 @@ Two sources:
     only;
   - a reference-layout `.bin` / `.pt` state dict read with `torch.load`.
 
-`load_into` loads the `clip.*` keys strictly. The MAE decoders' keys
-(`vis_mae_decoder.`, `seq_mae_decoder.`) are left for the training slice and
-reported; any other key is an error. The surgery that turns OpenAI's
-ViT-B-16.pt resblocks into layers0/layers2 is not ported yet.
+`load_into` loads every key of the model strictly: `clip.*` and the MAE
+decoders the configuration builds (`vis_mae_decoder.*`, `seq_mae_decoder.*`).
+A decoder the configuration does not build (the text one, off at the
+defaults) is dropped and reported. The reference also stores each decoder's
+fixed position table (`decoder_pos_embed`); the port builds that table
+itself, so the key is checked against it and dropped. The surgery that turns OpenAI's ViT-B-16.pt
+resblocks into layers0/layers2 is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ import torch
 
 from segclip_tpu.checkpoint.torch_export import export_state_dict
 
-LEFT_FOR_TRAINING = ("vis_mae_decoder.", "seq_mae_decoder.")
+DECODERS = ("vis_mae_decoder.", "seq_mae_decoder.")
+POS_TABLE_KEY = "decoder_pos_embed"
+POS_TABLE_TOL = 1e-5          # the reference builds the same table in float64 → float32
 
 
 def state_dict_from_jax(params: dict, vision_patch_size: int = 16
@@ -44,13 +50,29 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
-    """Load `sd` into a SegCLIP: `clip.*` strictly; returns the prefixes of
-    the keys left for the training slice. Raises on any other key."""
-    clip = {k[len("clip."):]: v for k, v in sd.items() if k.startswith("clip.")}
-    left = sorted({p for k in sd for p in LEFT_FOR_TRAINING if k.startswith(p)})
-    unknown = [k for k in sd if not k.startswith(("clip.",) + LEFT_FOR_TRAINING)]
+    """Load `sd` into a SegCLIP: `clip.*` and the decoders the model builds,
+    every key strictly. Returns what was dropped, sorted: the prefix of a
+    decoder the configuration does not build (e.g. "seq_mae_decoder." under
+    the default use_text_mae_recon=False), and each reference position-table
+    key checked against the port's fixed table. Raises on a missing or
+    unknown key, and on a table that differs from the port's."""
+    sd = dict(sd)
+    dropped = []
+    for prefix in DECODERS:
+        if not hasattr(model, prefix[:-1]) and any(k.startswith(prefix) for k in sd):
+            sd = {k: v for k, v in sd.items() if not k.startswith(prefix)}
+            dropped.append(prefix)
+    for key in sorted(k for k in sd if k.endswith("." + POS_TABLE_KEY)):
+        decoder = getattr(model, key.split(".", 1)[0], None)
+        if decoder is None:
+            raise KeyError(f"{key}: the model has no such decoder")
+        table = sd.pop(key).reshape(decoder.pos_table.shape).float()
+        err = (table - decoder.pos_table.cpu()).abs().max().item()
+        if err > POS_TABLE_TOL:
+            raise ValueError(f"{key} differs from the port's fixed table by {err}")
+        dropped.append(key)
+    unknown = sorted(set(sd) - set(model.state_dict()))
     if unknown:
-        raise KeyError(f"state dict keys outside clip.* and the MAE "
-                       f"decoders: {unknown[:5]}")
-    model.clip.load_state_dict(clip, strict=True)
-    return left
+        raise KeyError(f"state dict keys the model does not have: {unknown[:5]}")
+    model.load_state_dict(sd, strict=True)
+    return sorted(dropped)

@@ -27,9 +27,9 @@ def load_model(init_model: Optional[str], cfg: ModelConfig,
         if not init_model.endswith((".bin", ".pt", ".pth")):
             raise ValueError(f"--init-model must be a torch state dict "
                              f"(.bin/.pt/.pth), got {init_model!r}")
-        left = load_into(model, load_reference_state_dict(init_model))
-        logger.info("loaded %s (left for training: %s)", init_model,
-                    ", ".join(left) or "nothing")
+        dropped = load_into(model, load_reference_state_dict(init_model))
+        logger.info("loaded %s (fixed tables checked and dropped: %s)",
+                    init_model, ", ".join(dropped) or "none")
     else:
         logger.info("random initialization (seed 0)")
     return model.to(device).eval(), cfg

@@ -1,12 +1,17 @@
-// Semantic group assignment, eval path, for Hopper (sm_90a).
+// Semantic group assignment for Hopper (sm_90a), eval and training forward.
 //
 // Replaces the TPU kernel `_kernel` of segclip_tpu/ops/pallas/grouping.py
-// with training=False (reached through `fused_group_assign`, :141; the
-// pallas_call is at :124). Per image n:
+// (pallas_call at :124), reached at eval through `fused_group_assign` (:141,
+// training=False) and at training through `fused_group_assign_st` (:158,
+// training=True, lines :62-64 and :76-81). Per image n:
 //   logits = q·kᵀ                 (G, L), fp32 from fp32-cast q and k, unscaled
 //   soft   = softmax over G        per patch
-//   hard   = one-hot argmax_G soft, ties to the lowest group index
+//   y_soft = softmax over G of (logits + noise) / tau   (training; = soft at eval)
+//   hard   = one-hot argmax_G y_soft, ties to the lowest group index
 //   out    = hard·v / max(Σ_L hard, 1), accumulated in fp32, cast to v's dtype
+// The Gumbel noise (N, G, L) fp32 comes in from the caller, as the TPU
+// kernel's does; y_soft is written out as the straight-through backward's
+// residual. At eval the noise pointer is null and nothing else changes.
 //
 // What bounds it on the H100: one image reads q (G·D), k and v (L·D each),
 // about 0.6 MB in bf16 at G=8, L=196, D=768, and does 2.4 MFLOP: a few
@@ -17,8 +22,9 @@
 // in two passes, with nothing but the winning group index in between:
 //   - assign: one block per (image, 8 patches), one warp per patch. Lanes
 //     split D, keep G ≤ 32 partial dots in registers and reduce them with
-//     shuffles; lane g then owns group g's logit, so the softmax and the
-//     argmax over G are warp reductions. Writes soft, hard and the winner.
+//     shuffles; lane g then owns group g's logit (and its noise), so the
+//     softmaxes and the argmax over G are warp reductions. Writes soft,
+//     hard, y_soft (training) and the winner.
 //   - aggregate: one block per (image, 64 columns of D). Because hard is
 //     one-hot, hard·v is a gather-sum: each warp adds its patches' v rows
 //     into its own per-group partial sums in shared memory (no atomics, so
@@ -47,11 +53,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// Softmax over the G lanes of a warp (lanes ≥ G hold −inf and give 0).
+__device__ __forceinline__ float lane_softmax(float x, int lane, int G) {
+  float m = x;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  const float e = lane < G ? expf(x - m) : 0.f;
+  float sum = e;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
+  return e / sum;
+}
+
 // Grid (ceil(L / WARPS), N). Dynamic shared memory: q[n] as fp32 (G·D).
+// noise (N, G, L) and y_soft are null at eval.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-assign_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __restrict__ hard,
-              float* __restrict__ soft, int* __restrict__ winner, int G, int L, int D) {
+assign_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const float* __restrict__ noise, float tau, float* __restrict__ hard,
+              float* __restrict__ soft, float* __restrict__ ysoft, int* __restrict__ winner,
+              int G, int L, int D) {
   extern __shared__ float qs[];
   const long long n = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -80,17 +101,15 @@ assign_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __restric
     if (lane == g) logit = x;
   }
 
-  float m = logit;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-  const float e = lane < G ? expf(logit - m) : 0.f;
-  float sum = e;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
-  const float p = e / sum;
+  const float p = lane_softmax(logit, lane, G);
+  float py = p;                                // y_soft: the softmax the winner is taken from
+  if (noise) {
+    const float y = lane < G ? (logit + noise[(n * G + lane) * L + l]) / tau : -INFINITY;
+    py = lane_softmax(y, lane, G);
+  }
 
-  // argmax over the softmax, lowest index on ties
-  float best = lane < G ? p : -1.f;
+  // argmax over y_soft, lowest index on ties
+  float best = lane < G ? py : -1.f;
   int idx = lane;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -105,6 +124,7 @@ assign_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __restric
     const long long o = (n * G + lane) * L + l;
     soft[o] = p;
     hard[o] = lane == idx ? 1.f : 0.f;
+    if (ysoft) ysoft[o] = py;
   }
   if (lane == 0) winner[n * L + l] = idx;
 }
@@ -153,15 +173,17 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, float* hard, float* soft,
-           int* winner, int n, int g, int l, int d, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const float* noise, float tau,
+           void* out, float* hard, float* soft, float* ysoft, int* winner, int n, int g, int l,
+           int d, cudaStream_t stream) {
   const size_t smem_a = sizeof(float) * static_cast<size_t>(g) * d;
   const size_t smem_b = sizeof(float) * static_cast<size_t>(WARPS) * g * COLS;
   cudaError_t err = allow_smem(assign_kernel<T>, smem_a);
   if (err == cudaSuccess) err = allow_smem(aggregate_kernel<T>, smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
   assign_kernel<T><<<dim3((l + WARPS - 1) / WARPS, n), THREADS, smem_a, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), hard, soft, winner, g, l, d);
+      static_cast<const T*>(q), static_cast<const T*>(k), noise, tau, hard, soft, ysoft, winner,
+      g, l, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   aggregate_kernel<T><<<dim3((d + COLS - 1) / COLS, n), THREADS, smem_b, stream>>>(
@@ -174,20 +196,24 @@ int launch(const void* q, const void* k, const void* v, void* out, float* hard, 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q (N, G, D), k and v (N, L, D), out
-// (N, G, D) contiguous in that dtype; hard and soft (N, G, L) fp32; winner
+// (N, G, D) contiguous in that dtype; noise (N, G, L) fp32 or null (eval);
+// hard, soft and y_soft (N, G, L) fp32, y_soft null when noise is; winner
 // (N, L) int32 scratch. Returns the cudaError_t of the launches (0 on
 // success).
-int segclip_group_assign(int dtype, const void* q, const void* k, const void* v, void* out,
-                         void* hard, void* soft, void* winner, int n, int g, int l, int d,
-                         void* stream) {
-  if (n < 1 || n > 65535 || g < 1 || g > G_MAX || l < 1 || d < 1)
+int segclip_group_assign(int dtype, const void* q, const void* k, const void* v,
+                         const void* noise, float tau, void* out, void* hard, void* soft,
+                         void* ysoft, void* winner, int n, int g, int l, int d, void* stream) {
+  if (n < 1 || n > 65535 || g < 1 || g > G_MAX || l < 1 || d < 1 || (noise && !(tau > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* nz = static_cast<const float*>(noise);
   float* h = static_cast<float*>(hard);
   float* so = static_cast<float*>(soft);
+  float* ys = static_cast<float*>(ysoft);
   int* w = static_cast<int*>(winner);
-  if (dtype == 0) return launch<float>(q, k, v, out, h, so, w, n, g, l, d, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, out, h, so, w, n, g, l, d, s);
+  if (dtype == 0) return launch<float>(q, k, v, nz, tau, out, h, so, ys, w, n, g, l, d, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, nz, tau, out, h, so, ys, w, n, g, l, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,1 +1,2 @@
-"""nn.Modules of the CLIP towers and the SegViT grouping backbone."""
+"""nn.Modules of the CLIP towers, the SegViT grouping backbone, the MAE
+decoders and the SegCLIP losses."""

@@ -17,7 +17,7 @@ from segclip_tpu_torch.ops.attention import multi_head_attention
 from segclip_tpu_torch.ops.layers import layer_norm, quick_gelu
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
+def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """x @ Wᵀ + b in `dtype`, as flax Dense(dtype=compute_dtype)."""
     x = x.to(dtype) @ layer.weight.to(dtype).t()
     return x + layer.bias.to(dtype)
@@ -38,12 +38,15 @@ class LayerNormFP32(nn.Module):
 
 class MHAttention(nn.Module):
     """Packed-QKV multi-head attention (self or cross), torch
-    nn.MultiheadAttention's parameter names."""
+    nn.MultiheadAttention's parameter names. `route` is the attention
+    route of ops/attention.py: "kernel" (64-dim heads) or "plain"."""
 
-    def __init__(self, width: int, heads: int, compute_dtype=torch.bfloat16):
+    def __init__(self, width: int, heads: int, compute_dtype=torch.bfloat16,
+                 route: str = "kernel"):
         super().__init__()
         self.heads = heads
         self.compute_dtype = compute_dtype
+        self.route = route
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
@@ -53,7 +56,7 @@ class MHAttention(nn.Module):
         return multi_head_attention(
             q_in, kv_in, self.in_proj_weight, self.in_proj_bias,
             self.out_proj.weight, self.out_proj.bias, self.heads, bias=bias,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, route=self.route)
 
 
 class Mlp(nn.Module):
@@ -75,9 +78,9 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc, proj = (getattr(self, n) for n in self.names)
-        x = _linear(x, fc, self.compute_dtype)
+        x = linear(x, fc, self.compute_dtype)
         x = quick_gelu(x) if self.act == "quick_gelu" else F.gelu(x)
-        return _linear(x, proj, self.compute_dtype)
+        return linear(x, proj, self.compute_dtype)
 
 
 class ResidualAttentionBlock(nn.Module):

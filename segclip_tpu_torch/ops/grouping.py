@@ -2,16 +2,24 @@
 Gumbel straight-through assignment over the group axis and count-normalised
 aggregation of patch values into group tokens.
 
-The eval path of the model goes through the group-assignment kernel
-(ops/kernels/grouping.py); `group_assign_aggregate` at training=False is
-that kernel's plain version. The training form takes Gumbel noise passed in
-or drawn from a torch.Generator.
+The model's grouping goes through the group-assignment kernel
+(ops/kernels/grouping.py) at eval and at training; `group_assign_aggregate`
+is that kernel's plain version. The training form takes Gumbel noise passed
+in or drawn from a torch.Generator (`draw_gumbel`).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+
+def draw_gumbel(shape, device, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """Gumbel(0, 1) noise, −log(−log(u)) of uniform u in [tiny, 1), fp32,
+    drawn on `device` from `generator`."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
 def gumbel_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
@@ -26,10 +34,7 @@ def gumbel_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
     logits32 = logits.float()
     if training:
         if gumbel_noise is None:
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device, dtype=torch.float32)
-            gumbel_noise = -torch.log(-torch.log(
-                u.clamp(min=torch.finfo(torch.float32).tiny)))
+            gumbel_noise = draw_gumbel(logits.shape, logits.device, generator)
         y_soft = torch.softmax((logits32 + gumbel_noise.float()) / tau, dim=dim)
     else:
         y_soft = torch.softmax(logits32, dim=dim)

@@ -1,22 +1,26 @@
-"""Attention forward over (B, L, H·64) operands: the CUDA kernel
-`csrc/attention_fwd.cu` and its plain PyTorch version.
+"""Attention over (B, L, H·64) operands: the CUDA kernels
+`csrc/attention_fwd.cu` (forward) and `csrc/attention_bwd.cu` (backward),
+their plain PyTorch versions, and the autograd Function that joins them.
 
-Replaces the TPU kernel `_fwd_kernel` of segclip_tpu/ops/pallas/attention.py
-(`attention_vmem` forward). What bounds it on the H100 and what the design
-does about it is in the header of the CUDA source: at SegCLIP's lengths
-(≤ ~300 tokens) the call is small and latency-bound, so the kernel keeps the
-score matrix on chip and reads the q|k|v column views of the packed
-projection in place (a row stride per operand), with no head transpose and
-no copy.
+Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
+segclip_tpu/ops/pallas/attention.py (`attention_vmem` and its custom VJP).
+What bounds them on the H100 and what their design does about it is in the
+headers of the CUDA sources: at SegCLIP's lengths (≤ ~300 tokens) the calls
+are small and latency-bound, so the forward keeps the score matrix on chip
+and both kernels read the q|k|v column views of the packed projection in
+place (a row stride per operand), with no head transpose and no copy.
 
-`attention` takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+`attention` is differentiable on every device. Under autograd its forward
+saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
+the TPU kernel's VJP does. Each wrapper (`attention_fwd`, `attention_bwd`)
+takes its plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,14 +30,24 @@ HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, l, d = x.shape
     return x.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
 
 
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, l, hd = x.shape
     return x.transpose(1, 2).reshape(b, l, h * hd)
+
+
+def _sdpa_with_probs(q, k, v, bias, scale):
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs.float(), v.float()).to(v.dtype), probs
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,37 +56,78 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ·scale + bias) v over (B, H, L, Dh), plain torch, with the
     kernel's dtype chain: fp32 logits and softmax, P cast to v's dtype, P·V
     summed in fp32, output in v's dtype. scale defaults to Dh**−0.5."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        logits = logits + bias.float()
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs.float(), v.float()).to(v.dtype)
+    return _sdpa_with_probs(q, k, v, bias, scale)[0]
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias2d: Optional[torch.Tensor] = None,
-                    biasb: Optional[torch.Tensor] = None,
-                    scale: float = HEAD_DIM ** -0.5) -> torch.Tensor:
-    """The plain version of `attention`: `sdpa` per 64-dim head on the
-    (B, L, H·64) operands, with bias2d + biasb as its bias."""
+def _joint_bias(bias2d, biasb):
     bias = None
     if bias2d is not None:
         bias = bias2d.float()
     if biasb is not None:
         bb = biasb.float()[:, None, None, :]
         bias = bb if bias is None else bias + bb
+    return bias
+
+
+def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias2d: Optional[torch.Tensor] = None,
+                        biasb: Optional[torch.Tensor] = None,
+                        scale: float = HEAD_DIM ** -0.5
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the forward kernel: (out (B, Lq, H·64) in v's
+    dtype, P (B, H, Lq, Lk) in v's dtype), `sdpa` per 64-dim head with
+    bias2d + biasb as its bias."""
     heads = q.shape[-1] // HEAD_DIM
-    return _merge_heads(sdpa(_split_heads(q, heads), _split_heads(k, heads),
-                             _split_heads(v, heads), bias, scale))
+    out, probs = _sdpa_with_probs(split_heads(q, heads), split_heads(k, heads),
+                                  split_heads(v, heads),
+                                  _joint_bias(bias2d, biasb), scale)
+    return merge_heads(out), probs
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias2d: Optional[torch.Tensor] = None,
+                    biasb: Optional[torch.Tensor] = None,
+                    scale: float = HEAD_DIM ** -0.5) -> torch.Tensor:
+    """The plain version of `attention`'s value: `sdpa` per 64-dim head on
+    the (B, L, H·64) operands, with bias2d + biasb as its bias."""
+    return attention_fwd_plain(q, k, v, bias2d, biasb, scale)[0]
+
+
+def attention_bwd_plain(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor,
+                        scale: float = HEAD_DIM ** -0.5
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernel, the formulas of
+    segclip_tpu/ops/pallas/attention.py:96-120 in fp32 from the saved P
+    (B, H, Lq, Lk): dV = PᵀdO; dP = dO·Vᵀ; dS = P∘(dP − rowsum(dP∘P));
+    dQ = dS·K·scale; dK = dSᵀ·Q·scale. Returns (dQ, dK, dV) in the dtypes
+    of q, k and v."""
+    heads = q.shape[-1] // HEAD_DIM
+    pf = p.float()
+    dof, qf, kf, vf = (split_heads(t, heads).float() for t in (do, q, k, v))
+    dv = torch.matmul(pf.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = pf * (dp - (dp * pf).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return (merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype),
+            merge_heads(dv).to(v.dtype))
 
 
 @lru_cache(maxsize=None)
-def _entry():
+def _fwd_entry():
     fn = build.load().segclip_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = build.load().segclip_attention_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -103,48 +158,140 @@ def _check(q, k, v, bias2d, biasb):
                          f"{biasb.dtype} {tuple(biasb.shape)}")
 
 
+def _device_of(*tensors) -> torch.device:
+    """The one device of the given tensors (None entries skipped): the CPU
+    or a CUDA card; anything else raises."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def _unit_last_stride(*tensors) -> None:
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("q, k, v (and dO) need a unit stride on the last dim")
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias2d: Optional[torch.Tensor] = None,
+                  biasb: Optional[torch.Tensor] = None,
+                  scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel's wrapper: (out (B, Lq, H·64) contiguous in v's
+    dtype, P (B, H, Lq, Lk) in v's dtype if `save_p` else None). Not
+    differentiable itself; `attention` is."""
+    _check(q, k, v, bias2d, biasb)
+    device = _device_of(q, k, v, bias2d, biasb)
+    if device.type == "cpu":
+        out, p = attention_fwd_plain(q, k, v, bias2d, biasb, scale)
+        return out, (p if save_p else None)
+
+    _unit_last_stride(q, k, v)
+    bias2d = None if bias2d is None else bias2d.contiguous()
+    biasb = None if biasb is None else biasb.contiguous()
+    b, lq, dm = q.shape
+    lk = k.shape[1]
+    heads = dm // HEAD_DIM
+    out = torch.empty((b, lq, dm), dtype=v.dtype, device=device)
+    p = (torch.empty((b, heads, lq, lk), dtype=v.dtype, device=device)
+         if save_p else None)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _fwd_entry()(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias2d is None else bias2d.data_ptr(),
+            None if biasb is None else biasb.data_ptr(), out.data_ptr(),
+            None if p is None else p.data_ptr(),
+            b, heads, lq, lk,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(scale), stream)
+    build.check(err, "attention_fwd")
+    attention.launches += 1
+    return out, p
+
+
+def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor,
+                  scale: float = HEAD_DIM ** -0.5
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's wrapper: (dQ, dK, dV) from the saved P, the
+    output's cotangent dO (B, Lq, H·64) and the operands, each contiguous
+    in its operand's dtype."""
+    _check(q, k, v, None, None)
+    b, lq, dm = q.shape
+    lk = k.shape[1]
+    heads = dm // HEAD_DIM
+    if p.shape != (b, heads, lq, lk) or p.dtype != v.dtype:
+        raise ValueError(f"P must be {v.dtype} {(b, heads, lq, lk)}, got "
+                         f"{p.dtype} {tuple(p.shape)}")
+    if do.shape != q.shape or do.dtype != v.dtype:
+        raise ValueError(f"dO must be {v.dtype} {tuple(q.shape)}, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    device = _device_of(p, do, q, k, v)
+    if device.type == "cpu":
+        return attention_bwd_plain(p, do, q, k, v, scale)
+
+    _unit_last_stride(do, q, k, v)
+    p = p.contiguous()
+    dq = torch.empty((b, lq, dm), dtype=q.dtype, device=device)
+    dk = torch.empty((b, lk, dm), dtype=k.dtype, device=device)
+    dv = torch.empty((b, lk, dm), dtype=v.dtype, device=device)
+    drow = torch.empty((b, heads, lq), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _bwd_entry()(
+            _DTYPES[q.dtype], p.data_ptr(), do.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), drow.data_ptr(), b, heads, lq, lk,
+            do.stride(0), do.stride(1), q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale), stream)
+    build.check(err, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class AttentionFn(torch.autograd.Function):
+    """The forward kernel with P saved, and the backward kernel from that P
+    (the custom VJP of segclip_tpu/ops/pallas/attention.py:217-247). The
+    biases are masks and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias2d, biasb, scale):
+        out, p = attention_fwd(q, k, v, bias2d, biasb, scale, save_p=True)
+        ctx.save_for_backward(p, q, k, v)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        p, q, k, v = ctx.saved_tensors
+        if do.stride(-1) != 1:          # e.g. the expanded cotangent of a sum
+            do = do.contiguous()
+        dq, dk, dv = attention_bwd(p, do, q, k, v, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias2d: Optional[torch.Tensor] = None,
               biasb: Optional[torch.Tensor] = None,
               scale: float = HEAD_DIM ** -0.5) -> torch.Tensor:
-    """Fused attention over (B, L, H·64) operands, no head transpose.
+    """Fused attention over (B, L, H·64) operands, no head transpose,
+    differentiable in q, k and v.
 
     bias2d: optional (Lq, Lk) fp32 additive bias (the causal mask, −inf
     allowed); biasb: optional (B, Lk) fp32 additive bias (padding rows).
     Each of q, k, v may be a column view with its own row stride (the last
     dim must be unit-stride). Returns a contiguous (B, Lq, H·64) tensor in
-    v's dtype.
+    v's dtype. P is saved only when a gradient can be asked for.
     """
-    _check(q, k, v, bias2d, biasb)
-    tensors = [t for t in (q, k, v, bias2d, biasb) if t is not None]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"operands on several devices: {devices}")
-    device = q.device
-    if device.type == "cpu":
-        return attention_plain(q, k, v, bias2d, biasb, scale)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q, k, v need a unit stride on the last dim")
-    bias2d = None if bias2d is None else bias2d.contiguous()
-    biasb = None if biasb is None else biasb.contiguous()
-    b, lq, dm = q.shape
-    lk = k.shape[1]
-    out = torch.empty((b, lq, dm), dtype=v.dtype, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = _entry()(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias2d is None else bias2d.data_ptr(),
-            None if biasb is None else biasb.data_ptr(), out.data_ptr(),
-            b, dm // HEAD_DIM, lq, lk,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), float(scale), stream)
-    build.check(err, "attention_fwd")
-    attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return AttentionFn.apply(q, k, v, bias2d, biasb, scale)
+    return attention_fwd(q, k, v, bias2d, biasb, scale)[0]
 
 
-attention.launches = 0
+attention.launches = 0          # forward kernel launches
+attention_bwd.launches = 0      # backward kernel launches

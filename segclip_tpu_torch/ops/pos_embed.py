@@ -1,16 +1,52 @@
-"""Resolution interpolation of the learned visual position embedding
-(segclip_tpu/ops/pos_embed.py).
+"""Position tables and the resolution interpolation of the learned visual
+position embedding (segclip_tpu/ops/pos_embed.py).
 
-`interp_matrix` and `_cubic_kernel` are numpy copies of the JAX package's
-(whose module imports jax): cubic/linear interpolation matrices with torch
-F.interpolate's align_corners=False semantics (cubic A=−0.75, half-pixel
-centres, replicate border). A resize is two matmuls with these matrices,
-in fp32.
+`sincos_2d`, `sinusoid_table`, `interp_matrix` and `_cubic_kernel` are
+numpy copies of the JAX package's (whose module imports jax):
+  - the fixed 2D sin-cos table of the vision MAE decoder and the 1D
+    sinusoid table (zero row 0) of the text MAE decoder;
+  - cubic/linear interpolation matrices with torch F.interpolate's
+    align_corners=False semantics (cubic A=−0.75, half-pixel centres,
+    replicate border). A resize is two matmuls with these matrices, in fp32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000 ** omega
+    out = np.einsum("m,d->md", pos.astype(np.float64), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def sincos_2d(embed_dim: int, grid_size: int, cls_token: bool = False) -> np.ndarray:
+    """MAE's fixed 2D sin-cos position table, (grid², D) fp32, with a zero
+    CLS row first when `cls_token`."""
+    if embed_dim % 4:
+        raise ValueError(f"embed_dim {embed_dim} must be a multiple of 4")
+    grid_w, grid_h = np.meshgrid(np.arange(grid_size, dtype=np.float32),
+                                 np.arange(grid_size, dtype=np.float32))
+    emb = np.concatenate([_sincos_1d(embed_dim // 2, grid_w.reshape(-1)),
+                          _sincos_1d(embed_dim // 2, grid_h.reshape(-1))], axis=1)
+    if cls_token:
+        emb = np.concatenate([np.zeros([1, embed_dim]), emb], axis=0)
+    return emb.astype(np.float32)
+
+
+def sinusoid_table(n_position: int, d_model: int) -> np.ndarray:
+    """Interleaved sinusoid table with a zero row at position 0:
+    angle[pos, i] = pos / 10000^(2i/d), sin on even and cos on odd
+    channels."""
+    i = np.arange(d_model, dtype=np.float64)
+    pos = np.arange(n_position, dtype=np.float64)[:, None]
+    table = pos / np.power(10000.0, 2.0 * i / d_model)
+    table[0, :] = 0.0
+    table[1:, 0::2] = np.sin(table[1:, 0::2])
+    table[1:, 1::2] = np.cos(table[1:, 1::2])
+    return table.astype(np.float32)
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:

@@ -2,8 +2,8 @@
 the device they were given.
 
 A fresh interpreter imports segclip_tpu_torch, runs a tiny encode_image,
-encode_text and predict on the CPU, and must end with neither jax nor flax
-in sys.modules.
+encode_text and predict, and one tiny training step, on the CPU, and must
+end with neither jax nor flax in sys.modules.
 """
 import os
 import subprocess
@@ -42,6 +42,21 @@ seg = ZeroShotSegmenter(model, bank, with_bg=True, bg_thresh=0.5,
 pred = seg.predict(img, (40, 48), mode="slide")
 assert vis.pooled.shape == (1, 32) and txt.pooled.shape == (1, 32)
 assert pred.shape == (40, 48) and 0 <= pred.min() and pred.max() <= 5
+
+from segclip_tpu.config import Config
+from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+cfg = Config(model=ModelConfig(**{**cfg.__dict__, "max_words": 16,
+                                  "mae_decoder_depth": 1, "mae_decoder_num_heads": 2}))
+model = init_segclip(cfg.model, seed=0)
+step = make_train_step(model, create_optimizer(model, cfg, t_total=10), cfg)
+rng = np.random.default_rng(0)
+ids = np.zeros((2, 16), np.int64)
+ids[:, 0], ids[:, 1:4], ids[:, 4] = 509, rng.integers(1, 500, (2, 3)), 511
+batch = {"input_ids": torch.from_numpy(ids), "attention_mask": torch.from_numpy(ids != 0).long(),
+         "image": torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)),
+         "image_seg": torch.from_numpy(rng.integers(0, 4, (2, 4, 4)))}
+metrics = step(TrainState(), batch)
+assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped_nan"]) == 0.0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
 print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)

@@ -10,16 +10,26 @@ plain on the same inputs, with bf16 distances in ulps of the plain value
 (segclip_tpu_torch/ops/kernels/checks.py): attention max |err| 2e-5 at
 float32; at bfloat16 at most a share ATTN_BF16_SHARE of outputs more than one
 ulp apart and max |err| 2e-2, and the rounded-P case equal bit for bit;
-grouping soft 1e-4, out 1e-5 at float32 and within one ulp at bfloat16, hard
-equal away from near-tie patches (top-2 logit margin < 1e-3).
+the attention backward, per output, max |err| ≤ 1e-5·(1 + max|ref|) at
+float32 and the same share rule at bfloat16; grouping soft 1e-4, y_soft
+1e-4, out 1e-5 at float32 and within one ulp at bfloat16, hard equal away
+from near-tie patches (top-2 logit margin < 1e-3).
 """
 import pytest
 import torch
 
-from segclip_tpu_torch.ops.kernels.attention import attention, attention_plain
+from segclip_tpu_torch.ops import attention as tattn
+from segclip_tpu_torch.ops.kernels.attention import (attention, attention_bwd,
+                                                     attention_bwd_plain,
+                                                     attention_fwd,
+                                                     attention_fwd_plain,
+                                                     attention_plain)
 from segclip_tpu_torch.ops.kernels.checks import (ATTN_BF16_SHARE, bf16_ulps,
                                                   rounded_p_case)
-from segclip_tpu_torch.ops.kernels.grouping import group_assign, group_assign_plain
+from segclip_tpu_torch.ops.kernels.grouping import (group_assign, group_assign_fwd,
+                                                    group_assign_plain,
+                                                    group_assign_st,
+                                                    group_assign_st_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -143,3 +153,150 @@ def test_group_assign_rejects_what_it_does_not_take(cuda):
         group_assign(torch.randn(1, 8, 8192, device=cuda),
                      torch.randn(1, 4, 8192, device=cuda),
                      torch.randn(1, 4, 8192, device=cuda))
+
+
+# The training step's attention shapes at B = 96: (B, Lq, Lk, heads, bias,
+# cross). Vision blocks, cross blocks, group stage; the MAE path's 48 kept
+# patches and its cross blocks; the text tower.
+TRAIN_SHAPES = [(96, 196, 196, 12, None, False), (96, 8, 204, 12, None, True),
+                (96, 8, 8, 12, None, False), (96, 48, 48, 12, None, False),
+                (96, 8, 56, 12, None, True), (96, 32, 32, 8, "causal", False),
+                (2, 33, 70, 2, "padding", True), (1, 1, 1, 1, None, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, lq, lk, h, bias, cross", TRAIN_SHAPES)
+def test_attention_bwd_kernel_matches_plain(cuda, dtype, b, lq, lk, h, bias, cross):
+    gen = torch.Generator(device=cuda).manual_seed(b * lq + lk)
+    d = h * 64
+    if cross:
+        q = torch.randn(b, lq, d, generator=gen, device=cuda).to(dtype)
+        kv = torch.randn(b, lk, 2 * d, generator=gen, device=cuda).to(dtype)
+        k, v = kv[..., :d], kv[..., d:]
+    else:
+        qkv = torch.randn(b, lq, 3 * d, generator=gen, device=cuda).to(dtype)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    bias2d = (torch.full((lq, lk), float("-inf"), device=cuda).triu(1)
+              if bias == "causal" else None)
+    biasb = None
+    if bias == "padding":
+        lens = torch.randint(1, lk + 1, (b, 1), generator=gen, device=cuda)
+        biasb = (torch.arange(lk, device=cuda)[None] >= lens).float() * -1e6
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    do = torch.randn(b, lq, d, generator=gen, device=cuda).to(dtype)
+    before = attention_bwd.launches
+    grads = attention_bwd(p, do, q, k, v)
+    grads_ref = attention_bwd_plain(p, do, q, k, v)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 1
+    for g, r, x in zip(grads, grads_ref, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and g.is_contiguous()
+        if dtype == torch.float32:
+            err = (g - r).abs().max().item()
+            assert err <= 1e-5 * (1 + r.abs().max().item())
+        else:
+            assert (bf16_ulps(g, r) > 1).float().mean().item() <= ATTN_BF16_SHARE
+    if dtype == torch.float32:
+        assert (p - p_ref).abs().max().item() <= 1e-5
+    else:
+        assert (bf16_ulps(p, p_ref) > 1).float().mean().item() <= ATTN_BF16_SHARE
+
+
+@pytest.mark.parametrize("reduce", ["sum", "weighted"])
+def test_attention_autograd_on_cuda_matches_cpu(cuda, reduce):
+    """The repaired fault: on CUDA `attention` carries gradients, equal to
+    the CPU's plain backward (an expanded dO from a sum included)."""
+    gen = torch.Generator().manual_seed(7)
+    qkv = torch.randn(3, 21, 3 * 128, generator=gen)
+    w = torch.randn(3, 21, 128, generator=gen)
+    grads = {}
+    for device in (cuda, torch.device("cpu")):
+        x = qkv.to(device).clone().requires_grad_(True)
+        out = attention(x[..., :128], x[..., 128:256], x[..., 256:])
+        assert out.requires_grad
+        loss = out.sum() if reduce == "sum" else (out * w.to(device)).sum()
+        loss.backward()
+        grads[device.type] = x.grad.cpu()
+    assert (grads["cuda"] - grads["cpu"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, g, l, d", [(96, 8, 196, 768), (96, 8, 48, 768),
+                                        (3, 1, 5, 7), (2, 32, 300, 96)])
+def test_group_assign_st_kernel_matches_plain(cuda, dtype, n, g, l, d):
+    gen = torch.Generator(device=cuda).manual_seed(n * g + l)
+    q = torch.randn(n, g, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(n, l, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(n, l, d, generator=gen, device=cuda).to(dtype)
+    u = torch.rand(n, g, l, generator=gen, device=cuda)
+    noise = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    before = group_assign_st.launches
+    out, hard, soft, y_soft = group_assign_fwd(q, k, v, noise, 0.9)
+    _, hard_ref, soft_ref, y_ref = group_assign_st_plain(q, k, v, noise, 0.9)
+    torch.cuda.synchronize()
+    assert group_assign_st.launches == before + 1
+    y = (torch.matmul(q.double(), k.double().transpose(1, 2)) + noise.double()) / 0.9
+    if g > 1:
+        top2 = y.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) >= 1e-3
+        assert torch.equal(hard.argmax(1)[clear], hard_ref.argmax(1)[clear])
+    assert torch.equal(hard.sum(1), torch.ones(n, l, device=cuda))
+    assert (soft - soft_ref).abs().max().item() <= 1e-4
+    assert (y_soft - y_ref).abs().max().item() <= 1e-4
+    counts = hard.sum(-1, keepdim=True).clamp(min=1.0)
+    out_ref = (torch.matmul(hard, v.float()) / counts).to(dtype)
+    if dtype == torch.float32:
+        assert (out - out_ref).abs().max().item() <= 1e-5
+    else:
+        assert bf16_ulps(out, out_ref).max().item() <= 1
+
+
+def test_group_assign_st_empty_group_and_exact_tie(cuda):
+    """Noise that ties groups 1 and 2 exactly on every patch (the lowest
+    index wins) and leaves group 0 empty (its output is 0)."""
+    q = torch.zeros(1, 3, 4, device=cuda)
+    k = torch.ones(1, 5, 4, device=cuda)
+    v = torch.arange(20, dtype=torch.float32, device=cuda).reshape(1, 5, 4)
+    noise = torch.zeros(1, 3, 5, device=cuda)
+    noise[0, 1] = noise[0, 2] = 2.0
+    out, hard, soft = group_assign_st(q, k, v, noise, 0.9)
+    assert hard[0, 1].all() and not hard[0, 0].any() and not hard[0, 2].any()
+    assert torch.equal(out[0, 1], v[0].mean(0))
+    assert torch.equal(out[0, 0], torch.zeros(4, device=cuda))
+    assert torch.allclose(soft, torch.full_like(soft, 1 / 3))
+
+
+def test_group_assign_outputs_carry_gradients_on_cuda(cuda):
+    """The repaired fault: eval and Gumbel grouping on CUDA are
+    differentiable, with the CPU's straight-through gradients."""
+    gen = torch.Generator().manual_seed(3)
+    q0, k0, v0 = (torch.randn(2, n, 16, generator=gen) for n in (4, 19, 19))
+    noise = -torch.log(-torch.log(torch.rand(2, 4, 19, generator=gen)))
+    w = [torch.randn(s, generator=gen) for s in ((2, 4, 16), (2, 4, 19), (2, 4, 19))]
+    for call in (lambda q, k, v, nz: group_assign(q, k, v),
+                 lambda q, k, v, nz: group_assign_st(q, k, v, nz, 0.9)):
+        grads = {}
+        for device in (cuda, torch.device("cpu")):
+            q, k, v = (t.to(device).clone().requires_grad_(True) for t in (q0, k0, v0))
+            outs = call(q, k, v, noise.to(device))
+            assert all(o.requires_grad for o in outs)
+            sum((o * wt.to(device)).sum() for o, wt in zip(outs, w)).backward()
+            grads[device.type] = [t.grad.cpu() for t in (q, k, v)]
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            assert (a - b).abs().max().item() <= 1e-4 * (1 + b.abs().max().item())
+
+
+def test_kernel_route_refuses_48_dim_heads_plain_route_takes_them(cuda):
+    x = torch.randn(2, 10, 384, device=cuda)
+    w, b = torch.randn(3 * 384, 384, device=cuda) * 0.05, torch.zeros(3 * 384, device=cuda)
+    args = (x, None, w, b, w[:384], b[:384], 8)
+    with pytest.raises(ValueError, match="64-dim heads"):
+        tattn.multi_head_attention(*args, compute_dtype=torch.float32)
+    calls = tattn.plain_route.calls
+    out = tattn.multi_head_attention(*args, compute_dtype=torch.float32, route="plain")
+    ref = tattn.multi_head_attention(*(a.cpu() if a is not None and not isinstance(a, int)
+                                       else a for a in args),
+                                     compute_dtype=torch.float32, route="plain")
+    assert tattn.plain_route.calls == calls + 2
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4

@@ -28,6 +28,7 @@ from segclip_tpu_torch.ops import pos_embed as tpos
 from segclip_tpu_torch.ops.kernels.attention import attention, attention_plain
 from segclip_tpu_torch.ops.kernels.checks import (ATTN_BF16_SHARE, bf16_ulps,
                                                   rounded_p_case)
+from segclip_tpu_torch.ops.kernels import grouping as tgroup_kernels
 from segclip_tpu_torch.ops.kernels.grouping import group_assign, group_assign_plain
 
 torch.set_num_threads(1)
@@ -304,3 +305,202 @@ def test_gumbel_softmax_draws_from_the_generator():
     np.testing.assert_array_equal(_np(a), _np(b))
     assert not np.array_equal(_np(a), _np(c))
     np.testing.assert_allclose(_np(a).sum(axis=1), 1.0, atol=1e-6)
+
+
+# --- the training slice: gradients, masking, position tables, routes -----
+
+ATTN_GRAD_CASES = [("no_bias", 2, 13, 13, 2, None), ("causal", 2, 21, 21, 2, "causal"),
+                   ("padding", 3, 17, 17, 2, "padding"), ("cross", 2, 8, 30, 2, None)]
+
+
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES, ids=[c[0] for c in ATTN_GRAD_CASES])
+def test_attention_gradients_match_jax(case):
+    """`attention` through autograd (the saved-P backward, its plain version
+    on the CPU) against jax.grad of the JAX `sdpa` path at 1e-5, and
+    against the TPU kernel's VJP (interpret mode) within that kernel's own
+    2e-2: it saves P in bf16 (tests/test_pallas_attention.py)."""
+    name, b, lq, lk, h, bias = case
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    q, k, v = _qkv(rng, b, lq, lk, h)
+    w = rng.normal(size=(b, lq, h * 64)).astype(np.float32)
+    bias2d, biasb = _biases(rng, bias, b, lq, lk)
+    jbias = (jnp.asarray(bias2d) if bias2d is not None else
+             jnp.asarray(biasb)[:, None, None, :] if biasb is not None else None)
+
+    def loss_sdpa(q_, k_, v_):
+        return jnp.sum(jattn._merge_heads(jattn.sdpa(
+            jattn._split_heads(q_, h), jattn._split_heads(k_, h),
+            jattn._split_heads(v_, h), bias=jbias)) * w)
+
+    def loss_vmem(q_, k_, v_):
+        o = attention_vmem(q_, k_, v_, None if bias2d is None else jnp.asarray(bias2d),
+                           None if biasb is None else jnp.asarray(biasb), 64 ** -0.5, True)
+        return jnp.sum(o * w)
+
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    ref = jax.grad(loss_sdpa, argnums=(0, 1, 2))(*args)
+    vmem = jax.grad(loss_vmem, argnums=(0, 1, 2))(*args)
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = attention(tq, tk, tv, None if bias2d is None else _t(bias2d),
+                    None if biasb is None else _t(biasb))
+    (out * _t(w)).sum().backward()
+    for name_, got, r, vm in zip("qkv", (tq.grad, tk.grad, tv.grad), ref, vmem):
+        np.testing.assert_allclose(_np(got), np.asarray(r), atol=TOL, err_msg=name_)
+        np.testing.assert_allclose(_np(got), np.asarray(vm), rtol=2e-2, atol=2e-2,
+                                   err_msg=name_)
+
+
+def test_attention_bwd_plain_matches_autodiff_of_the_plain_forward():
+    """The backward's plain version from a saved P equals torch autograd
+    through the plain forward (float32)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_t(x).requires_grad_(True) for x in _qkv(rng, 2, 11, 15, 2))
+    do = _t(rng.normal(size=(2, 11, 128)).astype(np.float32))
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd_plain,
+                                                         attention_fwd_plain)
+    out, p = attention_fwd_plain(q, k, v)
+    (out * do).sum().backward()
+    grads = attention_bwd_plain(p.detach(), do, q.detach(), k.detach(), v.detach())
+    for got, r in zip(grads, (q.grad, k.grad, v.grad)):
+        np.testing.assert_allclose(_np(got), _np(r), atol=TOL)
+
+
+def _st_inputs(single_patch_group: bool, seed: int):
+    """Gumbel-noised inputs as tests/test_pallas.py builds them. With
+    single_patch_group the noise picks the winners instead: group 0 wins
+    exactly patch 0, group 1 nothing, groups 2 and 3 the rest (the
+    1 / 0.5 / 0 branches of the max(count, 1) subgradient)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(2, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 19, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 19, 16)).astype(np.float32)
+    noise = rng.gumbel(size=(2, 4, 19)).astype(np.float32)
+    if single_patch_group:
+        q *= 0.1                                   # logits well inside ±5
+        winner = np.where(np.arange(19) == 0, 0, 2 + np.arange(19) % 2)
+        noise = 5.0 * (np.arange(4)[:, None] == winner[None, :])
+        noise = np.broadcast_to(noise, (2, 4, 19)).astype(np.float32)
+    weights = [rng.normal(size=s).astype(np.float32)
+               for s in ((2, 4, 16), (2, 4, 19), (2, 4, 19))]
+    return q, k, v, noise, weights
+
+
+@pytest.mark.parametrize("single_patch_group", [False, True])
+def test_group_assign_st_matches_jax(single_patch_group):
+    """Values and gradients of `group_assign_st` against the TPU kernel's
+    straight-through VJP (interpret mode) and against autodiff through the
+    jnp path with the same noise: hard equal, gradients within 1e-5."""
+    from segclip_tpu.ops.pallas.grouping import fused_group_assign_st
+    q, k, v, noise, (w_out, w_hard, w_soft) = _st_inputs(single_patch_group, 23)
+    jw = [jnp.asarray(x) for x in (w_out, w_hard, w_soft)]
+
+    def weighted(outs):
+        return sum(jnp.sum(o * wt) for o, wt in zip(outs, jw))
+
+    def loss_fused(q_, k_, v_):
+        return weighted(fused_group_assign_st(q_, k_, v_, jnp.asarray(noise), 0.9, True))
+
+    def loss_jnp(q_, k_, v_):
+        logits = jnp.einsum("bgd,bld->bgl", q_, k_, preferred_element_type=jnp.float32)
+        return weighted(jgroup.group_assign_aggregate(logits, v_, tau=0.9, training=True,
+                                                      gumbel_noise=jnp.asarray(noise)))
+
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    outs = tgroup_kernels.group_assign_st(tq, tk, tv, _t(noise), 0.9)
+    if single_patch_group:
+        counts = _np(outs[1]).sum(-1)
+        assert (counts[:, 0] == 1).all() and (counts[:, 1] == 0).all()
+    fused = fused_group_assign_st(*args, jnp.asarray(noise), 0.9, True)
+    np.testing.assert_array_equal(_np(outs[1]), np.asarray(fused[1]))
+    for got, r in zip(outs, fused):
+        np.testing.assert_allclose(_np(got), np.asarray(r), atol=TOL)
+    sum((o * _t(wt)).sum() for o, wt in zip(outs, (w_out, w_hard, w_soft))).backward()
+    for loss in (loss_fused, loss_jnp):
+        ref = jax.grad(loss, argnums=(0, 1, 2))(*args)
+        for name, got, r in zip("qkv", (tq.grad, tk.grad, tv.grad), ref):
+            np.testing.assert_allclose(_np(got), np.asarray(r), atol=TOL,
+                                       err_msg=f"{loss.__name__} d{name}")
+
+
+def test_eval_group_assign_is_differentiable_like_jax():
+    """The eval grouping carries gradients (a plain softmax through the
+    straight-through estimator), as JAX's eval path does."""
+    q, k, v, _, (w_out, w_hard, w_soft) = _st_inputs(False, 31)
+
+    def loss_jnp(q_, k_, v_):
+        logits = jnp.einsum("bgd,bld->bgl", q_, k_, preferred_element_type=jnp.float32)
+        outs = jgroup.group_assign_aggregate(logits, v_, tau=0.9, training=False)
+        return sum(jnp.sum(o * jnp.asarray(wt))
+                   for o, wt in zip(outs, (w_out, w_hard, w_soft)))
+
+    ref = jax.grad(loss_jnp, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    outs = group_assign(tq, tk, tv)
+    assert all(o.requires_grad for o in outs)
+    sum((o * _t(wt)).sum() for o, wt in zip(outs, (w_out, w_hard, w_soft))).backward()
+    for name, got, r in zip("qkv", (tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(_np(got), np.asarray(r), atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("keep_sep", [False, True])
+def test_random_masking_matches_jax(keep_sep):
+    """With CLS and each row's EOT pinned to −1 the two tie; the stable sort
+    keeps them in position order, so ids_restore equals JAX's exactly
+    (rows 1 and 3 put EOT at 0 or beside CLS on purpose)."""
+    from segclip_tpu.ops import masking as jmasking
+    from segclip_tpu_torch.ops.masking import random_masking
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 12, 6)).astype(np.float32)
+    noise = rng.random((4, 12)).astype(np.float32)
+    noise[2, 5] = noise[2, 7]                     # a tie between unpinned entries too
+    sep = np.array([5, 0, 11, 1])
+    kw = dict(keep_cls=True, keep_sep=keep_sep, sep_pos=sep if keep_sep else None)
+    ref = jmasking.random_masking(jnp.asarray(x), 0.25, noise=jnp.asarray(noise),
+                                  **{**kw, "sep_pos": jnp.asarray(sep) if keep_sep else None})
+    out = random_masking(_t(x), 0.25, noise=_t(noise),
+                         **{**kw, "sep_pos": _t(sep) if keep_sep else None})
+    for got, r in zip(out, ref):
+        np.testing.assert_array_equal(_np(got), np.asarray(r))
+    gen = torch.Generator().manual_seed(0)
+    drawn = random_masking(_t(x), 0.25, generator=gen, keep_cls=True)
+    assert drawn[0].shape == (4, 9, 6) and (_np(drawn[3])[:, 0] == 0).all()
+
+
+def test_position_tables_equal_jax_copies():
+    for dim, grid in ((32, 4), (384, 14)):
+        np.testing.assert_array_equal(tpos.sincos_2d(dim, grid, cls_token=True),
+                                      jpos.sincos_2d(dim, grid, cls_token=True))
+    for n, dim in ((12, 16), (32, 256)):
+        np.testing.assert_array_equal(tpos.sinusoid_table(n, dim),
+                                      jpos.sinusoid_table(n, dim))
+
+
+@pytest.mark.parametrize("bias", [None, "padding"])
+def test_plain_route_takes_48_dim_heads_and_matches_jax(bias):
+    """The MAE decoders' route: 8 heads of 48 over width 384, as JAX's XLA
+    path computes them; the kernel route refuses the same call."""
+    rng = np.random.default_rng(12)
+    d, h, b, l = 384, 8, 2, 10
+    x = rng.normal(size=(b, l, d)).astype(np.float32)
+    wqkv = rng.normal(0, 0.05, size=(d, 3 * d)).astype(np.float32)
+    bqkv = rng.normal(0, 0.05, size=3 * d).astype(np.float32)
+    wout = rng.normal(0, 0.05, size=(d, d)).astype(np.float32)
+    bout = rng.normal(0, 0.05, size=d).astype(np.float32)
+    _, biasb = _biases(rng, bias, b, l, l)
+    jb = None if biasb is None else jnp.asarray(biasb)[:, None, None, :]
+    params = {"qkv": {"kernel": jnp.asarray(wqkv), "bias": jnp.asarray(bqkv)},
+              "out": {"kernel": jnp.asarray(wout), "bias": jnp.asarray(bout)}}
+    jx = jnp.asarray(x)
+    ref = jattn.multi_head_attention(params, jx, jx, h, bias=jb, compute_dtype=jnp.float32)
+    args = (_t(x), None, _t(wqkv.T.copy()), _t(bqkv), _t(wout.T.copy()), _t(bout), h)
+    tb = None if biasb is None else _t(biasb)[:, None, None, :]
+    calls = tattn.plain_route.calls
+    out = tattn.multi_head_attention(*args, bias=tb, compute_dtype=torch.float32,
+                                     route="plain")
+    assert tattn.plain_route.calls == calls + 1
+    np.testing.assert_allclose(_np(out), np.asarray(ref), atol=2e-5)
+    with pytest.raises(ValueError, match="64-dim heads"):
+        tattn.multi_head_attention(*args, bias=tb, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="route"):
+        tattn.multi_head_attention(*args, compute_dtype=torch.float32, route="xla")
