@@ -29,19 +29,29 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      decoder's plain-route attention), warm step time and peak memory;
   5. the training step against its plain self: one float32 step at full
      width with B = 2 and injected noise, on the card and on the CPU;
-then device time from torch.profiler: each kernel and its plain version at
-the phase-1 shapes (the "ms"/"plain_ms" of the JSON line, at each kernel's
-main shape), a profile of three warm requests and of one training step.
+then device time from torch.profiler: each kernel, its plain version and,
+for attention, one PyTorch call computing the same function
+(`scaled_dot_product_attention`, its backend read from the profiler's
+kernel names), at the phase-1 shapes, each beside its bound
+(segclip_tpu_torch/ops/kernels/bounds.py); a profile of three warm requests
+and of one training step. The build prints each kernel's registers and
+spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
+instructions (HMMA) in each attention kernel.
 
 Exits non-zero when there is no CUDA card or any check fails. Prints the
-card's name and power limit, one JSON line of kernel results, and as its
-last line {"ok": true, "device": {...}}.
+card's name and power limit, one JSON line of kernel results ("ms",
+"plain_ms", "library_ms", "bound_ms" at each kernel's main shape, launches
+per training step and per eval request), and as its last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -138,6 +148,7 @@ TRAIN_GRAD_TOL = 1e-4
 # Phase 3: float32 whole-image logits on the card and on the CPU.
 E2E_PIXEL_TOL = 1e-3        # a pixel agrees if every class logit is within this
 E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
+PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
 
 
 def check(cond: bool, msg: str) -> None:
@@ -164,23 +175,29 @@ def call_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 def device_rows(fn) -> list:
     """Run `fn` under torch.profiler; the per-kernel (and per-copy) rows of
-    what ran on the card."""
+    what ran on the card. Now and then the profiler hands back no device
+    record for a run that did launch kernels; such a run is repeated, and
+    after PROFILE_TRIES empty runs the result is [] (the caller says so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    check(sum(e.self_device_time_total for e in rows) > 0,
-          "the profiler saw no device time")
-    return rows
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in rows) > 0:
+            return rows
+    return []
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple:
     """Device time of one call: the summed durations of every kernel and
-    copy it ran on the card, averaged over `reps` calls."""
+    copy it ran on the card, averaged over `reps` calls; and the name of
+    the kernel that took most of it. Where the profiler saw nothing, the
+    time of the `reps` calls back to back by CUDA events (launch gaps
+    included), and None for the name."""
     for _ in range(warmup):
         fn()
 
@@ -188,7 +205,60 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
 
-    return sum(e.self_device_time_total for e in device_rows(run)) / reps / 1e3
+    rows = device_rows(run)
+    if not rows:
+        print(f"  (the profiler saw no device time in {PROFILE_TRIES} runs: "
+              "timed by CUDA events instead)")
+        return call_ms(run, reps=3, warmup=0) / reps, None
+    top = max(rows, key=lambda e: e.self_device_time_total).key
+    return sum(e.self_device_time_total for e in rows) / reps / 1e3, top
+
+
+def sdpa_backend(kernel_name) -> str:
+    """Which backend of scaled_dot_product_attention ran, from the name of
+    its largest kernel (None: the profiler saw none)."""
+    if kernel_name is None:
+        return "not read"
+    name = kernel_name.lower()
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient"),
+                         ("efficient", "efficient"), ("mem_eff", "efficient")):
+        if key in name:
+            return backend
+    return f"other ({kernel_name[:60]})"
+
+
+def sdpa_library(q, k, v, bias2d, biasb, do=None):
+    """One PyTorch call computing the same attention, timed as a yardstick
+    and never called by the port: scaled_dot_product_attention on the
+    head-split views of the same (B, L, H·64) inputs, is_causal for the
+    causal mask and a float attn_mask for the padding bias. With `do`, its
+    forward and backward under autograd (it saves no P, so it is compared
+    with the kernels' forward-with-P plus backward)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    heads = q.shape[-1] // 64
+
+    def split(t):
+        return t.view(t.shape[0], t.shape[1], heads, 64).transpose(1, 2)
+
+    kw = {}
+    if bias2d is not None:
+        kw["is_causal"] = True                    # the only bias2d of the path
+    if biasb is not None:
+        kw["attn_mask"] = biasb[:, None, None, :].to(q.dtype)
+    if do is None:
+        qh, kh, vh = split(q), split(k), split(v)
+
+        def forward():
+            with torch.no_grad():
+                return sdpa(qh, kh, vh, **kw)
+        return forward
+    qh, kh, vh = (split(t).detach().requires_grad_() for t in (q, k, v))
+    doh = split(do)
+
+    def forward_backward():
+        return torch.autograd.grad(sdpa(qh, kh, vh, **kw), (qh, kh, vh), doh)
+    return forward_backward
 
 
 def attention_inputs(case, dtype, dev, gen):
@@ -219,6 +289,7 @@ def attention_inputs(case, dtype, dev, gen):
 def phase_kernels(dev) -> tuple:
     """Phase 1: each kernel against its plain version at the path's shapes.
     Returns the main-shape summary and the calls to time on the device."""
+    from segclip_tpu_torch.ops.kernels import bounds
     from segclip_tpu_torch.ops.kernels.attention import attention, attention_plain
     from segclip_tpu_torch.ops.kernels.checks import (ATTN_BF16_SHARE, bf16_ulps,
                                                       rounded_p_case)
@@ -249,6 +320,9 @@ def phase_kernels(dev) -> tuple:
             kernel = functools.partial(attention, q, k, v, b2, bb)
             plain = functools.partial(attention_plain, q, k, v, b2, bb)
             call, plain_call = call_ms(kernel), call_ms(plain)
+            _, b, lq, lk, h, bias, _ = case
+            work = bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=False,
+                                             bias2d=b2 is not None, biasb=bb is not None)
             tol = ATTN_TOL[dtype]
             ulp_note = ""
             if dtype == torch.bfloat16:
@@ -261,7 +335,9 @@ def phase_kernels(dev) -> tuple:
             print(f"  attention {case[0]:34s} {str(dtype)[6:]:8s} err {err:.3e} "
                   f"(tol {tol:g}){ulp_note}  {call:.4f} / {plain_call:.4f} ms")
             check(err <= tol, f"attention {case[0]} {dtype}: err {err} > {tol}")
-            timings.append((f"attention {case[0]} {str(dtype)[6:]}", kernel, plain))
+            timings.append(dict(name=f"attention {case[0]} {str(dtype)[6:]}", kernel=kernel,
+                                plain=plain, work=(*work, dtype),
+                                library=sdpa_library(q, k, v, b2, bb)))
             if case is ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention"] = dict(max_abs_err=err, timing=len(timings) - 1)
 
@@ -297,7 +373,10 @@ def phase_kernels(dev) -> tuple:
             check(soft_err <= SOFT_TOL, f"grouping {name}: soft err {soft_err}")
             check(out_ok, f"grouping {name} {dtype}: out err {out_err}{out_note}")
             check(int(hard.sum()) == n * l, f"grouping {name}: hard is not one-hot")
-            timings.append((f"grouping {name} {str(dtype)[6:]}", kernel, plain))
+            timings.append(dict(name=f"grouping {name} {str(dtype)[6:]}", kernel=kernel,
+                                plain=plain, library=None,
+                                work=(*bounds.group_assign_work(n, g, l, d, dtype, False),
+                                      dtype)))
             if name == GROUP_CASES[0][0] and dtype == torch.bfloat16:
                 summary["grouping"] = dict(max_abs_err=out_err, timing=len(timings) - 1)
     training_kernels(dev, gen, summary, timings)
@@ -314,6 +393,7 @@ def bf16_share(out, ref) -> tuple:
 def training_kernels(dev, gen, summary, timings) -> None:
     """Phase 1, training shapes: the forward with P saved, the backward from
     that P, and the Gumbel grouping, each against its plain version."""
+    from segclip_tpu_torch.ops.kernels import bounds
     from segclip_tpu_torch.ops.kernels.attention import (
         attention_bwd, attention_bwd_plain, attention_fwd, attention_fwd_plain)
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
@@ -356,11 +436,20 @@ def training_kernels(dev, gen, summary, timings) -> None:
                   f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
                   f"{note}  fwd {call_ms(fwd):.4f} / {call_ms(fwd_plain):.4f} ms, bwd "
                   f"{call_ms(bwd):.4f} / {call_ms(bwd_plain):.4f} ms")
-            timings.append((f"attention fwd+P {case[0]} {dname}", fwd, fwd_plain))
+            _, b, lq, lk, h, bias, _ = case
+            timings.append(dict(
+                name=f"attention fwd+P {case[0]} {dname}", kernel=fwd, plain=fwd_plain,
+                work=(*bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=True,
+                                                 bias2d=b2 is not None,
+                                                 biasb=bb is not None), dtype),
+                library=sdpa_library(q, k, v, b2, bb)))
             if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention_fwd_train"] = dict(max_abs_err=out_err,
                                                       timing=len(timings) - 1)
-            timings.append((f"attention bwd {case[0]} {dname}", bwd, bwd_plain))
+            timings.append(dict(
+                name=f"attention bwd {case[0]} {dname}", kernel=bwd, plain=bwd_plain,
+                work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
+                library=sdpa_library(q, k, v, b2, bb, do), pair=len(timings) - 1))
             if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention_bwd"] = dict(
                     max_abs_err=max((g.float() - r.float()).abs().max().item()
@@ -403,7 +492,10 @@ def training_kernels(dev, gen, summary, timings) -> None:
             check(y_err <= YSOFT_TOL, f"gumbel grouping {name}: y_soft err {y_err}")
             check(out_ok, f"gumbel grouping {name} {dtype}: out err {out_err}{out_note}")
             check(int(hard.sum()) == n * l, f"gumbel grouping {name}: hard is not one-hot")
-            timings.append((f"gumbel grouping {name} {dname}", kernel, plain))
+            timings.append(dict(name=f"gumbel grouping {name} {dname}", kernel=kernel,
+                                plain=plain, library=None,
+                                work=(*bounds.group_assign_work(n, g, l, d, dtype, True),
+                                      dtype)))
             if name == GROUP_ST_CASES[0][0] and dtype == torch.bfloat16:
                 summary["grouping_st"] = dict(max_abs_err=out_err, timing=len(timings) - 1)
 
@@ -493,9 +585,10 @@ def phase_slice(dev, cfg) -> tuple:
         ("224x224 group_map", lambda: seg.group_map(img_224), (224, 224), cfg.group_num),
     )
     for name, fn, shape, upper in requests:
-        a0, g0 = attention.launches, group_assign.launches
+        before = read_counters()
         pred, cold_ms = timed(fn)
-        da, dg = attention.launches - a0, group_assign.launches - g0
+        per_request = {k: n - before[k] for k, n in read_counters().items()}
+        da, dg = per_request["attention_fwd"], per_request["group_assign"]
         check(pred.shape == shape and pred.dtype == np.int32,
               f"{name}: {pred.shape} {pred.dtype}")
         check(pred.min() >= 0 and pred.max() < upper, f"{name}: labels out of range")
@@ -515,7 +608,7 @@ def phase_slice(dev, cfg) -> tuple:
     for logits in (seg.whole(img_224), seg.slide(img_300x500)):
         check(np.isfinite(logits).all(), "non-finite logits")
     print(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    return model, seg, requests, counts
+    return model, seg, requests, counts, per_request
 
 
 def train_path_counts(cfg) -> dict:
@@ -557,7 +650,7 @@ def synthetic_batch(b: int, cfg, seed: int, device) -> dict:
 
 def phase_train(dev) -> tuple:
     """Phase 4: the training step at ViT-B/16 width, B = 96."""
-    from segclip_tpu.config import Config
+    from segclip_tpu_torch.config import Config
     from segclip_tpu_torch.models.segclip import init_segclip
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 
@@ -628,7 +721,7 @@ class GroupingProbe:
 def phase_train_plain_self(dev, model) -> None:
     """Phase 5: one float32 training step at full width, B = 2, with the
     same injected noise on the card and on the CPU."""
-    from segclip_tpu.config import Config, ModelConfig
+    from segclip_tpu_torch.config import Config, ModelConfig
     from segclip_tpu_torch.models.segclip import SegCLIP
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 
@@ -686,26 +779,117 @@ def phase_train_plain_self(dev, model) -> None:
 
 def print_profile(name: str, fn) -> None:
     box = {}
-    rows = device_rows(lambda: box.setdefault("wall", timed(fn)[1]))
+    rows = device_rows(lambda: box.__setitem__("wall", timed(fn)[1]))
+    if not rows:
+        print(f"  {name}, profiled: the profiler saw no device time in {PROFILE_TRIES} "
+              f"runs (wall {box['wall']:.2f} ms)")
+        return
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"  {name}, profiled: wall {box['wall']:.2f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / box['wall']:.3f}; top:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+    ours = [e for e in rows if "(anonymous namespace)::" in e.key]      # the port's kernels
+    print(f"    the port's kernels, {sum(e.self_device_time_total for e in ours) / 1e3:.3f} "
+          "ms in all: " + "; ".join(
+              f"{e.key.split('::')[1].split('(')[0]} "
+              f"{e.self_device_time_total / 1e3:.3f} ms {e.count}x"
+              for e in sorted(ours, key=lambda e: -e.self_device_time_total)))
 
 
 def phase_device_time(seg, requests, timings, train_step) -> list:
     """Device time from torch.profiler, last: profiling slows the launches
-    that follow it, so nothing is timed by the host clock after this."""
-    print("device time (torch.profiler; ms per call, kernel / plain)")
-    ms = []
-    for name, kernel, plain in timings:
-        ms.append((device_ms(kernel), device_ms(plain)))
-        print(f"  {name:58s} {ms[-1][0]:.4f} / {ms[-1][1]:.4f}")
+    that follow it, so nothing is timed by the host clock after this. For
+    each timing: the kernel's and the plain version's ms per call, the
+    library call's (attention only) with its backend, and the bound."""
+    from segclip_tpu_torch.ops.kernels.bounds import bound_ms
+    print("device time (torch.profiler; ms per call: kernel / plain / library "
+          "[SDPA backend]; bound from bounds.py at 3.35 TB/s, 989 TFLOP/s bf16, "
+          "67 TFLOP/s f32; the bwd rows' library is SDPA forward + backward, set "
+          "against the kernels' fwd+P + bwd pair)")
+    rows = []
+    for t in timings:
+        row = dict(ms=device_ms(t["kernel"])[0], plain_ms=device_ms(t["plain"])[0],
+                   library_ms=None, library_backend=None)
+        row["bound_ms"], row["bound_by"] = bound_ms(*t["work"])
+        if t["library"] is not None:
+            row["library_ms"], top = device_ms(t["library"])
+            row["library_backend"] = sdpa_backend(top)
+        lib = ("none" if row["library_ms"] is None else
+               f"{row['library_ms']:.4f} [{row['library_backend']}]")
+        pair = ""
+        if "pair" in t:
+            row["pair_ms"] = rows[t["pair"]]["ms"] + row["ms"]
+            pair = f"; fwd+P + bwd pair {row['pair_ms']:.4f}"
+        print(f"  {t['name']:58s} {row['ms']:.4f} / {row['plain_ms']:.4f} / {lib}; "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']}), kernel at "
+              f"{row['bound_ms'] / row['ms']:.1%} of it{pair}")
+        rows.append(row)
     for name, fn, _, _ in requests[:3]:
         print_profile(name, fn)
     print_profile(f"training step B={TRAIN_BATCH}", train_step)
-    return ms
+    return rows
+
+
+def kernel_name(mangled: str) -> str:
+    """`attention_fwd_bf16_kernel` (or `assign_kernel<bf16>`) from a mangled
+    name: the last length-prefixed identifier that ends in `_kernel`."""
+    names, i = [], 0
+    while i < len(mangled):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            start = i + len(digits.group())
+            names.append(mangled[start:start + int(digits.group())])
+            i = start + int(digits.group())
+        else:
+            i += 1
+    kernels = [n for n in names if n.endswith("_kernel")]
+    name = kernels[-1] if kernels else mangled
+    if "__nv_bfloat16" in names:
+        return name + "<bf16>"
+    return name + "<float>" if "IfE" in mangled else name
+
+
+def print_ptxas(log: str) -> None:
+    """One line per kernel: registers, shared memory and spills (ptxas -v)."""
+    name, notes = None, []
+    for line in log.splitlines() + ["Compiling entry function 'end'"]:
+        if "Compiling entry function" in line:
+            if name:
+                print(f"  ptxas: {kernel_name(name):34s} " + "; ".join(notes))
+            name, notes = line.split("'")[1], []
+        elif name and ("registers" in line or "spill" in line):
+            notes.append(line.split(":", 1)[-1].strip())
+
+
+def tensor_core_counts(library) -> dict:
+    """Where cuobjdump exists: the HMMA (tensor-core) instructions in each
+    kernel's SASS, printed; the bf16 attention kernels must have some.
+    Returns {"attention_fwd": n, "attention_bwd": n} (empty without
+    cuobjdump)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("  cuobjdump not found: tensor-core instructions not counted")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = kernel_name(found.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\b|\bHGMMA\b", line):
+            counts[name] += 1
+    print("  SASS tensor-core instructions (HMMA/HGMMA) per kernel: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items())))
+    for kernel in ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
+                   "attention_bwd_dkv_bf16_kernel"):
+        check(counts.get(kernel, 0) > 0, f"{kernel}: no tensor-core instruction in its SASS")
+    return {"attention_fwd": counts["attention_fwd_bf16_kernel"],
+            "attention_bwd": counts["attention_bwd_dq_bf16_kernel"]
+            + counts["attention_bwd_dkv_bf16_kernel"]}
 
 
 def phase_plain_self(dev, model, cfg) -> None:
@@ -748,7 +932,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from segclip_tpu_torch.kernels import build
-    from segclip_tpu_torch.models.segclip import ModelConfig
+    from segclip_tpu_torch.config import ModelConfig
     from segclip_tpu_torch.utils.device import resolve_device
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -762,17 +946,17 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    print_ptxas(build.build_log())
+    hmma = tensor_core_counts(build.build())
 
     summary, timings = phase_kernels(dev)
     cfg = ModelConfig()
-    model, seg, requests, eval_counts = phase_slice(dev, cfg)
+    model, seg, requests, eval_counts, per_request = phase_slice(dev, cfg)
     phase_plain_self(dev, model, cfg)
     train_model, step, state, batch, train_counts = phase_train(dev)
+    per_step = train_path_counts(cfg)
     phase_train_plain_self(dev, train_model)
-    ms = phase_device_time(seg, requests, timings, lambda: step(state, batch))
+    rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
 
     kernels = []
     for name, src, tpu, key, counter in (
@@ -780,12 +964,26 @@ def main() -> int:
             ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd", "attention_bwd"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
-        kernel_ms, plain_ms = ms[summary[key]["timing"]]
+        t = timings[summary[key]["timing"]]
+        row = rows[summary[key]["timing"]]
         by_path = {"eval": eval_counts[counter], "train": train_counts[counter]}
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=tpu,
-                            launches=sum(by_path.values()), launches_by_path=by_path,
-                            max_abs_err=summary[key]["max_abs_err"],
-                            ms=kernel_ms, plain_ms=plain_ms))
+        entry = dict(name=name, route="cuda", source=src, replaces=tpu,
+                     launches=sum(by_path.values()), launches_by_path=by_path,
+                     launches_per_train_step=per_step[counter],
+                     launches_per_eval_request=per_request[counter],
+                     max_abs_err=summary[key]["max_abs_err"], shape=t["name"],
+                     ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                     bound_by=row["bound_by"], library_ms=row["library_ms"],
+                     library_call=None, hmma=hmma.get(name))
+        if name == "attention_fwd":
+            entry["library_call"] = ("scaled_dot_product_attention forward, no P "
+                                     f"({row['library_backend']})")
+        elif name == "attention_bwd":
+            entry["library_call"] = ("scaled_dot_product_attention forward + backward "
+                                     f"under autograd ({row['library_backend']}); "
+                                     "compare with pair_ms")
+            entry["pair_ms"] = row["pair_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ layout (`clip.visual.transformer.layers0.N.*`, `…k_conv.weight` of shape
 
 Two sources:
   - JAX params (the flax tree as numpy arrays) through
-    `segclip_tpu.checkpoint.torch_export.export_state_dict`, which is numpy
-    only;
+    `export_state_dict` (checkpoint/torch_export.py, the port's numpy-only
+    copy of the JAX package's exporter);
   - a reference-layout `.bin` / `.pt` state dict read with `torch.load`.
 
 `load_into` loads every key of the model strictly: `clip.*` and the MAE
@@ -24,7 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from segclip_tpu.checkpoint.torch_export import export_state_dict
+from segclip_tpu_torch.checkpoint.torch_export import export_state_dict
 
 DECODERS = ("vis_mae_decoder.", "seq_mae_decoder.")
 POS_TABLE_KEY = "decoder_pos_embed"

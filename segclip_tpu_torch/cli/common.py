@@ -7,7 +7,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from segclip_tpu.config import ModelConfig
+from segclip_tpu_torch.config import ModelConfig
 from segclip_tpu_torch.checkpoint.convert import (load_into,
                                                   load_reference_state_dict)
 from segclip_tpu_torch.models.segclip import SegCLIP, init_segclip

@@ -4,8 +4,9 @@
     python -m segclip_tpu_torch.cli.eval_zeroshot --dataset voc \
         --data-root /data/VOC2012 --init-model segclip.bin
 
-Runs on the first CUDA card when there is one, else on the CPU (with the
-kernels' plain versions). Prints one JSON line with the results last.
+Runs on the CUDA card (`--device cuda`, the default) and raises when there
+is none; `--device cpu` runs on the CPU with the kernels' plain versions.
+Prints one JSON line with the results last.
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ import logging
 import os
 import sys
 
-from segclip_tpu.config import ModelConfig, apply_overrides
-from segclip_tpu.evalseg.datasets import DATASET_SPECS, SegEvalDataset
+from segclip_tpu_torch.config import ModelConfig, apply_overrides
+from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS, SegEvalDataset
 from segclip_tpu_torch.cli.common import load_model
 from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter, evaluate_dataset
 from segclip_tpu_torch.evalseg.text_bank import build_text_bank
@@ -68,13 +69,16 @@ def main(argv=None):
                     help="encode dtype; default keeps the model config's "
                          "(bfloat16). float32 is the reference's eval "
                          "precision")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default), cuda:N, or cpu; the CPU runs the "
+                         "kernels' plain versions and is used only when named")
     ap.add_argument("--output-dir", default="output/eval")
     ap.add_argument("--opts", nargs="*", default=[],
                     help="model config overrides key=value")
     args = ap.parse_args(argv)
 
     logger = _logger(args.output_dir)
-    device = resolve_device()
+    device = resolve_device(args.device)
     cfg = ModelConfig()
     for item in args.opts:
         cfg = apply_overrides(cfg, [item])

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from segclip_tpu.evalseg.miou import MIoUMeter
+from segclip_tpu_torch.evalseg.miou import MIoUMeter
 from segclip_tpu_torch.ops.pos_embed import interp_tensor
 
 

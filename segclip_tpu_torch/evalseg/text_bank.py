@@ -7,8 +7,8 @@ from typing import Sequence
 
 import torch
 
-from segclip_tpu.data.tokenizer import default_tokenizer
-from segclip_tpu.evalseg.templates import TEMPLATE_SETS
+from segclip_tpu_torch.data.tokenizer import default_tokenizer
+from segclip_tpu_torch.evalseg.templates import TEMPLATE_SETS
 
 
 @torch.inference_mode()

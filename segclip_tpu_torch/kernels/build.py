@@ -1,11 +1,13 @@
 """Build-on-first-use loader for the port's CUDA kernels (ctypes, no torch
 headers).
 
-All sources under `segclip_tpu_torch/csrc/` are compiled by `nvcc` into one
-shared library with a plain C interface, named by a hash of the sources and
-flags, in `build/kernels/` at the root of the checkout. A changed source
-gives a new name and so a rebuild. Each kernel module binds its own entry
-point with `ctypes` (pointers and the stream as `c_void_p`).
+Each source under `segclip_tpu_torch/csrc/` (`*.cu`, with the headers
+`*.cuh` they include) is compiled by its own `nvcc`, all started together,
+and the objects are linked into one shared library with a plain C
+interface, named by a hash of the sources, headers and flags, in
+`build/kernels/` at the root of the checkout. A changed source gives a new
+name and so a rebuild. Each kernel module binds its own entry point with
+`ctypes` (pointers and the stream as `c_void_p`).
 
 Nothing here runs at import: the build happens at the first launch, on a
 machine with `nvcc` (compute capability 9.0a, Hopper).
@@ -23,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list[Path]:
@@ -45,29 +47,42 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libsegclip_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the library if it is not built yet; return its path. The
-    compiler's output (register and shared-memory use per kernel, from
-    `-Xptxas -v`) is kept beside it as `<name>.log`."""
+    """Compile the library if it is not built yet; return its path. One
+    `nvcc -c` per source runs in parallel, then one link. The compilers'
+    output (register and shared-memory use per kernel, from `-Xptxas -v`)
+    is kept beside the library as `<name>.log`."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)                    # atomic: a reader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        logs = [Path(tmp) / f"{src.stem}.log" for src in sources()]
+        procs = []
+        for src, obj, log in zip(sources(), objs, logs):
+            with open(log, "w") as out:
+                procs.append(subprocess.Popen(
+                    [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=out, stderr=subprocess.STDOUT))
+        codes = [proc.wait() for proc in procs]
+        output = "".join(log.read_text() for log in logs)
+        if not any(codes):
+            link = subprocess.run(
+                [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(Path(tmp) / "lib.so"),
+                 *map(str, objs)], capture_output=True, text=True)
+            output += link.stdout + link.stderr
+            codes.append(link.returncode)
+        lib.with_suffix(".log").write_text(output)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({max(codes)}):\n{output}")
+        os.replace(Path(tmp) / "lib.so", lib)   # atomic: a reader never sees half a file
     return lib
 
 

@@ -22,7 +22,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from segclip_tpu.config import ModelConfig
+from segclip_tpu_torch.config import ModelConfig
 from segclip_tpu_torch.models.clip import CLIPModule
 from segclip_tpu_torch.models.layers import LayerNormFP32
 from segclip_tpu_torch.models.mae_decoder import TextMAEDecoder, VisionMAEDecoder

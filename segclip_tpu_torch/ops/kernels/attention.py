@@ -5,16 +5,19 @@ their plain PyTorch versions, and the autograd Function that joins them.
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 segclip_tpu/ops/pallas/attention.py (`attention_vmem` and its custom VJP).
 What bounds them on the H100 and what their design does about it is in the
-headers of the CUDA sources: at SegCLIP's lengths (≤ ~300 tokens) the calls
-are small and latency-bound, so the forward keeps the score matrix on chip
-and both kernels read the q|k|v column views of the packed projection in
-place (a row stride per operand), with no head transpose and no copy.
+headers of the CUDA sources: at bfloat16 both kernels run their products on
+tensor cores and are bound by the bytes of Q, K, V, dO and the saved P;
+both read the q|k|v column views of the packed projection in place (a row
+stride per operand), with no head transpose and no copy. At float32 they run
+fp32 FMAs (the parity path, no TF32).
 
 `attention` is differentiable on every device. Under autograd its forward
 saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
-the TPU kernel's VJP does. Each wrapper (`attention_fwd`, `attention_bwd`)
-takes its plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
+the TPU kernel's VJP does. On the card P is a view of a (B, H, Lq, Lk8)
+buffer, Lk8 = Lk rounded up to 8, so every row starts on 16 bytes; the
+backward reads it through its strides, without a copy. Each wrapper
+(`attention_fwd`, `attention_bwd`) takes its plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -118,7 +121,7 @@ def attention_bwd_plain(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
 def _fwd_entry():
     fn = build.load().segclip_attention_fwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,7 +130,7 @@ def _fwd_entry():
 def _bwd_entry():
     fn = build.load().segclip_attention_bwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -175,13 +178,53 @@ def _unit_last_stride(*tensors) -> None:
         raise ValueError("q, k, v (and dO) need a unit stride on the last dim")
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' 16-byte copies (`cp.async`) can read `t`:
+    a unit last stride, and its base and the strides of every dim longer
+    than 1 multiples of 16 bytes."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1))
+
+
+def _check_aligned(*tensors) -> None:
+    if any(not _aligned16(t) for t in tensors):
+        raise ValueError("bfloat16 q, k, v need 16-byte aligned bases and row "
+                         "and batch strides (multiples of 8 elements)")
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _kernel_p(p: torch.Tensor) -> torch.Tensor:
+    """P as the backward kernel reads it: the forward's padded view goes in
+    as it is; another layout is copied into one (bf16: rows padded to 8
+    elements; f32: a unit last stride)."""
+    if p.dtype == torch.bfloat16 and not _aligned16(p):
+        padded = torch.zeros((*p.shape[:-1], _round8(p.shape[-1])), dtype=p.dtype,
+                             device=p.device)
+        padded[..., :p.shape[-1]] = p
+        return padded[..., :p.shape[-1]]
+    return p if p.stride(-1) == 1 else p.contiguous()
+
+
+def _kernel_do(do: torch.Tensor) -> torch.Tensor:
+    """dO as the backward kernel reads it: a misaligned dO (the expanded
+    cotangent of a sum, an offset view) is copied into fresh storage."""
+    ok = _aligned16(do) if do.dtype == torch.bfloat16 else do.stride(-1) == 1
+    return do if ok else do.clone(memory_format=torch.contiguous_format)
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias2d: Optional[torch.Tensor] = None,
                   biasb: Optional[torch.Tensor] = None,
                   scale: float = HEAD_DIM ** -0.5, save_p: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward kernel's wrapper: (out (B, Lq, H·64) contiguous in v's
-    dtype, P (B, H, Lq, Lk) in v's dtype if `save_p` else None). Not
+    dtype, P (B, H, Lq, Lk) in v's dtype if `save_p` else None; on the card
+    P is the view [..., :Lk] of a (B, H, Lq, Lk8) buffer). Not
     differentiable itself; `attention` is."""
     _check(q, k, v, bias2d, biasb)
     device = _device_of(q, k, v, bias2d, biasb)
@@ -190,14 +233,17 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, (p if save_p else None)
 
     _unit_last_stride(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     bias2d = None if bias2d is None else bias2d.contiguous()
     biasb = None if biasb is None else biasb.contiguous()
     b, lq, dm = q.shape
     lk = k.shape[1]
     heads = dm // HEAD_DIM
     out = torch.empty((b, lq, dm), dtype=v.dtype, device=device)
-    p = (torch.empty((b, heads, lq, lk), dtype=v.dtype, device=device)
-         if save_p else None)
+    p = (torch.empty((b, heads, lq, _round8(lk)), dtype=v.dtype,
+                     device=device)[..., :lk] if save_p else None)
+    p_strides = p.stride()[:3] if save_p else (0, 0, 0)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _fwd_entry()(
@@ -207,7 +253,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if p is None else p.data_ptr(),
             b, heads, lq, lk,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), float(scale), stream)
+            v.stride(0), v.stride(1), *p_strides, float(scale), stream)
     build.check(err, "attention_fwd")
     attention.launches += 1
     return out, p
@@ -219,7 +265,9 @@ def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's wrapper: (dQ, dK, dV) from the saved P, the
     output's cotangent dO (B, Lq, H·64) and the operands, each contiguous
-    in its operand's dtype."""
+    in its operand's dtype. P is read through its strides (the forward's
+    padded view without a copy); a dO the kernel cannot read in place is
+    copied first."""
     _check(q, k, v, None, None)
     b, lq, dm = q.shape
     lk = k.shape[1]
@@ -234,19 +282,22 @@ def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     if device.type == "cpu":
         return attention_bwd_plain(p, do, q, k, v, scale)
 
-    _unit_last_stride(do, q, k, v)
-    p = p.contiguous()
+    _unit_last_stride(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
+    p, do = _kernel_p(p), _kernel_do(do)
     dq = torch.empty((b, lq, dm), dtype=q.dtype, device=device)
     dk = torch.empty((b, lk, dm), dtype=k.dtype, device=device)
     dv = torch.empty((b, lk, dm), dtype=v.dtype, device=device)
-    drow = torch.empty((b, heads, lq), dtype=torch.float32, device=device)
+    drow = torch.empty((b, heads, (lq + 3) // 4 * 4), dtype=torch.float32,
+                       device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _bwd_entry()(
             _DTYPES[q.dtype], p.data_ptr(), do.data_ptr(), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), drow.data_ptr(), b, heads, lq, lk,
-            do.stride(0), do.stride(1), q.stride(0), q.stride(1),
+            *p.stride()[:3], do.stride(0), do.stride(1), q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             float(scale), stream)
     build.check(err, "attention_bwd")
@@ -269,8 +320,6 @@ class AttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         p, q, k, v = ctx.saved_tensors
-        if do.stride(-1) != 1:          # e.g. the expanded cotangent of a sum
-            do = do.contiguous()
         dq, dk, dv = attention_bwd(p, do, q, k, v, ctx.scale)
         return dq, dk, dv, None, None, None
 

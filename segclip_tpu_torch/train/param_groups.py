@@ -23,7 +23,7 @@ from typing import Dict, List
 
 from torch import nn
 
-from segclip_tpu.config import OptimConfig
+from segclip_tpu_torch.config import OptimConfig
 
 _CLIP_FREEZE_PREFIXES = (
     "clip.visual.class_embedding",

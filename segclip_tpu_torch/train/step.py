@@ -26,8 +26,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from segclip_tpu.config import Config
-from segclip_tpu.data.transforms import CLIP_MEAN, CLIP_STD
+from segclip_tpu_torch.config import Config
+from segclip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from segclip_tpu_torch.models.segclip import SegCLIP
 from segclip_tpu_torch.train.optimizer import AdaptAdamW, global_norm_clip
 from segclip_tpu_torch.train.param_groups import freeze, param_groups

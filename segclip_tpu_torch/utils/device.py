@@ -7,16 +7,14 @@ import torch
 
 
 def resolve_device(name: Optional[str] = None) -> torch.device:
-    """The device to run on: `name` if given ("cuda", "cuda:1", "cpu"),
-    else the first CUDA card if there is one, else the CPU. A CUDA device
-    that is not there raises. Turns TF32 off for both matmuls and cuDNN, so
-    that float32 means float32 (the JAX package's eval runs its float32 dots
-    at full precision)."""
+    """The device to run on: `name` ("cuda", "cuda:1", "cpu"), the card
+    when no name is given. The CPU is used only when it is named; a CUDA
+    device that is not there raises. Turns TF32 off for both matmuls and
+    cuDNN, so that float32 means float32 (the JAX package's eval runs its
+    float32 dots at full precision)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if name is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(name)
+    device = torch.device("cuda" if name is None else name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not available")
     return device

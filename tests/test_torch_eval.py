@@ -7,6 +7,7 @@ float32 argmax is stable against summation order where bf16's is not
 (docs/PERF.md "Deterministic eval mode"). Logit tolerance 2e-5 against JAX;
 the golden decode at its docs/PARITY.md bound of 2e-4.
 """
+import dataclasses
 import json
 import os
 
@@ -23,6 +24,7 @@ from segclip_tpu.evalseg.inference import ZeroShotSegmenter as JSegmenter
 from segclip_tpu.evalseg.text_bank import build_text_bank as jax_text_bank
 from segclip_tpu.models.segclip import init_segclip as jax_init_segclip
 
+from segclip_tpu_torch.config import ModelConfig as TModelConfig
 from segclip_tpu_torch.checkpoint.convert import load_into, state_dict_from_jax
 from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
 from segclip_tpu_torch.evalseg.text_bank import build_text_bank
@@ -38,6 +40,8 @@ CFG = ModelConfig(image_resolution=32, vision_patch_size=8, vision_width=128,
                   transformer_layers=2, embed_dim=32, max_words=16,
                   mae_decoder_depth=1, mae_decoder_num_heads=2,
                   compute_dtype="float32", grouping_impl="jnp")
+# The port takes its own dataclass, built from the same fields.
+TCFG = TModelConfig(**dataclasses.asdict(CFG))
 CLASSES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car")
 
 
@@ -47,8 +51,8 @@ def pair():
     (crop 32, stride 24: overlapping windows)."""
     jmodel, jparams = jax_init_segclip(CFG, seed=0)
     jparams = jax.tree_util.tree_map(np.asarray, jparams)
-    model = SegCLIP(CFG)
-    load_into(model, state_dict_from_jax(jparams, CFG.vision_patch_size))
+    model = SegCLIP(TCFG)
+    load_into(model, state_dict_from_jax(jparams, TCFG.vision_patch_size))
     model.eval()
     bank = np.random.default_rng(0).normal(size=(len(CLASSES), 32))
     bank = (bank / np.linalg.norm(bank, axis=-1, keepdims=True)).astype(np.float32)
@@ -105,11 +109,11 @@ def test_golden_zero_shot_decode():
     pack = np.load(FIXTURE)
     sd = {k[3:]: torch.from_numpy(pack[k]) for k in pack.files
           if k.startswith("sd/")}
-    cfg = ModelConfig(image_resolution=32, vision_patch_size=8, vision_width=64,
-                      vision_layers=12, first_stage_layer=3, group_num=8,
-                      cross_layer=2, context_length=16, vocab_size=512,
-                      transformer_width=64, transformer_layers=2, embed_dim=32,
-                      compute_dtype="float32")
+    cfg = TModelConfig(image_resolution=32, vision_patch_size=8, vision_width=64,
+                       vision_layers=12, first_stage_layer=3, group_num=8,
+                       cross_layer=2, context_length=16, vocab_size=512,
+                       transformer_width=64, transformer_layers=2, embed_dim=32,
+                       compute_dtype="float32")
     model = SegCLIP(cfg)
     load_into(model, sd)
     seg = ZeroShotSegmenter(model.eval(), torch.from_numpy(pack["in/text_bank"]),
@@ -148,7 +152,7 @@ def test_eval_zeroshot_cli_end_to_end(tmp_path, capsys):
     out = tmp_path / "out"
     results = main(["--dataset", "voc", "--data-root", str(root),
                     "--compute-dtype", "float32", "--output-dir", str(out),
-                    "--opts"] + TINY_OPTS)
+                    "--device", "cpu", "--opts"] + TINY_OPTS)
     assert 0.0 <= results["mIoU"] <= 100.0
     payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert payload["dataset"] == "voc" and payload["mIoU"] == results["mIoU"]
@@ -156,3 +160,14 @@ def test_eval_zeroshot_cli_end_to_end(tmp_path, capsys):
     assert snap["model"]["compute_dtype"] == "float32"
     assert snap["model"]["vision_width"] == 64 and snap["device"] == "cpu"
     assert (out / "log.txt").exists()
+
+
+def test_eval_zeroshot_cli_runs_on_the_card_unless_told(tmp_path):
+    """With no --device the CLI asks for the card; without one it raises
+    instead of evaluating on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default run would use it")
+    from segclip_tpu_torch.cli.eval_zeroshot import main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--dataset", "voc", "--data-root", str(tmp_path),
+              "--output-dir", str(tmp_path / "out"), "--opts"] + TINY_OPTS)

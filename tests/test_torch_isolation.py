@@ -1,13 +1,18 @@
-"""The PyTorch port stands without JAX, and its kernel wrappers never leave
-the device they were given.
+"""The PyTorch port stands without JAX and without the JAX package, its
+entry points run on the card unless the CPU is named, and its kernel
+wrappers never leave the device they were given.
 
-A fresh interpreter imports segclip_tpu_torch, runs a tiny encode_image,
-encode_text and predict, and one tiny training step, on the CPU, and must
-end with neither jax nor flax in sys.modules.
+A fresh interpreter imports only segclip_tpu_torch, runs a tiny
+encode_image, encode_text and predict, and one tiny training step, on the
+CPU, and must end with no module of segclip_tpu, jax or flax in
+sys.modules. An AST scan holds every file of the port, and chip_smoke.py,
+to importing nothing of segclip_tpu.
 """
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -22,7 +27,8 @@ SCRIPT = r"""
 import sys
 import numpy as np
 import torch
-from segclip_tpu_torch.models.segclip import ModelConfig, init_segclip
+from segclip_tpu_torch.config import Config, ModelConfig
+from segclip_tpu_torch.models.segclip import init_segclip
 from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
 
 torch.set_num_threads(1)
@@ -43,7 +49,6 @@ pred = seg.predict(img, (40, 48), mode="slide")
 assert vis.pooled.shape == (1, 32) and txt.pooled.shape == (1, 32)
 assert pred.shape == (40, 48) and 0 <= pred.min() and pred.max() <= 5
 
-from segclip_tpu.config import Config
 from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 cfg = Config(model=ModelConfig(**{**cfg.__dict__, "max_words": 16,
                                   "mae_decoder_depth": 1, "mae_decoder_num_heads": 2}))
@@ -57,7 +62,8 @@ batch = {"input_ids": torch.from_numpy(ids), "attention_mask": torch.from_numpy(
          "image_seg": torch.from_numpy(rng.integers(0, 4, (2, 4, 4)))}
 metrics = step(TrainState(), batch)
 assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped_nan"]) == 0.0
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("segclip_tpu", "jax", "flax"))
 print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)
 """
@@ -70,16 +76,47 @@ def test_port_runs_without_jax():
     assert "LEAKED []" in proc.stdout
 
 
+def _imported_modules(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_port_files_import_nothing_of_the_jax_package():
+    """Every module of the port, and chip_smoke.py, at any depth (inside
+    functions too): no `import segclip_tpu...` and no `from segclip_tpu...`
+    (the port keeps its own copies, tests/test_torch_vendored.py)."""
+    files = sorted(Path(REPO, "segclip_tpu_torch").rglob("*.py")) + [
+        Path(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    offenders = {str(f.relative_to(REPO)): sorted(bad) for f in files
+                 if (bad := {m for m in _imported_modules(f)
+                             if m.split(".")[0] in ("segclip_tpu", "jax", "flax")})}
+    assert offenders == {}
+
+
 def test_cuda_device_without_a_card_raises():
     """A CUDA device that is not there is an error, never a quiet move to
-    the CPU."""
+    the CPU: by name, and by default (no name means the card)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; tests/test_torch_kernels.py "
                     "runs the kernels on it")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device()
     with pytest.raises((RuntimeError, AssertionError)):
         torch.zeros(1, device="cuda")
+
+
+def test_resolve_device_gives_the_cpu_when_named():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("device", ["meta", "cpu:mixed"])

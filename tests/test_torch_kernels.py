@@ -300,3 +300,129 @@ def test_kernel_route_refuses_48_dim_heads_plain_route_takes_them(cuda):
                                      compute_dtype=torch.float32, route="plain")
     assert tattn.plain_route.calls == calls + 2
     assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+# The bf16 tensor-core kernels (csrc/attention_fwd.cu, csrc/attention_bwd.cu
+# with tc_bf16.cuh) at ragged lengths: 64-row blocks, 64-row K/V/P tiles and
+# 8-wide P pieces all meet a partial edge somewhere in this set, and
+# Lk > 512 takes pass (a)'s streamed-P branch.
+RAGGED = (1, 7, 8, 15, 17, 48, 56, 196, 204, 294, 392)
+
+
+def _bf16_case(cuda, b, lq, lk, h, bias=None, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    d = h * 64
+    qkv = torch.randn(b, max(lq, lk), 3 * d, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :lq, :d], qkv[:, :lk, d:2 * d], qkv[:, :lk, 2 * d:]
+    bias2d = biasb = None
+    if bias == "causal":
+        bias2d = torch.full((lq, lk), float("-inf"), device=cuda).triu(1)
+    elif bias == "padding":
+        lens = torch.randint(1, lk + 1, (b, 1), generator=gen, device=cuda)
+        biasb = (torch.arange(lk, device=cuda)[None] >= lens).float() * -1e6
+    do = torch.randn(b, lq, d, generator=gen, device=cuda).to(torch.bfloat16)
+    return q, k, v, bias2d, biasb, do
+
+
+def _assert_bf16_close(out, ref):
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert (bf16_ulps(out, ref) > 1).float().mean().item() <= ATTN_BF16_SHARE
+
+
+def _fwd_bwd_matches_plain(cuda, b, lq, lk, h, bias=None, seed=0):
+    q, k, v, bias2d, biasb, do = _bf16_case(cuda, b, lq, lk, h, bias, seed)
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    grads = attention_bwd(p, do, q, k, v)
+    grads_ref = attention_bwd_plain(p, do, q, k, v)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref)
+    _assert_bf16_close(p, p_ref)
+    for g, r in zip(grads, grads_ref):
+        assert torch.isfinite(g).all()
+        _assert_bf16_close(g, r)
+
+
+@pytest.mark.parametrize("lk", RAGGED)
+@pytest.mark.parametrize("lq", RAGGED)
+def test_bf16_attention_ragged_lengths(cuda, lq, lk):
+    _fwd_bwd_matches_plain(cuda, 2, lq, lk, 2, seed=lq * 1000 + lk)
+
+
+@pytest.mark.parametrize("lq, lk", [(17, 512), (17, 513), (64, 1000), (130, 700)])
+def test_bf16_attention_backward_streams_p_past_its_cache(cuda, lq, lk):
+    _fwd_bwd_matches_plain(cuda, 1, lq, lk, 2, seed=lk)
+
+
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+@pytest.mark.parametrize("b, l, h", [(4, 77, 8), (3, 32, 8), (2, 196, 12), (2, 15, 1)])
+def test_bf16_attention_biases(cuda, bias, b, l, h):
+    _fwd_bwd_matches_plain(cuda, b, l, l, h, bias, seed=l)
+
+
+@pytest.mark.parametrize("lk", [7, 196, 204, 392])
+def test_bf16_saved_p_is_a_padded_view_read_without_a_copy(cuda, lk):
+    from segclip_tpu_torch.ops.kernels.attention import _kernel_p
+    q, k, v, _, _, do = _bf16_case(cuda, 2, 33, lk, 2)
+    _, p = attention_fwd(q, k, v, save_p=True)
+    lk8 = (lk + 7) // 8 * 8
+    assert p.shape == (2, 2, 33, lk) and p.stride() == (2 * 33 * lk8, 33 * lk8, lk8, 1)
+    assert p.data_ptr() % 16 == 0
+    full = p.as_strided((2, 2, 33, lk8), p.stride())
+    assert torch.equal(full[..., lk:], torch.zeros_like(full[..., lk:]))
+    assert _kernel_p(p) is p                        # handed to the kernel as it is
+    grads = attention_bwd(p, do, q, k, v)
+    for g, r in zip(grads, attention_bwd(p.contiguous(), do, q, k, v)):
+        assert torch.equal(g, r)
+
+
+def test_bf16_attention_fully_masked_row_is_nan_like_softmax(cuda):
+    q, k, v, _, _, do = _bf16_case(cuda, 1, 9, 70, 1)
+    bias2d = torch.zeros(9, 70, device=cuda)
+    bias2d[4] = float("-inf")
+    out, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d)
+    assert torch.isnan(out[0, 4]).all() and torch.isnan(ref[0, 4]).all()
+    assert torch.isnan(p[0, 0, 4]).all() and torch.isnan(p_ref[0, 0, 4]).all()
+    keep = torch.ones(9, dtype=torch.bool, device=cuda)
+    keep[4] = False
+    _assert_bf16_close(out[:, keep], ref[:, keep])
+    dq = attention_bwd(p, do, q, k, v)[0]
+    assert torch.isnan(dq[0, 4]).all() and torch.isfinite(dq[:, keep]).all()
+
+
+@pytest.mark.parametrize("kind", ["misaligned", "expanded"])
+def test_bf16_backward_copies_a_do_it_cannot_read_in_place(cuda, kind):
+    q, k, v, _, _, do = _bf16_case(cuda, 2, 40, 50, 2)
+    _, p = attention_fwd(q, k, v, save_p=True)
+    if kind == "misaligned":
+        flat = torch.empty(do.numel() + 8, dtype=do.dtype, device=cuda)
+        bad = flat[1:1 + do.numel()].view(do.shape)
+        bad.copy_(do)
+        assert bad.data_ptr() % 16 != 0
+    else:                                   # the cotangent of out.sum()
+        bad = do[0, 0, 0].expand_as(do)
+        do = bad.contiguous()
+    before = attention_bwd.launches
+    grads = attention_bwd(p, bad, q, k, v)
+    assert attention_bwd.launches == before + 1
+    for g, r in zip(grads, attention_bwd(p, do, q, k, v)):
+        assert torch.equal(g, r)
+
+
+def test_bf16_kernels_refuse_misaligned_operands(cuda):
+    x = torch.randn(2, 9, 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q, k, v = x[..., 1:65], x[..., 65:129], x[..., 129:193]
+    with pytest.raises(ValueError, match="16-byte"):
+        attention(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd(torch.zeros(2, 1, 9, 9, device=cuda, dtype=torch.bfloat16),
+                      torch.zeros(2, 9, 64, device=cuda, dtype=torch.bfloat16), q, k, v)
+
+
+def test_bf16_backward_is_bit_reproducible(cuda):
+    q, k, v, _, _, do = _bf16_case(cuda, 8, 196, 196, 12)
+    _, p = attention_fwd(q, k, v, save_p=True)
+    first = attention_bwd(p, do, q, k, v)
+    second = attention_bwd(p, do, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -22,6 +22,7 @@ from segclip_tpu.models.layers import ResidualAttentionBlock as JBlock
 from segclip_tpu.models.seg_vit import SemanticLearner as JSemantic
 from segclip_tpu.models.segclip import init_segclip as jax_init_segclip
 
+from segclip_tpu_torch.config import ModelConfig as TModelConfig
 from segclip_tpu_torch.checkpoint.convert import (load_into,
                                                   load_reference_state_dict,
                                                   state_dict_from_jax)
@@ -40,6 +41,8 @@ CFG = ModelConfig(image_resolution=32, vision_patch_size=8, vision_width=128,
                   transformer_width=128, transformer_layers=2, embed_dim=32,
                   max_words=16, mae_decoder_depth=1, mae_decoder_num_heads=2,
                   compute_dtype="float32", grouping_impl="jnp")
+# The port takes its own dataclass, built from the same fields.
+TCFG = TModelConfig(**dataclasses.asdict(CFG))
 
 
 def _np(x):
@@ -50,8 +53,8 @@ def _np(x):
 def pair():
     jmodel, jparams = jax_init_segclip(CFG, seed=0)
     jparams = jax.tree_util.tree_map(np.asarray, jparams)
-    model = SegCLIP(CFG)
-    dropped = load_into(model, state_dict_from_jax(jparams, CFG.vision_patch_size))
+    model = SegCLIP(TCFG)
+    dropped = load_into(model, state_dict_from_jax(jparams, TCFG.vision_patch_size))
     assert dropped == []
     return jmodel, jparams, model.eval()
 
@@ -122,7 +125,7 @@ def test_bf16_encode_image_close_to_f32(pair):
     """The bfloat16 chain runs end to end and stays near float32 (a loose
     bound: bf16 keeps ~3 significant digits through 4+2 blocks)."""
     _, _, model = pair
-    m16 = SegCLIP(dataclasses.replace(CFG, compute_dtype="bfloat16"))
+    m16 = SegCLIP(dataclasses.replace(TCFG, compute_dtype="bfloat16"))
     m16.load_state_dict(model.state_dict())
     img = torch.from_numpy(np.random.default_rng(3).normal(
         size=(2, 32, 32, 3)).astype(np.float32))
@@ -135,7 +138,7 @@ def test_bf16_encode_image_close_to_f32(pair):
 
 
 def test_init_is_seeded_and_loads_strictly(tmp_path):
-    a, b, c = (init_segclip(CFG, seed=s) for s in (0, 0, 1))
+    a, b, c = (init_segclip(TCFG, seed=s) for s in (0, 0, 1))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["clip.visual.proj"], sc["clip.visual.proj"])
@@ -157,11 +160,11 @@ def golden():
           if k.startswith("sd/")}
     inp = {k[3:]: pack[k] for k in pack.files if k.startswith("in/")}
     out = {k[4:]: pack[k] for k in pack.files if k.startswith("out/")}
-    cfg = ModelConfig(image_resolution=32, vision_patch_size=8, vision_width=64,
-                      vision_layers=12, first_stage_layer=3, group_num=8,
-                      cross_layer=2, context_length=16, vocab_size=512,
-                      transformer_width=64, transformer_layers=2, embed_dim=32,
-                      max_words=16, compute_dtype="float32")
+    cfg = TModelConfig(image_resolution=32, vision_patch_size=8, vision_width=64,
+                       vision_layers=12, first_stage_layer=3, group_num=8,
+                       cross_layer=2, context_length=16, vocab_size=512,
+                       transformer_width=64, transformer_layers=2, embed_dim=32,
+                       max_words=16, compute_dtype="float32")
     model = SegCLIP(cfg)
     dropped = load_into(model, sd)
     assert dropped == ["seq_mae_decoder.", "vis_mae_decoder.decoder_pos_embed"]

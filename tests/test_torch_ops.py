@@ -504,3 +504,24 @@ def test_plain_route_takes_48_dim_heads_and_matches_jax(bias):
         tattn.multi_head_attention(*args, bias=tb, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="route"):
         tattn.multi_head_attention(*args, compute_dtype=torch.float32, route="xla")
+
+
+def test_kernel_bounds_at_the_training_shape():
+    """bounds.py reproduces the byte and FLOP counts of the 96×196, H = 12
+    bf16 attention: forward with P 204.1 MB / 11.3 GFLOP (0.0609 ms at
+    3.35 TB/s), backward 290.8 MB / 22.7 GFLOP (0.0868 ms), both bound by
+    bytes; fp32 work at 67 TFLOP/s."""
+    from segclip_tpu_torch.ops.kernels import bounds
+    nbytes, flops = bounds.attention_fwd_work(96, 196, 196, 12, torch.bfloat16, save_p=True)
+    assert round(nbytes / 1e6, 1) == 204.1 and round(flops / 1e9, 1) == 11.3
+    ms, by = bounds.bound_ms(nbytes, flops, torch.bfloat16)
+    assert by == "bytes" and round(ms, 4) == 0.0609
+    nbytes, flops = bounds.attention_bwd_work(96, 196, 196, 12, torch.bfloat16)
+    assert round(nbytes / 1e6, 1) == 290.8 and round(flops / 1e9, 1) == 22.7
+    ms, by = bounds.bound_ms(nbytes, flops, torch.bfloat16)
+    assert by == "bytes" and round(ms, 4) == 0.0868
+    eval_bytes, _ = bounds.attention_fwd_work(2, 196, 196, 12, torch.bfloat16, save_p=False)
+    assert eval_bytes == 2 * 768 * 4 * 2 * 196
+    gb, gf = bounds.group_assign_work(96, 8, 196, 768, torch.bfloat16, training=True)
+    assert gb == 2 * (2 * 96 * 8 * 768 + 2 * 96 * 196 * 768) + 4 * 4 * 96 * 8 * 196
+    assert bounds.bound_ms(0, 67e9, torch.float32) == (1.0, "operations")

@@ -39,6 +39,7 @@ from segclip_tpu.train.param_groups import flat_paths, lr_wd_trees, trainable_tr
 from segclip_tpu.train.step import (_loss_fn, create_train_state,
                                     make_single_device_train_step)
 
+from segclip_tpu_torch import config as tconfig
 from segclip_tpu_torch.checkpoint.convert import load_into, state_dict_from_jax
 from segclip_tpu_torch.models.segclip import SegCLIP
 from segclip_tpu_torch.parallel import collectives
@@ -68,6 +69,15 @@ KEPT = int((TINY.num_patches + 1) * (1 - TINY.mae_vis_mask_ratio)) - 1
 
 def _np(x):
     return x.detach().cpu().numpy()
+
+
+def port_config(cfg):
+    """The port's config dataclass (segclip_tpu_torch/config.py) with the
+    fields of a JAX package config, nested configs included."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return getattr(tconfig, type(cfg).__name__)(**{
+        k: port_config(v) if dataclasses.is_dataclass(v) else v
+        for k, v in fields.items()})
 
 
 def make_batch(seed: int, b: int = B, uint8: bool = False) -> dict:
@@ -132,7 +142,7 @@ def jax_init():
 
 
 def port_model(jparams, cfg: ModelConfig = TINY) -> SegCLIP:
-    model = SegCLIP(cfg)
+    model = SegCLIP(port_config(cfg))
     assert load_into(model, state_dict_from_jax(jparams, cfg.vision_patch_size)) == []
     return model
 
@@ -151,7 +161,7 @@ def test_golden_pack_training_loss():
                       max_words=16, use_text_mae_recon=True, mae_seq_mask_ratio=0.25,
                       mae_decoder_depth=3, mae_decoder_num_heads=8,
                       compute_dtype="float32")
-    model = SegCLIP(cfg)
+    model = SegCLIP(port_config(cfg))
     assert load_into(model, sd) == ["seq_mae_decoder.decoder_pos_embed",
                                     "vis_mae_decoder.decoder_pos_embed"]
     b, kept = inp["img"].shape[0], int(17 * 0.25) - 1
@@ -304,13 +314,14 @@ def test_param_groups_match_jax(jax_init, freeze_layer_num, freeze_text_layer_nu
                        freeze_text_layer_num=freeze_text_layer_num)
     lr_tree, wd_tree = lr_wd_trees(jparams, ocfg)
     trainable = trainable_tree(jparams, ocfg, first_stage_layer=TINY.first_stage_layer)
-    model = SegCLIP(TINY)
-    frozen = set(freeze(model, ocfg, first_stage_layer=TINY.first_stage_layer))
+    model = SegCLIP(port_config(TINY))
+    tcfg = port_config(ocfg)
+    frozen = set(freeze(model, tcfg, first_stage_layer=TINY.first_stage_layer))
     groups = {n: (g["lr"], g["weight_decay"])
-              for g in param_groups(model, ocfg) for n in g["param_names"]}
+              for g in param_groups(model, tcfg) for n in g["param_names"]}
     to_jax = _torch_to_jax_paths(jparams)
     assert set(to_jax) == {n for n, _ in model.named_parameters()}
-    lrs = group_lrs(ocfg)
+    lrs = group_lrs(tcfg)
     for name, p in model.named_parameters():
         path = to_jax[name]
         assert p.requires_grad == bool(_tree_get(trainable, path)), name
@@ -348,7 +359,8 @@ def _run_both(jparams, batches, step_fn, accum: int = 1):
         for batch in batches:
             state, m = step_fn(state, {k: jnp.asarray(v) for k, v in batch.items()})
             jmetrics.append(jax.tree_util.tree_map(float, m))
-    cfg = dataclasses.replace(TRAIN_CFG, train=TrainConfig(seed=4, grad_accum_steps=accum))
+    cfg = port_config(dataclasses.replace(
+        TRAIN_CFG, train=TrainConfig(seed=4, grad_accum_steps=accum)))
     model = port_model(jax.tree_util.tree_map(np.asarray, jparams))
     optimizer = create_optimizer(model, cfg, t_total=T_TOTAL)
     step = make_train_step(model, optimizer, cfg)
@@ -427,7 +439,7 @@ def test_collectives_are_the_identity_at_world_size_one(monkeypatch):
 
 
 def test_load_into_checks_the_fixed_position_tables(jax_init):
-    model = SegCLIP(TINY)
+    model = SegCLIP(port_config(TINY))
     sd = state_dict_from_jax(jax_init[1], TINY.vision_patch_size)
     table = model.vis_mae_decoder.pos_table.clone()[None]
     assert load_into(model, {**sd, "vis_mae_decoder.decoder_pos_embed": table}) == \
