@@ -10,7 +10,9 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      with the tolerance stated beside each, and the time per call by CUDA
      events: the attention forward (eval shapes, and training shapes with P
      saved), the attention backward, the eval grouping and the Gumbel
-     (training) grouping; and the repaired fault: on CUDA, the outputs of
+     (training) grouping at each of their shapes, each grouping call run
+     twice and required to give the same bits; and the repaired fault: on
+     CUDA, the outputs of
      `attention` and `group_assign` require grad when their inputs do;
   2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
      seeded random init; a 20-class text bank; four requests through
@@ -36,12 +38,15 @@ kernel names), at the phase-1 shapes, each beside its bound
 (segclip_tpu_torch/ops/kernels/bounds.py); a profile of three warm requests
 and of one training step. The build prints each kernel's registers and
 spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
-instructions (HMMA) in each attention kernel.
+instructions (HMMA) in each kernel; the bf16 attention kernels and the
+bf16 grouping kernel must have some. The profiles list the port's own
+kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
 
 Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, one JSON line of kernel results ("ms",
-"plain_ms", "library_ms", "bound_ms" at each kernel's main shape, launches
-per training step and per eval request), and as its last line
+"plain_ms", "library_ms", "bound_ms" at each kernel's main shape, and the
+Gumbel grouping's at the MAE shape as "mae_*"; launches per training step
+and per eval request), and as its last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -98,6 +103,7 @@ TRAIN_ATTN_CASES = (
 # Grouping shapes of the path: (name, N, G, L, D).
 GROUP_CASES = (
     ("eval 2x8x196x768 (slide)", 2, 8, 196, 768),
+    ("eval 1x8x196x768 (whole 224x224)", 1, 8, 196, 768),
     ("eval 1x8x294x768 (whole 224x336)", 1, 8, 294, 768),
 )
 GROUP_ST_CASES = (
@@ -347,6 +353,7 @@ def phase_kernels(dev) -> tuple:
             v = torch.randn(n, l, d, generator=gen, device=dev).to(dtype)
             out, hard, soft = group_assign(q, k, v)
             _, hard_ref, soft_ref = group_assign_plain(q, k, v)
+            same = all(torch.equal(a, b) for a, b in zip((out, hard, soft), group_assign(q, k, v)))
             torch.cuda.synchronize()
             logits = torch.matmul(q.double(), k.double().transpose(1, 2))
             top2 = logits.topk(2, dim=1).values
@@ -368,7 +375,9 @@ def phase_kernels(dev) -> tuple:
             print(f"  grouping  {name:34s} {str(dtype)[6:]:8s} soft err {soft_err:.3e} "
                   f"out err {out_err:.3e}{out_note}; hard differs on "
                   f"{int(differ.sum())} patches, {n_near} near-tie patches "
-                  f"(margin < {NEAR_TIE:g})  {call:.4f} / {plain_call:.4f} ms")
+                  f"(margin < {NEAR_TIE:g}); run twice bit-identical: {same}  "
+                  f"{call:.4f} / {plain_call:.4f} ms")
+            check(same, f"grouping {name} {dtype}: a second call gave other bits")
             check(n_bad == 0, f"grouping {name}: hard differs on {n_bad} clear patches")
             check(soft_err <= SOFT_TOL, f"grouping {name}: soft err {soft_err}")
             check(out_ok, f"grouping {name} {dtype}: out err {out_err}{out_note}")
@@ -464,6 +473,8 @@ def training_kernels(dev, gen, summary, timings) -> None:
             noise = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
             out, hard, soft, y_soft = group_assign_fwd(q, k, v, noise, TAU)
             _, hard_ref, soft_ref, y_ref = group_assign_st_plain(q, k, v, noise, TAU)
+            same = all(torch.equal(a, b) for a, b in zip(
+                (out, hard, soft, y_soft), group_assign_fwd(q, k, v, noise, TAU)))
             torch.cuda.synchronize()
             logits = torch.matmul(q.double(), k.double().transpose(1, 2))
             top2 = ((logits + noise.double()) / TAU).topk(2, dim=1).values
@@ -485,8 +496,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
             plain = functools.partial(group_assign_st_plain, q, k, v, noise, TAU)
             print(f"  gumbel grouping {name:28s} {dname:8s} soft err {soft_err:.3e} y_soft "
                   f"err {y_err:.3e} out err {out_err:.3e}{out_note}; hard differs on "
-                  f"{int(differ.sum())} patches, {n_near} near-tie patches  "
-                  f"{call_ms(kernel):.4f} / {call_ms(plain):.4f} ms")
+                  f"{int(differ.sum())} patches, {n_near} near-tie patches; run twice "
+                  f"bit-identical: {same}  {call_ms(kernel):.4f} / {call_ms(plain):.4f} ms")
+            check(same, f"gumbel grouping {name} {dtype}: a second call gave other bits")
             check(n_bad == 0, f"gumbel grouping {name}: hard differs on {n_bad} clear patches")
             check(soft_err <= SOFT_TOL, f"gumbel grouping {name}: soft err {soft_err}")
             check(y_err <= YSOFT_TOL, f"gumbel grouping {name}: y_soft err {y_err}")
@@ -496,8 +508,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                 plain=plain, library=None,
                                 work=(*bounds.group_assign_work(n, g, l, d, dtype, True),
                                       dtype)))
-            if name == GROUP_ST_CASES[0][0] and dtype == torch.bfloat16:
-                summary["grouping_st"] = dict(max_abs_err=out_err, timing=len(timings) - 1)
+            if dtype == torch.bfloat16:
+                key = "grouping_st" if name == GROUP_ST_CASES[0][0] else "grouping_st_mae"
+                summary[key] = dict(max_abs_err=out_err, timing=len(timings) - 1)
 
 
 def repaired_fault(dev) -> None:
@@ -789,12 +802,12 @@ def print_profile(name: str, fn) -> None:
           f"{busy:.3f} ms, idle share {1 - busy / box['wall']:.3f}; top:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
-    ours = [e for e in rows if "(anonymous namespace)::" in e.key]      # the port's kernels
-    print(f"    the port's kernels, {sum(e.self_device_time_total for e in ours) / 1e3:.3f} "
+    from segclip_tpu_torch.kernels.build import port_kernel_name
+    ours = [(port_kernel_name(e.key), e) for e in rows if port_kernel_name(e.key)]
+    print(f"    the port's kernels, {sum(e.self_device_time_total for _, e in ours) / 1e3:.3f} "
           "ms in all: " + "; ".join(
-              f"{e.key.split('::')[1].split('(')[0]} "
-              f"{e.self_device_time_total / 1e3:.3f} ms {e.count}x"
-              for e in sorted(ours, key=lambda e: -e.self_device_time_total)))
+              f"{name} {e.self_device_time_total / 1e3:.3f} ms {e.count}x"
+              for name, e in sorted(ours, key=lambda x: -x[1].self_device_time_total)))
 
 
 def phase_device_time(seg, requests, timings, train_step) -> list:
@@ -832,8 +845,9 @@ def phase_device_time(seg, requests, timings, train_step) -> list:
 
 
 def kernel_name(mangled: str) -> str:
-    """`attention_fwd_bf16_kernel` (or `assign_kernel<bf16>`) from a mangled
-    name: the last length-prefixed identifier that ends in `_kernel`."""
+    """`attention_fwd_bf16_kernel` (or `group_assign_kernel<bf16, true>`)
+    from a mangled name: the last length-prefixed identifier that ends in
+    `_kernel`, with its element type and bool template arguments."""
     names, i = [], 0
     while i < len(mangled):
         digits = re.match(r"\d+", mangled[i:])
@@ -845,9 +859,10 @@ def kernel_name(mangled: str) -> str:
             i += 1
     kernels = [n for n in names if n.endswith("_kernel")]
     name = kernels[-1] if kernels else mangled
-    if "__nv_bfloat16" in names:
-        return name + "<bf16>"
-    return name + "<float>" if "IfE" in mangled else name
+    args = ["bf16"] if "__nv_bfloat16" in names else (
+        ["float"] if re.search(r"If[EL]", mangled) else [])
+    args += ["true" if flag == "1" else "false" for flag in re.findall(r"Lb([01])E", mangled)]
+    return f"{name}<{', '.join(args)}>" if args else name
 
 
 def print_ptxas(log: str) -> None:
@@ -864,9 +879,10 @@ def print_ptxas(log: str) -> None:
 
 def tensor_core_counts(library) -> dict:
     """Where cuobjdump exists: the HMMA (tensor-core) instructions in each
-    kernel's SASS, printed; the bf16 attention kernels must have some.
-    Returns {"attention_fwd": n, "attention_bwd": n} (empty without
-    cuobjdump)."""
+    kernel's SASS, printed; the bf16 attention kernels and the bf16
+    grouping kernel's 16-byte path must have some. Returns {"attention_fwd":
+    n, "attention_bwd": n, "group_assign": n, "group_assign_st": n} (empty
+    without cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -884,12 +900,14 @@ def tensor_core_counts(library) -> dict:
             counts[name] += 1
     print("  SASS tensor-core instructions (HMMA/HGMMA) per kernel: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
+    group = "group_assign_kernel<bf16, true>"
     for kernel in ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
-                   "attention_bwd_dkv_bf16_kernel"):
+                   "attention_bwd_dkv_bf16_kernel", group):
         check(counts.get(kernel, 0) > 0, f"{kernel}: no tensor-core instruction in its SASS")
     return {"attention_fwd": counts["attention_fwd_bf16_kernel"],
             "attention_bwd": counts["attention_bwd_dq_bf16_kernel"]
-            + counts["attention_bwd_dkv_bf16_kernel"]}
+            + counts["attention_bwd_dkv_bf16_kernel"],
+            "group_assign": counts[group], "group_assign_st": counts[group]}
 
 
 def phase_plain_self(dev, model, cfg) -> None:
@@ -978,6 +996,12 @@ def main() -> int:
         if name == "attention_fwd":
             entry["library_call"] = ("scaled_dot_product_attention forward, no P "
                                      f"({row['library_backend']})")
+        elif name == "group_assign_st":
+            mae = summary["grouping_st_mae"]
+            mae_row = rows[mae["timing"]]
+            entry.update(mae_shape=timings[mae["timing"]]["name"], mae_max_abs_err=mae["max_abs_err"],
+                         mae_ms=mae_row["ms"], mae_plain_ms=mae_row["plain_ms"],
+                         mae_bound_ms=mae_row["bound_ms"], mae_bound_by=mae_row["bound_by"])
         elif name == "attention_bwd":
             entry["library_call"] = ("scaled_dot_product_attention forward + backward "
                                      f"under autograd ({row['library_backend']}); "

@@ -64,6 +64,7 @@
 
 #include "tc_bf16.cuh"
 
+namespace segclip_kernels {
 namespace {
 
 using segclip_tc::bf16;
@@ -558,6 +559,9 @@ int launch_f32(const Args& a, int batch, cudaStream_t s) {
 }
 
 }  // namespace
+}  // namespace segclip_kernels
+
+using namespace segclip_kernels;
 
 extern "C" {
 

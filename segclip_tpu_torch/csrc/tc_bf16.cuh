@@ -1,4 +1,4 @@
-// Tensor-core building blocks for the bf16 attention kernels (sm_90a):
+// Tensor-core building blocks for the bf16 attention and grouping kernels (sm_90a):
 // `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators, `ldmatrix`
 // from shared memory, and `cp.async` 16-byte copies with zero fill.
 //
@@ -46,6 +46,11 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {

@@ -11,22 +11,32 @@ name and so a rebuild. Each kernel module binds its own entry point with
 
 Nothing here runs at import: the build happens at the first launch, on a
 machine with `nvcc` (compute capability 9.0a, Hopper).
+
+Every kernel of the library is declared in the C++ namespace
+`segclip_kernels` (inside it, in an anonymous one), so that a profiler's
+kernel names tell the port's kernels apart from PyTorch's, many of which
+live in anonymous namespaces too: `port_kernel_name` reads them.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from functools import lru_cache
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL_NAMESPACE = "segclip_kernels"
+_PORT_KERNEL = re.compile(KERNEL_NAMESPACE
+                          + r"::(?:\(anonymous namespace\)::)?(\w+(?:<[^()]*>)?)")
 
 
 def sources() -> list[Path]:
@@ -104,3 +114,12 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().segclip_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def port_kernel_name(name: str) -> Optional[str]:
+    """The kernel's name with its template arguments, e.g.
+    `group_assign_kernel<__nv_bfloat16, true>`, when a demangled kernel name
+    (as torch.profiler reports it) is one of this library's kernels; else
+    None."""
+    found = _PORT_KERNEL.search(name)
+    return found.group(1) if found else None

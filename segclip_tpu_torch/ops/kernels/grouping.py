@@ -5,12 +5,10 @@ autograd Function with the straight-through backward.
 Replaces the TPU kernel `_kernel` of segclip_tpu/ops/pallas/grouping.py,
 reached through `fused_group_assign` (training=False) and
 `fused_group_assign_st` (training=True, whose VJP `_st_bwd` is jnp, and is
-plain torch here). At the path's sizes (G=8 groups over 196 patches of
-width 768 per image) the call moves well under a megabyte per image and is
-latency-bound; the kernel spreads it over many blocks in two passes — an
-assignment pass over (image, 8 patches) and a gather-sum over (image, 64
-columns), since the assignment is one-hot — with only the winning group of
-each patch in between (details in the CUDA source).
+plain torch here). One launch per call, with a cluster of 8 blocks per
+image that share the winners through distributed shared memory; at bf16
+the logits and hard·v run on tensor cores, and q, k and v move in 16-byte
+pieces (details in the CUDA source).
 
 `group_assign` (eval) and `group_assign_st` (training) are differentiable
 on every device; each takes the plain version only for tensors on the CPU,
@@ -92,10 +90,32 @@ def group_assign_st_bwd(q, k, v, hard, soft, y_soft, out, tau: float,
 @lru_cache(maxsize=None)
 def _entry():
     fn = build.load().segclip_group_assign
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@lru_cache(maxsize=None)
+def _limits(dtype: int, vec: bool, g: int, l: int, d: int) -> Tuple[int, int]:
+    """(bytes of shared memory per block, clusters of 8 such blocks the
+    card holds at once) for a call at these sizes, from the kernel's own
+    layout and `cudaOccupancyMaxActiveClusters`."""
+    fn = build.load().segclip_group_assign_limits
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    smem, clusters = ctypes.c_longlong(), ctypes.c_int()
+    build.check(fn(dtype, int(vec), g, l, d, ctypes.byref(smem), ctypes.byref(clusters)),
+                "group_assign limits")
+    return smem.value, clusters.value
+
+
+def vector_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernel takes its 16-byte path (tensor-core logits at
+    bf16): D a multiple of 16 bytes and q, k, v 16-byte aligned. Otherwise
+    it takes its general path, in the same launch."""
+    return (q.shape[-1] * q.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def _check(q, k, v, noise):
@@ -148,22 +168,26 @@ def group_assign_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = k.shape[1]
     if n > 65535:
         raise ValueError(f"N={n} images exceed one launch's grid (65535)")
-    if 4 * g * d > SMEM_LIMIT:
-        raise ValueError(f"G·D too large: q takes {4 * g * d} bytes of shared "
-                         f"memory > {SMEM_LIMIT}")
-    out = torch.empty((n, g, d), dtype=v.dtype, device=device)
-    hard = torch.empty((n, g, l), dtype=torch.float32, device=device)
-    soft = torch.empty((n, g, l), dtype=torch.float32, device=device)
-    y_soft = soft if noise is None else torch.empty_like(soft)
-    winner = torch.empty((n, l), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    dtype, vec = _DTYPES[q.dtype], vector_path(q, k, v)
     with torch.cuda.device(device):
-        err = _entry()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        smem, clusters = _limits(dtype, vec, g, l, d)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"G={g}, L={l}, D={d} need {smem} bytes of shared "
+                             f"memory per block > {SMEM_LIMIT}")
+        if clusters < 1:
+            raise ValueError(f"no cluster of 8 blocks with {smem} bytes of shared "
+                             "memory each fits on the card")
+        out = torch.empty((n, g, d), dtype=v.dtype, device=device)
+        hard = torch.empty((n, g, l), dtype=torch.float32, device=device)
+        soft = torch.empty((n, g, l), dtype=torch.float32, device=device)
+        y_soft = soft if noise is None else torch.empty_like(soft)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _entry()(dtype, int(vec), q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), None if noise is None else noise.data_ptr(),
                        float(tau), out.data_ptr(), hard.data_ptr(),
                        soft.data_ptr(),
                        None if noise is None else y_soft.data_ptr(),
-                       winner.data_ptr(), n, g, l, d, stream)
+                       n, g, l, d, stream)
     build.check(err, "group_assign")
     if noise is None:
         group_assign.launches += 1

@@ -144,15 +144,29 @@ def test_group_assign_empty_group_and_ties(cuda):
 
 
 def test_group_assign_rejects_what_it_does_not_take(cuda):
+    """G ≤ 32, contiguous operands, N ≤ 65535 (one grid dimension), and
+    the shared memory of one block of the cluster: at float32 q (G·D·4
+    bytes) is staged whole, so G = 8, D = 8192 needs 256 KiB > 227 KiB; at
+    bf16 q and two k tiles are staged, so G = 32, D = 4096 needs more."""
     x = torch.randn(1, 4, 64, device=cuda)
     with pytest.raises(ValueError):
         group_assign(torch.randn(1, 33, 64, device=cuda), x, x)
     with pytest.raises(ValueError):
         group_assign(x[:, :2], x.transpose(1, 2).contiguous().transpose(1, 2), x)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="shared"):
         group_assign(torch.randn(1, 8, 8192, device=cuda),
                      torch.randn(1, 4, 8192, device=cuda),
                      torch.randn(1, 4, 8192, device=cuda))
+    big = torch.randn(1, 32, 4096, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="shared"):
+        group_assign(big, big[:, :4], big[:, :4])
+    y = torch.randn(65536, 1, 1, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        group_assign(y, y, y)
+    before = group_assign.launches
+    half = big[:, :8, :2048].contiguous()
+    out, _, _ = group_assign(half, half[:, :4].contiguous(), half[:, :4].contiguous())
+    assert group_assign.launches == before + 1 and out.shape == (1, 8, 2048)
 
 
 # The training step's attention shapes at B = 96: (B, Lq, Lk, heads, bias,
@@ -426,3 +440,110 @@ def test_bf16_backward_is_bit_reproducible(cuda):
     first = attention_bwd(p, do, q, k, v)
     second = attention_bwd(p, do, q, k, v)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _grouping_matches_plain(q, k, v, noise=None, tau=0.9):
+    """One call of the kernel (eval form without noise, Gumbel form with
+    it) against its plain version, at the tolerances of the module
+    docstring; a second call must give the same bits. Returns the
+    kernel's (out, hard, soft, y_soft)."""
+    counter = group_assign if noise is None else group_assign_st
+    before = counter.launches
+    outs = group_assign_fwd(q, k, v, noise, tau)
+    again = group_assign_fwd(q, k, v, noise, tau)
+    if noise is None:
+        _, hard_ref, soft_ref = group_assign_plain(q, k, v)
+        y_ref = soft_ref
+    else:
+        _, hard_ref, soft_ref, y_ref = group_assign_st_plain(q, k, v, noise, tau)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    out, hard, soft, y_soft = outs
+    n, g, _ = q.shape
+    y = torch.matmul(q.double(), k.double().transpose(1, 2))
+    if noise is not None:
+        y = (y + noise.double()) / tau
+    if g > 1:
+        top2 = y.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) >= 1e-3
+        assert torch.equal(hard.argmax(1)[clear], hard_ref.argmax(1)[clear])
+    assert torch.equal(hard.sum(1), torch.ones(n, k.shape[1], device=q.device))
+    assert (soft - soft_ref).abs().max().item() <= 1e-4
+    assert (y_soft - y_ref).abs().max().item() <= 1e-4
+    counts = hard.sum(-1, keepdim=True).clamp(min=1.0)
+    out_ref = (torch.matmul(hard, v.float()) / counts).to(v.dtype)
+    assert out.dtype == v.dtype and out.shape == q.shape
+    if v.dtype == torch.float32:
+        assert (out - out_ref).abs().max().item() <= 1e-5
+    else:
+        assert bf16_ulps(out, out_ref).max().item() <= 1
+    return outs
+
+
+def _grouping_inputs(cuda, n, g, l, d, dtype, gumbel, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(n, r, d, generator=gen, device=cuda).to(dtype) for r in (g, l, l))
+    noise = None
+    if gumbel:
+        u = torch.rand(n, g, l, generator=gen, device=cuda)
+        noise = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    return q, k, v, noise
+
+
+# The cluster's edges: 8 blocks per image, each assigning a multiple of 16
+# patch rows (L below 8, at 16, past it, past 8 · 16) and summing D / 8
+# columns (D = 7 and 100 take the general path at bf16, 100 the 16-byte
+# one at float32); G = 1, 8, 32 (one to four n-tiles); N up to 96.
+GROUP_LS = (1, 5, 15, 16, 17, 48, 196, 294, 1000, 4000)
+GROUP_EDGES = [(96 if l <= 48 else (4 if l <= 294 else 2), g, l, (7, 96, 768, 100)[(i + j) % 4])
+               for i, l in enumerate(GROUP_LS) for j, g in enumerate((1, 8, 32))]
+
+
+@pytest.mark.parametrize("gumbel", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, g, l, d", GROUP_EDGES)
+def test_group_assign_cluster_edges(cuda, n, g, l, d, dtype, gumbel):
+    q, k, v, noise = _grouping_inputs(cuda, n, g, l, d, dtype, gumbel, seed=l * 100 + g + d)
+    _grouping_matches_plain(q, k, v, noise)
+
+
+def _misaligned(t):
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    bad = flat[1:1 + t.numel()].view(t.shape)
+    bad.copy_(t)
+    return bad
+
+
+@pytest.mark.parametrize("gumbel", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_assign_misaligned_operands_take_the_general_path(cuda, dtype, gumbel):
+    from segclip_tpu_torch.ops.kernels.grouping import vector_path
+    q, k, v, noise = _grouping_inputs(cuda, 4, 8, 196, 768, dtype, gumbel, seed=11)
+    assert vector_path(q, k, v)
+    bad = [_misaligned(t) for t in (q, k, v)]
+    assert bad[1].data_ptr() % 16 != 0 and not vector_path(*bad)
+    _grouping_matches_plain(*bad, noise)
+
+
+@pytest.mark.parametrize("d", [4, 16])
+@pytest.mark.parametrize("gumbel", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_assign_empty_group_and_exact_tie_both_forms(cuda, dtype, gumbel, d):
+    """Groups 1 and 2 tie exactly on every patch (the lowest index wins),
+    group 0 stays empty (its output is 0); at bf16 and D = 16 the logits
+    come from the tensor cores, at D = 4 from the general path."""
+    q = torch.zeros(1, 3, d, device=cuda)
+    if gumbel:
+        noise = torch.zeros(1, 3, 21, device=cuda)
+        noise[0, 1] = noise[0, 2] = 2.0
+    else:
+        noise = None
+        q[0, 1] = q[0, 2] = 1.0
+    k = torch.ones(1, 21, d, device=cuda)
+    v = torch.arange(21 * d, dtype=torch.float32, device=cuda).reshape(1, 21, d) / 64
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    out, hard, soft, _ = _grouping_matches_plain(q, k, v, noise)
+    assert hard[0, 1].all() and not hard[0, 0].any() and not hard[0, 2].any()
+    assert torch.equal(out[0, 1], v[0].float().mean(0).to(dtype))
+    assert torch.equal(out[0, 0], torch.zeros(d, device=cuda, dtype=dtype))

@@ -525,3 +525,51 @@ def test_kernel_bounds_at_the_training_shape():
     gb, gf = bounds.group_assign_work(96, 8, 196, 768, torch.bfloat16, training=True)
     assert gb == 2 * (2 * 96 * 8 * 768 + 2 * 96 * 196 * 768) + 4 * 4 * 96 * 8 * 196
     assert bounds.bound_ms(0, 67e9, torch.float32) == (1.0, "operations")
+
+
+# Kernel names as torch.profiler reports them on the card: PyTorch's own
+# kernels, several in anonymous namespaces, and the port's, which live in
+# `segclip_kernels` (the name it prints, or None for a kernel not its own).
+PROFILER_NAMES = [
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float>"
+     "(int, float, float const*, float const*, float const*, float*, float*, float*)", None),
+    ("void (anonymous namespace)::softmax_warp_forward<float, float, float, 8, false, false>"
+     "(float*, float const*, int, int, int, bool const*, int, bool)", None),
+    ("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<"
+     "at::native::(anonymous namespace)::direct_copy_kernel_cuda(at::TensorIteratorBase&)"
+     "::{lambda()#3}::operator()() const::{lambda(float)#1}>(at::TensorIteratorBase&, "
+     "at::native::(anonymous namespace)::direct_copy_kernel_cuda(at::TensorIteratorBase&)"
+     "::{lambda()#3}::operator()() const::{lambda(float)#1} const&)::{lambda(int)#1}>"
+     "(int, at::native::gpu_kernel_impl_nocast<...>)", None),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1", None),
+    ("void segclip_kernels::(anonymous namespace)::attention_fwd_bf16_kernel("
+     "segclip_kernels::(anonymous namespace)::Args)", "attention_fwd_bf16_kernel"),
+    ("void segclip_kernels::(anonymous namespace)::attention_bwd_dkv_bf16_kernel("
+     "segclip_kernels::(anonymous namespace)::Args)", "attention_bwd_dkv_bf16_kernel"),
+    ("void segclip_kernels::(anonymous namespace)::group_assign_kernel<__nv_bfloat16, true>("
+     "segclip_kernels::(anonymous namespace)::Args)", "group_assign_kernel<__nv_bfloat16, true>"),
+    ("void segclip_kernels::(anonymous namespace)::group_assign_kernel<float, false>("
+     "segclip_kernels::(anonymous namespace)::Args)", "group_assign_kernel<float, false>"),
+]
+
+
+@pytest.mark.parametrize("name, expected", PROFILER_NAMES)
+def test_profile_counts_only_the_ports_kernels(name, expected):
+    """chip_smoke.py sums "the port's kernels" in a profile with this
+    filter: PyTorch's anonymous-namespace kernels are not counted."""
+    from segclip_tpu_torch.kernels.build import port_kernel_name
+    assert port_kernel_name(name) == expected
+
+
+def test_every_kernel_source_declares_the_ports_namespace():
+    """The filter above finds a kernel only by its namespace, so every CUDA
+    source with a kernel declares `segclip_kernels` before its first one."""
+    from segclip_tpu_torch.kernels import build
+    sources = build.sources()
+    assert {s.name for s in sources} >= {"attention_fwd.cu", "attention_bwd.cu",
+                                         "group_assign.cu"}
+    for src in sources:
+        text = src.read_text()
+        if "__global__" in text:
+            opened = text.find(f"namespace {build.KERNEL_NAMESPACE} {{")
+            assert 0 <= opened < text.find("__global__"), src.name
