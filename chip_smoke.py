@@ -31,6 +31,15 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      decoder's plain-route attention), warm step time and peak memory;
   5. the training step against its plain self: one float32 step at full
      width with B = 2 and injected noise, on the card and on the CPU;
+  6. pretraining through the CLI from SGR records: `prepare_data shapes`
+     (96 scenes, two captions each, native Felzenszwalb superpixels, a
+     4-image VOC-layout eval split), then run A, `cli.train --preset
+     shapes-learnability --epochs 2 --num-workers 4` at ViT-B/16 width
+     (B = 96, 2 steps per epoch, per-epoch eval on the card, keep_best):
+     finite losses, checkpoints, the launch counters of every step and
+     every eval request; a resume from run A's first checkpoint must train
+     epoch 1 only and reproduce run A's last loss and model.pt; the loop's
+     time per step beside phase 4's and the loader's rate alone;
 then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
@@ -46,7 +55,8 @@ Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, one JSON line of kernel results ("ms",
 "plain_ms", "library_ms", "bound_ms" at each kernel's main shape, and the
 Gumbel grouping's at the MAE shape as "mae_*"; launches per training step
-and per eval request), and as its last line
+and per eval request, and by path: "eval" (phase 2), "train" (phase 4) and
+"train_cli" (phase 6's run A)), and as its last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -155,6 +165,20 @@ TRAIN_GRAD_TOL = 1e-4
 E2E_PIXEL_TOL = 1e-3        # a pixel agrees if every class logit is within this
 E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
 PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
+# Phase 6: the shapes corpus (96 scenes, two captions each: 192 samples, two
+# B = 96 steps per epoch) and its eval split; the loader timed alone over
+# LOADER_EPOCHS warm epochs after a cold one.
+CORPUS_TRAIN_N, CORPUS_EVAL_N = 96, 4
+LOADER_WORKERS, LOADER_EPOCHS = 4, 3
+# Phase 6, the resumed run against run A's last epoch: bit for bit is
+# expected, since every port kernel is free of atomics and the step's noise
+# is a function of (seed, step). If a library kernel of PyTorch (cuBLAS,
+# an atomic scatter in a backward) sums in another order between the two
+# runs, a parameter moves by an order of fp32 rounding of its update
+# (|update| ≤ lr·(1 + wd) per step, lr 4e-4 here), so it must stay within
+# RESUME_PARAM_TOL, and the loss within RESUME_LOSS_RTOL of itself.
+RESUME_PARAM_TOL = 1e-6
+RESUME_LOSS_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -710,7 +734,7 @@ def phase_train(dev) -> tuple:
           f"steps: state {state.step}, optimizer {optimizer.step_count}")
     print(f"  {len(frozen)} frozen tensors bit-identical, every trainable tensor moved; "
           f"launches over {1 + TRAIN_STEPS} steps {totals}")
-    return model, step, state, batch, totals
+    return model, step, state, batch, totals, statistics.median(warm)
 
 
 class GroupingProbe:
@@ -788,6 +812,177 @@ def phase_train_plain_self(dev, model) -> None:
     print(f"  no near-tie patch: gradients compared on {len(grads_cpu)} tensors, worst "
           f"{worst[0]:.2e}·(1 + max|g|) at {worst[1]} (tol {TRAIN_GRAD_TOL:g})")
     check(worst[0] <= TRAIN_GRAD_TOL, f"gradient of {worst[1]} off by {worst[0]}")
+
+
+def counter_delta(before: dict) -> dict:
+    return {k: n - before[k] for k, n in read_counters().items()}
+
+
+class CountingPath:
+    """Records the launch counters' change over each training step the loop
+    runs and over each eval request, by wrapping `train.loop.make_train_step`
+    and `ZeroShotSegmenter.predict` for the length of a `with` block."""
+
+    def __init__(self):
+        self.steps, self.requests = [], []
+
+    def __enter__(self):
+        from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
+        from segclip_tpu_torch.train import loop
+        self.make, self.predict = loop.make_train_step, ZeroShotSegmenter.predict
+        probe = self
+
+        def make_train_step(*args, **kw):
+            step = probe.make(*args, **kw)
+
+            def counted(state, batch, noise=None):
+                before = read_counters()
+                metrics = step(state, batch, noise)
+                probe.steps.append(counter_delta(before))
+                return metrics
+            return counted
+
+        def predict(segmenter, *args, **kw):
+            before = read_counters()
+            out = probe.predict(segmenter, *args, **kw)
+            probe.requests.append(counter_delta(before))
+            return out
+
+        loop.make_train_step, ZeroShotSegmenter.predict = make_train_step, predict
+        return self
+
+    def __exit__(self, *exc):
+        from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
+        from segclip_tpu_torch.train import loop
+        loop.make_train_step, ZeroShotSegmenter.predict = self.make, self.predict
+
+
+def read_metrics(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def loader_rate(data: str, batch: int) -> tuple:
+    """(batches per second of BatchLoader.epoch alone over LOADER_EPOCHS
+    epochs, seconds of the cold epoch before them that spawns the workers),
+    with LOADER_WORKERS spawned workers and the phase-6 corpus and dataset
+    settings."""
+    from segclip_tpu_torch.config import DataConfig
+    from segclip_tpu_torch.data.pipeline import BatchLoader, ShardedEpochSampler, build_dataset
+
+    factory = functools.partial(build_dataset, DataConfig(
+        datatype="shapes", data_dir=data, batch_size=batch, transfer="rgb"),
+        use_seg=True, normalize=False)
+    dataset = factory()
+    sampler = ShardedEpochSampler(len(dataset), batch, seed=42)
+    loader = BatchLoader(dataset, sampler, seed=42, num_workers=LOADER_WORKERS,
+                         dataset_factory=factory)
+    try:
+        t0 = time.perf_counter()
+        check(len(list(loader.epoch(0))) == sampler.steps, "loader: short cold epoch")
+        t1 = time.perf_counter()
+        n = sum(1 for epoch in range(1, 1 + LOADER_EPOCHS) for _ in loader.epoch(epoch))
+        return n / (time.perf_counter() - t1), t1 - t0
+    finally:
+        loader.close()
+
+
+def phase_train_cli(smi: str, warm_step_ms: float) -> dict:
+    """Phase 6: pretraining through the CLI from SGR records made on the
+    machine, at ViT-B/16 width in bf16 (the preset's B = 96), per-epoch eval
+    on the card, keep_best, and a resume that must reproduce the last
+    epoch. Returns the launch counts of run A."""
+    import tempfile
+    from segclip_tpu_torch.cli import prepare_data
+    from segclip_tpu_torch.cli import train as train_cli
+    from segclip_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    expected_step = train_path_counts(cfg)
+    expected_request = {"attention_fwd": cfg.vision_layers + cfg.cross_layer,
+                        "attention_bwd": 0, "group_assign": 1, "group_assign_st": 0,
+                        "plain_route": 0}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        data, run_a, run_b = (os.path.join(tmp, d) for d in ("shapes", "a", "b"))
+        print(f"phase 6: pretraining through the CLI from SGR records ({smi}); "
+              f"{shutil.disk_usage(tmp).free / 2**30:.0f} GiB free in {tmp}")
+        t0 = time.perf_counter()
+        prepare_data.main(["shapes", "--out-dir", data, "--train-n", str(CORPUS_TRAIN_N),
+                           "--eval-n", str(CORPUS_EVAL_N)])
+        prep_s = time.perf_counter() - t0
+        argv = ["--preset", "shapes-learnability", "--data-dir", data, "--epochs", "2",
+                "--num-workers", str(LOADER_WORKERS), "--n-display", "1"]
+
+        with CountingPath() as path:
+            reset_counters()
+            t0 = time.perf_counter()
+            result_a = train_cli.main(argv + ["--output-dir", run_a])
+            run_a_s = time.perf_counter() - t0
+            counts = read_counters()
+        metrics_a = read_metrics(run_a)
+        losses_a = [m["loss"] for m in metrics_a if "loss" in m]
+        mious = [m["miou"] for m in metrics_a if "miou" in m]
+        with open(os.path.join(run_a, "log.txt")) as f:
+            step_times = [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
+        print(f"  prepare_data shapes --train-n {CORPUS_TRAIN_N} --eval-n {CORPUS_EVAL_N}: "
+              f"{prep_s:.2f} s; run A (2 epochs, 4 steps, 2 evals, "
+              f"{len(result_a['checkpoints'])} epoch checkpoints + best): {run_a_s:.1f} s")
+        print(f"  run A losses {' '.join(f'{v:.5f}' for v in losses_a)}; mIoU per epoch "
+              f"{' '.join(f'{v:.2f}' for v in mious)}; launches per step {path.steps}")
+        check(len(losses_a) == 4 and all(np.isfinite(losses_a)), f"run A losses {losses_a}")
+        check(len(mious) == 2 and all(np.isfinite(mious)), f"run A mIoU lines {mious}")
+        for name in ("ckpt_epoch_0", "ckpt_epoch_1", "ckpt_best", "best.json"):
+            check(os.path.exists(os.path.join(run_a, name)), f"run A wrote no {name}")
+        check(len(path.steps) == 4 and all(c == expected_step for c in path.steps),
+              f"launches per step {path.steps}, expected {expected_step}")
+        check(len(path.requests) == 2 * CORPUS_EVAL_N
+              and all(c == expected_request for c in path.requests),
+              f"launches per eval request {path.requests}, expected {expected_request}")
+        text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
+                      for k in counts}
+        check(text_banks == {**{k: 0 for k in counts},
+                             "attention_fwd": 2 * cfg.transformer_layers},
+              f"launches outside the steps and requests {text_banks}: expected the two "
+              f"text banks' attention only")
+
+        # The resumed run decodes in the loop's own thread (--num-workers 0):
+        # the pipeline's batches are the same bits for any worker count, and
+        # it spares a second spawn of four workers.
+        shutil.copytree(os.path.join(run_a, "ckpt_epoch_0"), os.path.join(run_b, "ckpt_epoch_0"))
+        t0 = time.perf_counter()
+        result_b = train_cli.main(argv + ["--output-dir", run_b, "--do-resume",
+                                          "--num-workers", "0"])
+        run_b_s = time.perf_counter() - t0
+        metrics_b = [m for m in read_metrics(run_b) if "loss" in m]
+        check(result_b["epochs_run"] == 1 and [m["epoch"] for m in metrics_b] == [1, 1],
+              f"the resumed run trained {result_b['epochs_run']} epochs: {metrics_b}")
+        a = torch.load(os.path.join(run_a, "ckpt_epoch_1", "model.pt"), weights_only=True)
+        b = torch.load(os.path.join(run_b, "ckpt_epoch_1", "model.pt"), weights_only=True)
+        check(a.keys() == b.keys(), "resumed model.pt has other keys")
+        same = all(torch.equal(a[k], b[k]) for k in a) and metrics_b[-1]["loss"] == losses_a[-1]
+        worst = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+        loss_rel = abs(metrics_b[-1]["loss"] - losses_a[-1]) / abs(losses_a[-1])
+        print(f"  resume from ckpt_epoch_0 ({run_b_s:.1f} s) trained epoch 1 only; last loss "
+              f"{metrics_b[-1]['loss']!r}"
+              f" against run A's {losses_a[-1]!r}; model.pt bit-identical: {same} (max "
+              f"|Δparam| {worst:.3e}, loss rel {loss_rel:.3e})")
+        check(same or (worst <= RESUME_PARAM_TOL and loss_rel <= RESUME_LOSS_RTOL),
+              f"resume differs from run A: |Δparam| {worst}, loss rel {loss_rel}")
+        del result_a, result_b, a, b
+        torch.cuda.empty_cache()
+
+        (rate_96, cold_96), (rate_24, _) = loader_rate(data, TRAIN_BATCH), loader_rate(data, 24)
+    print(f"  the input pipeline against the card ({smi}): the loop's Time/step "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms (steps 1 and 3 open an "
+          f"epoch); phase 4's warm synthetic step {warm_step_ms:.2f} ms; the loader alone "
+          f"with {LOADER_WORKERS} workers: a cold epoch (spawn, then 2 batches) {cold_96:.2f} "
+          f"s, then {rate_96:.2f} batches of {TRAIN_BATCH}/s "
+          f"({rate_96 * TRAIN_BATCH:.0f} img/s, 2 batches per epoch), {rate_24:.2f} batches "
+          f"of 24/s ({rate_24 * 24:.0f} img/s, 8 per epoch); the step alone "
+          f"{1e3 / warm_step_ms:.2f} steps/s ({TRAIN_BATCH * 1e3 / warm_step_ms:.0f} img/s); "
+          f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def print_profile(name: str, fn) -> None:
@@ -956,7 +1151,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    smi = smi.stdout.strip().splitlines()[0]
+    print(smi)
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}")
@@ -971,9 +1167,10 @@ def main() -> int:
     cfg = ModelConfig()
     model, seg, requests, eval_counts, per_request = phase_slice(dev, cfg)
     phase_plain_self(dev, model, cfg)
-    train_model, step, state, batch, train_counts = phase_train(dev)
+    train_model, step, state, batch, train_counts, warm_step_ms = phase_train(dev)
     per_step = train_path_counts(cfg)
     phase_train_plain_self(dev, train_model)
+    cli_counts = phase_train_cli(smi, warm_step_ms)
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
 
     kernels = []
@@ -984,7 +1181,8 @@ def main() -> int:
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
         t = timings[summary[key]["timing"]]
         row = rows[summary[key]["timing"]]
-        by_path = {"eval": eval_counts[counter], "train": train_counts[counter]}
+        by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
+                   "train_cli": cli_counts[counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=per_step[counter],

@@ -14,12 +14,18 @@ Layout (bottom-up):
                 beside its plain PyTorch version
   models/       nn.Modules in the reference state-dict key layout, and the
                 pretraining losses
-  parallel/     collectives of the contrastive loss (world size 1)
-  train/        parameter groups, AdaptAdamW, the training step
-  checkpoint/   JAX params / reference .bin → the port's state dict
+  parallel/     collectives of the contrastive loss (world size 1), the
+                host → device batch prefetch
+  train/        parameter groups, AdaptAdamW, the training step and loop
+  checkpoint/   JAX params / reference .bin → the port's state dict;
+                torch.save checkpoints and resume
+  native/       C++ Felzenszwalb superpixels and SGR record reader (g++,
+                ctypes)
+  data/         tokenizer, transforms, SGR records, superpixels, the shapes
+                corpus, the input pipeline
   evalseg/      text bank and zero-shot segmentation inference
-  cli/          command-line entry points
-  utils/        device resolution
+  cli/          command-line entry points (eval_zeroshot, train, prepare_data)
+  utils/        device resolution, logging, profiling
 """
 
 __version__ = "0.1.0"

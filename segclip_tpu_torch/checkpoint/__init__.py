@@ -1,1 +1,2 @@
-"""State-dict conversion into the port's reference key layout."""
+"""State-dict conversion into the port's reference key layout, and
+training checkpoints."""

@@ -13,9 +13,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import logging
 import os
-import sys
 
 from segclip_tpu_torch.config import ModelConfig, apply_overrides
 from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS, SegEvalDataset
@@ -23,6 +21,7 @@ from segclip_tpu_torch.cli.common import load_model
 from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter, evaluate_dataset
 from segclip_tpu_torch.evalseg.text_bank import build_text_bank
 from segclip_tpu_torch.utils.device import resolve_device
+from segclip_tpu_torch.utils.logging import get_logger
 
 
 def build_segmenter(model, cfg: ModelConfig, spec, template_set: str = "simple",
@@ -34,21 +33,6 @@ def build_segmenter(model, cfg: ModelConfig, spec, template_set: str = "simple",
         model, bank, with_bg=spec.with_bg,
         bg_thresh=spec.bg_thresh if bg_thresh is None else bg_thresh,
         patch_size=cfg.vision_patch_size)
-
-
-def _logger(output_dir: str) -> logging.Logger:
-    logger = logging.getLogger("segclip_tpu_torch")
-    logger.setLevel(logging.INFO)
-    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    for h in list(logger.handlers):                 # one run's handlers at a time
-        logger.removeHandler(h)
-        h.close()
-    os.makedirs(output_dir, exist_ok=True)
-    for h in (logging.StreamHandler(sys.stderr),
-              logging.FileHandler(os.path.join(output_dir, "log.txt"))):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
 
 
 def main(argv=None):
@@ -77,7 +61,7 @@ def main(argv=None):
                     help="model config overrides key=value")
     args = ap.parse_args(argv)
 
-    logger = _logger(args.output_dir)
+    logger = get_logger(args.output_dir)
     device = resolve_device(args.device)
     cfg = ModelConfig()
     for item in args.opts:

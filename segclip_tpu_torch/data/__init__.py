@@ -1,2 +1,3 @@
-"""Host-side data of the port: the CLIP tokenizer (segclip_tpu/data) and
-the CLIP normalisation statistics."""
+"""Host-side data of the port: the CLIP tokenizer and transforms, SGR
+records, superpixels, the procedural shapes corpus and the training input
+pipeline (copies of segclip_tpu/data, rgb transport)."""

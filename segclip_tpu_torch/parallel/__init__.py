@@ -1,1 +1,2 @@
-"""Collectives of the port (segclip_tpu/parallel)."""
+"""Collectives of the port (segclip_tpu/parallel) and the host → device
+batch prefetch."""

@@ -4,7 +4,8 @@ wrappers never leave the device they were given.
 
 A fresh interpreter imports only segclip_tpu_torch, runs a tiny
 encode_image, encode_text and predict, and one tiny training step, on the
-CPU, and must end with no module of segclip_tpu, jax or flax in
+CPU, imports the loop, the train CLI and prepare_data and runs the native
+superpixels, and must end with no module of segclip_tpu, jax or flax in
 sys.modules. An AST scan holds every file of the port, and chip_smoke.py,
 to importing nothing of segclip_tpu.
 """
@@ -62,6 +63,11 @@ batch = {"input_ids": torch.from_numpy(ids), "attention_mask": torch.from_numpy(
          "image_seg": torch.from_numpy(rng.integers(0, 4, (2, 4, 4)))}
 metrics = step(TrainState(), batch)
 assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped_nan"]) == 0.0
+
+import segclip_tpu_torch.cli.prepare_data, segclip_tpu_torch.cli.train
+import segclip_tpu_torch.train.loop
+from segclip_tpu_torch.data.superpixel import felzenszwalb
+assert felzenszwalb(rng.integers(0, 256, (16, 16, 3)).astype(np.uint8)).shape == (16, 16)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("segclip_tpu", "jax", "flax"))
 print("LEAKED", leaked)
