@@ -1,5 +1,7 @@
-"""Drive the PyTorch port's zero-shot segmentation path and its training
-step on one CUDA card (an H100) and check them.
+"""Drive the PyTorch port's zero-shot segmentation path, its training step,
+pretraining through the CLI, checkpoint ingest, the demo, the sharded
+evaluator and data-parallel training on one CUDA card (an H100), and check
+them.
 
     python3 chip_smoke.py
 
@@ -40,6 +42,25 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      every eval request; a resume from run A's first checkpoint must train
      epoch 1 only and reproduce run A's last loss and model.pt; the loop's
      time per step beside phase 4's and the loader's rate alone;
+  7. checkpoint ingest and the demo: the seeded ViT-B/16 written as
+     OpenAI's TorchScript ViT-B-16.pt (fp16, resblocks, metadata tensors)
+     and as a segclip.bin, each read back through cli.common.load_model
+     (ModelConfig() inferred, every tensor bit for bit after the fp32 cast,
+     exactly the semantic learner, MAE path and MAE decoder tensors missing
+     from the CLIP file), then cli.demo on the card in single-image and
+     dataset mode with every --vis mode over phase 6's eval split: the files
+     written and the launches per request;
+  8. the sharded evaluator: 8 images of mixed sizes at 1 and 4 images per
+     decode call against one at a time, float32 (≥ 99.9 % of pixels equal,
+     mIoU within 0.01) and bf16 (flip share and img/s reported); the eval
+     CLI in one process and, in phase 9's spawned ranks, in two;
+  9. data parallel, two spawned ranks (NCCL with a card each where there
+     are two cards, else gloo sharing the card): one float32 step of 2 × 4
+     against 1 × 8 with injected noise (loss within 1e-4, hard assignments
+     equal away from near ties), 1 + 5 bf16 steps of 2 × 48 (launches per
+     rank per step, warm step time beside phase 4's 1 × 96), then
+     `cli.train --dist-*` for one epoch of phase 6's corpus, rank 0's
+     model.pt evaluated in one process;
 then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
@@ -55,8 +76,10 @@ Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, one JSON line of kernel results ("ms",
 "plain_ms", "library_ms", "bound_ms" at each kernel's main shape, and the
 Gumbel grouping's at the MAE shape as "mae_*"; launches per training step
-and per eval request, and by path: "eval" (phase 2), "train" (phase 4) and
-"train_cli" (phase 6's run A)), and as its last line
+and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
+"train_cli" (phase 6's run A), "demo" (phase 7), "eval_sharded" (phase 8,
+both ranks of its CLI run included) and "train_dp" (phase 9, both ranks)),
+and as its last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -70,6 +93,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -89,6 +113,13 @@ ATTN_BWD_TPU = "segclip_tpu/ops/pallas/attention.py:96"
 GROUP_TPU = "segclip_tpu/ops/pallas/grouping.py:45"
 GROUP_ST_TPU = "segclip_tpu/ops/pallas/grouping.py:45 (training=True, entry :158)"
 
+# Phase 8: eight images of mixed sizes (H, W), short side ≥ 224, in the
+# order the evaluator takes them; at 4 per call their slide windows (224,
+# stride 224) come to 1+2+2+2 = 7 and 3+2+2+4 = 11 per decode call.
+SHARDED_IMAGES = ((224, 224), (224, 300), (300, 224), (224, 448),
+                  (224, 467), (224, 299), (299, 224), (224, 700))
+SHARDED_PER_CALL = 4
+SHARDED_MAX_WINDOWS = 11
 # Attention shapes of the path: (name, B, Lq, Lk, heads, bias, kind).
 ATTN_CASES = (
     ("vision 2x196 (slide, 2 windows)", 2, 196, 196, 12, None, "self"),
@@ -97,6 +128,11 @@ ATTN_CASES = (
     ("group stage 2x8x8", 2, 8, 8, 12, None, "self"),
     ("text 20x77 causal", 20, 77, 77, 8, "causal", "self"),
     ("text 4x77 padding (off the path)", 4, 77, 77, 8, "padding", "self"),
+    # phase 8's batched eval decode: the windows of 4 images in one call,
+    # 11 at most (SHARDED_IMAGES)
+    ("sharded eval vision 11x196", SHARDED_MAX_WINDOWS, 196, 196, 12, None, "self"),
+    ("sharded eval cross 11x8x204", SHARDED_MAX_WINDOWS, 8, 204, 12, None, "cross"),
+    ("sharded eval group stage 11x8x8", SHARDED_MAX_WINDOWS, 8, 8, 12, None, "self"),
 )
 # Attention shapes of the training step at B = 96: forward with P saved
 # and backward. The grouping path's vision blocks, cross blocks and group
@@ -110,15 +146,27 @@ TRAIN_ATTN_CASES = (
     ("train MAE cross 96x8x56", 96, 8, 56, 12, None, "cross"),
     ("train text 96x32 causal", 96, 32, 32, 8, "causal", "self"),
 )
+# Each rank's shapes in phase 9's data-parallel step (2 ranks × 48).
+TRAIN_DP_ATTN_CASES = (
+    ("train DP vision 48x196", 48, 196, 196, 12, None, "self"),
+    ("train DP cross 48x8x204", 48, 8, 204, 12, None, "cross"),
+    ("train DP group stage 48x8x8", 48, 8, 8, 12, None, "self"),
+    ("train DP MAE vision 48x48", 48, 48, 48, 12, None, "self"),
+    ("train DP MAE cross 48x8x56", 48, 8, 56, 12, None, "cross"),
+    ("train DP text 48x32 causal", 48, 32, 32, 8, "causal", "self"),
+)
 # Grouping shapes of the path: (name, N, G, L, D).
 GROUP_CASES = (
     ("eval 2x8x196x768 (slide)", 2, 8, 196, 768),
     ("eval 1x8x196x768 (whole 224x224)", 1, 8, 196, 768),
     ("eval 1x8x294x768 (whole 224x336)", 1, 8, 294, 768),
+    ("sharded eval 11x8x196x768", SHARDED_MAX_WINDOWS, 8, 196, 768),
 )
 GROUP_ST_CASES = (
     ("train 96x8x196x768", 96, 8, 196, 768),
     ("train MAE 96x8x48x768", 96, 8, 48, 768),
+    ("train DP 48x8x196x768", 48, 8, 196, 768),
+    ("train DP MAE 48x8x48x768", 48, 8, 48, 768),
 )
 TRAIN_BATCH = 96            # the JAX bench's per-chip batch
 TRAIN_STEPS = 5             # timed, after one cold step
@@ -435,7 +483,7 @@ def training_kernels(dev, gen, summary, timings) -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
-        for case in TRAIN_ATTN_CASES:
+        for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES:
             q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
             out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
             ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
@@ -469,6 +517,8 @@ def training_kernels(dev, gen, summary, timings) -> None:
                   f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
                   f"{note}  fwd {call_ms(fwd):.4f} / {call_ms(fwd_plain):.4f} ms, bwd "
                   f"{call_ms(bwd):.4f} / {call_ms(bwd_plain):.4f} ms")
+            if case in TRAIN_DP_ATTN_CASES:            # checked above; profiled at B = 96
+                continue
             _, b, lq, lk, h, bias, _ = case
             timings.append(dict(
                 name=f"attention fwd+P {case[0]} {dname}", kernel=fwd, plain=fwd_plain,
@@ -528,6 +578,8 @@ def training_kernels(dev, gen, summary, timings) -> None:
             check(y_err <= YSOFT_TOL, f"gumbel grouping {name}: y_soft err {y_err}")
             check(out_ok, f"gumbel grouping {name} {dtype}: out err {out_err}{out_note}")
             check(int(hard.sum()) == n * l, f"gumbel grouping {name}: hard is not one-hot")
+            if "DP" in name:                           # checked above; profiled at N = 96
+                continue
             timings.append(dict(name=f"gumbel grouping {name} {dname}", kernel=kernel,
                                 plain=plain, library=None,
                                 work=(*bounds.group_assign_work(n, g, l, d, dtype, True),
@@ -887,12 +939,12 @@ def loader_rate(data: str, batch: int) -> tuple:
         loader.close()
 
 
-def phase_train_cli(smi: str, warm_step_ms: float) -> dict:
+def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
     """Phase 6: pretraining through the CLI from SGR records made on the
-    machine, at ViT-B/16 width in bf16 (the preset's B = 96), per-epoch eval
-    on the card, keep_best, and a resume that must reproduce the last
-    epoch. Returns the launch counts of run A."""
-    import tempfile
+    machine (into <tmp>/shapes, kept for phases 7-9), at ViT-B/16 width in
+    bf16 (the preset's B = 96), per-epoch eval on the card, keep_best, and a
+    resume that must reproduce the last epoch. Returns the launch counts of
+    run A."""
     from segclip_tpu_torch.cli import prepare_data
     from segclip_tpu_torch.cli import train as train_cli
     from segclip_tpu_torch.config import ModelConfig
@@ -903,76 +955,77 @@ def phase_train_cli(smi: str, warm_step_ms: float) -> dict:
                         "attention_bwd": 0, "group_assign": 1, "group_assign_st": 0,
                         "plain_route": 0}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        data, run_a, run_b = (os.path.join(tmp, d) for d in ("shapes", "a", "b"))
-        print(f"phase 6: pretraining through the CLI from SGR records ({smi}); "
-              f"{shutil.disk_usage(tmp).free / 2**30:.0f} GiB free in {tmp}")
+    data, run_a, run_b = (os.path.join(tmp, d) for d in ("shapes", "a", "b"))
+    print(f"phase 6: pretraining through the CLI from SGR records ({smi}); "
+          f"{shutil.disk_usage(tmp).free / 2**30:.0f} GiB free in {tmp}")
+    t0 = time.perf_counter()
+    prepare_data.main(["shapes", "--out-dir", data, "--train-n", str(CORPUS_TRAIN_N),
+                       "--eval-n", str(CORPUS_EVAL_N)])
+    prep_s = time.perf_counter() - t0
+    argv = ["--preset", "shapes-learnability", "--data-dir", data, "--epochs", "2",
+            "--num-workers", str(LOADER_WORKERS), "--n-display", "1"]
+
+    with CountingPath() as path:
+        reset_counters()
         t0 = time.perf_counter()
-        prepare_data.main(["shapes", "--out-dir", data, "--train-n", str(CORPUS_TRAIN_N),
-                           "--eval-n", str(CORPUS_EVAL_N)])
-        prep_s = time.perf_counter() - t0
-        argv = ["--preset", "shapes-learnability", "--data-dir", data, "--epochs", "2",
-                "--num-workers", str(LOADER_WORKERS), "--n-display", "1"]
+        result_a = train_cli.main(argv + ["--output-dir", run_a])
+        run_a_s = time.perf_counter() - t0
+        counts = read_counters()
+    metrics_a = read_metrics(run_a)
+    losses_a = [m["loss"] for m in metrics_a if "loss" in m]
+    mious = [m["miou"] for m in metrics_a if "miou" in m]
+    with open(os.path.join(run_a, "log.txt")) as f:
+        step_times = [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
+    print(f"  prepare_data shapes --train-n {CORPUS_TRAIN_N} --eval-n {CORPUS_EVAL_N}: "
+          f"{prep_s:.2f} s; run A (2 epochs, 4 steps, 2 evals, "
+          f"{len(result_a['checkpoints'])} epoch checkpoints + best): {run_a_s:.1f} s")
+    print(f"  run A losses {' '.join(f'{v:.5f}' for v in losses_a)}; mIoU per epoch "
+          f"{' '.join(f'{v:.2f}' for v in mious)}; launches per step {path.steps}")
+    check(len(losses_a) == 4 and all(np.isfinite(losses_a)), f"run A losses {losses_a}")
+    check(len(mious) == 2 and all(np.isfinite(mious)), f"run A mIoU lines {mious}")
+    for name in ("ckpt_epoch_0", "ckpt_epoch_1", "ckpt_best", "best.json"):
+        check(os.path.exists(os.path.join(run_a, name)), f"run A wrote no {name}")
+    check(len(path.steps) == 4 and all(c == expected_step for c in path.steps),
+          f"launches per step {path.steps}, expected {expected_step}")
+    check(len(path.requests) == 2 * CORPUS_EVAL_N
+          and all(c == expected_request for c in path.requests),
+          f"launches per eval request {path.requests}, expected {expected_request}")
+    text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
+                  for k in counts}
+    check(text_banks == {**{k: 0 for k in counts},
+                         "attention_fwd": 2 * cfg.transformer_layers},
+          f"launches outside the steps and requests {text_banks}: expected the two "
+          f"text banks' attention only")
 
-        with CountingPath() as path:
-            reset_counters()
-            t0 = time.perf_counter()
-            result_a = train_cli.main(argv + ["--output-dir", run_a])
-            run_a_s = time.perf_counter() - t0
-            counts = read_counters()
-        metrics_a = read_metrics(run_a)
-        losses_a = [m["loss"] for m in metrics_a if "loss" in m]
-        mious = [m["miou"] for m in metrics_a if "miou" in m]
-        with open(os.path.join(run_a, "log.txt")) as f:
-            step_times = [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
-        print(f"  prepare_data shapes --train-n {CORPUS_TRAIN_N} --eval-n {CORPUS_EVAL_N}: "
-              f"{prep_s:.2f} s; run A (2 epochs, 4 steps, 2 evals, "
-              f"{len(result_a['checkpoints'])} epoch checkpoints + best): {run_a_s:.1f} s")
-        print(f"  run A losses {' '.join(f'{v:.5f}' for v in losses_a)}; mIoU per epoch "
-              f"{' '.join(f'{v:.2f}' for v in mious)}; launches per step {path.steps}")
-        check(len(losses_a) == 4 and all(np.isfinite(losses_a)), f"run A losses {losses_a}")
-        check(len(mious) == 2 and all(np.isfinite(mious)), f"run A mIoU lines {mious}")
-        for name in ("ckpt_epoch_0", "ckpt_epoch_1", "ckpt_best", "best.json"):
-            check(os.path.exists(os.path.join(run_a, name)), f"run A wrote no {name}")
-        check(len(path.steps) == 4 and all(c == expected_step for c in path.steps),
-              f"launches per step {path.steps}, expected {expected_step}")
-        check(len(path.requests) == 2 * CORPUS_EVAL_N
-              and all(c == expected_request for c in path.requests),
-              f"launches per eval request {path.requests}, expected {expected_request}")
-        text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
-                      for k in counts}
-        check(text_banks == {**{k: 0 for k in counts},
-                             "attention_fwd": 2 * cfg.transformer_layers},
-              f"launches outside the steps and requests {text_banks}: expected the two "
-              f"text banks' attention only")
+    # The resumed run decodes in the loop's own thread (--num-workers 0):
+    # the pipeline's batches are the same bits for any worker count, and
+    # it spares a second spawn of four workers.
+    shutil.copytree(os.path.join(run_a, "ckpt_epoch_0"), os.path.join(run_b, "ckpt_epoch_0"))
+    t0 = time.perf_counter()
+    result_b = train_cli.main(argv + ["--output-dir", run_b, "--do-resume",
+                                      "--num-workers", "0"])
+    run_b_s = time.perf_counter() - t0
+    metrics_b = [m for m in read_metrics(run_b) if "loss" in m]
+    check(result_b["epochs_run"] == 1 and [m["epoch"] for m in metrics_b] == [1, 1],
+          f"the resumed run trained {result_b['epochs_run']} epochs: {metrics_b}")
+    a = torch.load(os.path.join(run_a, "ckpt_epoch_1", "model.pt"), weights_only=True)
+    b = torch.load(os.path.join(run_b, "ckpt_epoch_1", "model.pt"), weights_only=True)
+    check(a.keys() == b.keys(), "resumed model.pt has other keys")
+    same = all(torch.equal(a[k], b[k]) for k in a) and metrics_b[-1]["loss"] == losses_a[-1]
+    worst = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+    loss_rel = abs(metrics_b[-1]["loss"] - losses_a[-1]) / abs(losses_a[-1])
+    print(f"  resume from ckpt_epoch_0 ({run_b_s:.1f} s) trained epoch 1 only; last loss "
+          f"{metrics_b[-1]['loss']!r}"
+          f" against run A's {losses_a[-1]!r}; model.pt bit-identical: {same} (max "
+          f"|Δparam| {worst:.3e}, loss rel {loss_rel:.3e})")
+    check(same or (worst <= RESUME_PARAM_TOL and loss_rel <= RESUME_LOSS_RTOL),
+          f"resume differs from run A: |Δparam| {worst}, loss rel {loss_rel}")
+    del result_a, result_b, a, b
+    shutil.rmtree(run_a)
+    shutil.rmtree(run_b)
+    torch.cuda.empty_cache()
 
-        # The resumed run decodes in the loop's own thread (--num-workers 0):
-        # the pipeline's batches are the same bits for any worker count, and
-        # it spares a second spawn of four workers.
-        shutil.copytree(os.path.join(run_a, "ckpt_epoch_0"), os.path.join(run_b, "ckpt_epoch_0"))
-        t0 = time.perf_counter()
-        result_b = train_cli.main(argv + ["--output-dir", run_b, "--do-resume",
-                                          "--num-workers", "0"])
-        run_b_s = time.perf_counter() - t0
-        metrics_b = [m for m in read_metrics(run_b) if "loss" in m]
-        check(result_b["epochs_run"] == 1 and [m["epoch"] for m in metrics_b] == [1, 1],
-              f"the resumed run trained {result_b['epochs_run']} epochs: {metrics_b}")
-        a = torch.load(os.path.join(run_a, "ckpt_epoch_1", "model.pt"), weights_only=True)
-        b = torch.load(os.path.join(run_b, "ckpt_epoch_1", "model.pt"), weights_only=True)
-        check(a.keys() == b.keys(), "resumed model.pt has other keys")
-        same = all(torch.equal(a[k], b[k]) for k in a) and metrics_b[-1]["loss"] == losses_a[-1]
-        worst = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
-        loss_rel = abs(metrics_b[-1]["loss"] - losses_a[-1]) / abs(losses_a[-1])
-        print(f"  resume from ckpt_epoch_0 ({run_b_s:.1f} s) trained epoch 1 only; last loss "
-              f"{metrics_b[-1]['loss']!r}"
-              f" against run A's {losses_a[-1]!r}; model.pt bit-identical: {same} (max "
-              f"|Δparam| {worst:.3e}, loss rel {loss_rel:.3e})")
-        check(same or (worst <= RESUME_PARAM_TOL and loss_rel <= RESUME_LOSS_RTOL),
-              f"resume differs from run A: |Δparam| {worst}, loss rel {loss_rel}")
-        del result_a, result_b, a, b
-        torch.cuda.empty_cache()
-
-        (rate_96, cold_96), (rate_24, _) = loader_rate(data, TRAIN_BATCH), loader_rate(data, 24)
+    (rate_96, cold_96), (rate_24, _) = loader_rate(data, TRAIN_BATCH), loader_rate(data, 24)
     print(f"  the input pipeline against the card ({smi}): the loop's Time/step "
           f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms (steps 1 and 3 open an "
           f"epoch); phase 4's warm synthetic step {warm_step_ms:.2f} ms; the loader alone "
@@ -1140,6 +1193,568 @@ def phase_plain_self(dev, model, cfg) -> None:
     check(argmax_agree >= E2E_MIN_AGREE, f"argmax agrees on {argmax_agree:.5f}")
 
 
+# Phase 7: OpenAI's file holds the CLIP towers only; these keep the seeded
+# init and must be reported missing. Its metadata tensors, as OpenAI ships.
+NOT_IN_CLIP = ("clip.visual.transformer.semantic_layer2.",
+               "clip.visual.transformer.layers_mae2.",
+               "clip.visual.transformer.reconstruct_layer2.",
+               "vis_mae_decoder.", "seq_mae_decoder.")
+OPENAI_METADATA = {"input_resolution": 224, "context_length": 77, "vocab_size": 49408}
+DEMO_VIS = ("input", "pred", "input_pred", "input_pred_label", "all_groups",
+            "first_group", "final_group")
+# Phase 8: float32 (TF32 off) predictions of the batched decode against one
+# image at a time: equal on this share of pixels (only the order of fp32
+# sums differs, which can move a near tie), the mIoU within this.
+SHARDED_MIN_AGREE = 0.999
+SHARDED_MIOU_TOL = 0.01
+# Phase 9: two ranks on this machine's card(s); the float32 step at a global
+# batch of DP_F32_BATCH (injected noise) against one rank, the loss within
+# DP_LOSS_RTOL of itself (the same sums, split across two processes), hard
+# assignments equal away from near ties; then DP_BATCH (the preset's 96)
+# split in two for 1 + TRAIN_STEPS bf16 steps. Workers get DP_TIMEOUT_S.
+DP_WORLD = 2
+DP_F32_BATCH = 8
+DP_LOSS_RTOL = 1e-4
+DP_TIMEOUT_S = 480
+
+
+def openai_layout(sd: dict, first_stage_layer: int) -> dict:
+    """The port's state dict → OpenAI CLIP's layout: the CLIP towers only,
+    no `clip.` prefix, layers0.N / layers2.N back to resblocks.N."""
+    out = {}
+    for key, value in sd.items():
+        if not key.startswith("clip.") or key.startswith(NOT_IN_CLIP):
+            continue
+        key = key[len("clip."):]
+        for stage, offset in (("layers0", 0), ("layers2", first_stage_layer)):
+            head = f"visual.transformer.{stage}."
+            if key.startswith(head):
+                n, rest = key[len(head):].split(".", 1)
+                key = f"visual.transformer.resblocks.{int(n) + offset}.{rest}"
+        out[key] = value
+    return out
+
+
+def save_torchscript(path: str, tensors: dict) -> None:
+    """A TorchScript archive whose state_dict() is `tensors`, as OpenAI's
+    ViT-B-16.pt is: a module tree by the keys' dots, floating tensors as
+    parameters, the metadata scalars as buffers."""
+    import warnings
+    root = torch.nn.Module()
+    for key, value in tensors.items():
+        *path_, leaf = key.split(".")
+        node = root
+        for part in path_:
+            if not hasattr(node, part):
+                node.add_module(part, torch.nn.Module())
+            node = getattr(node, part)
+        if value.is_floating_point():
+            node.register_parameter(leaf, torch.nn.Parameter(value, requires_grad=False))
+        else:
+            node.register_buffer(leaf, value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", category=DeprecationWarning)
+        torch.jit.script(root).save(path)
+
+
+class CountingCalls:
+    """Records the launch counters' change, and the time to a device sync,
+    over each call of `owner.attr` for the length of a `with` block."""
+
+    def __init__(self, owner, attr: str):
+        self.owner, self.attr, self.calls = owner, attr, []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.attr)
+        probe = self
+
+        def counted(*args, **kw):
+            before = read_counters()
+            out, ms = timed(lambda: probe.orig(*args, **kw))
+            probe.calls.append((counter_delta(before), ms))
+            return out
+        setattr(self.owner, self.attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.orig)
+
+
+def demo_files(stem: str) -> set:
+    """The files the demo writes for one image in every --vis mode."""
+    out = set()
+    for vis in DEMO_VIS:
+        if vis == "pred":
+            out.add(f"pred/{stem}.png")
+        elif vis == "all_groups":
+            out.add(f"all_groups/{stem}_layer0.jpg")
+        else:
+            out.add(f"{vis}/{stem}.jpg")
+    return out
+
+
+def phase_ingest_demo(dev, model, tmp: str) -> tuple:
+    """Phase 7: the seeded ViT-B/16 written as OpenAI's TorchScript archive
+    and as a segclip.bin, read back through load_model (architecture
+    inferred, tensors bit for bit, the missing set), then cli.demo on the
+    card in single-image and dataset mode over phase 6's eval split.
+    Returns the launch counts of the demo runs and the segclip.bin path."""
+    from PIL import Image
+    from segclip_tpu_torch.checkpoint.torch_convert import (load_torch_state_dict,
+                                                            to_port_layout)
+    from segclip_tpu_torch.cli import demo
+    from segclip_tpu_torch.cli.common import load_model
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS
+
+    cfg = ModelConfig()
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    paths = {"OpenAI ViT-B-16.pt": os.path.join(tmp, "ViT-B-16.pt"),
+             "segclip.bin": os.path.join(tmp, "segclip.bin")}
+    t0 = time.perf_counter()
+    tensors = {k: v.half() for k, v in openai_layout(sd, cfg.first_stage_layer).items()}
+    tensors.update({k: torch.tensor(v) for k, v in OPENAI_METADATA.items()})
+    save_torchscript(paths["OpenAI ViT-B-16.pt"], tensors)
+    torch.save({**sd, "vis_mae_decoder.decoder_pos_embed":
+                model.vis_mae_decoder.pos_table[None].cpu()}, paths["segclip.bin"])
+    print(f"phase 7: checkpoint ingest and the demo; wrote "
+          + ", ".join(f"{n} ({os.path.getsize(p) / 2**20:.0f} MiB)" for n, p in paths.items())
+          + f" in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        loaded, inferred = load_model(path, ModelConfig(), dev)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        check(inferred == cfg, f"{name}: inferred {inferred}, expected ModelConfig()")
+        provided = to_port_layout(load_torch_state_dict(path), inferred.first_stage_layer)
+        provided.pop("vis_mae_decoder.decoder_pos_embed", None)
+        state = {k: v.cpu() for k, v in loaded.state_dict().items()}
+        # what was written, cast to fp32: OpenAI's file holds fp16 values
+        cast = (lambda v: v.half().float()) if name.startswith("OpenAI") else (lambda v: v)
+        bad = [k for k, v in provided.items()
+               if not (torch.equal(state[k], v) and torch.equal(v, cast(sd[k])))]
+        check(not bad, f"{name}: tensors not loaded bit for bit: {bad[:5]}")
+        missing = sorted(set(state) - set(provided))
+        want = sorted(k for k in state if k.startswith(NOT_IN_CLIP)) \
+            if name.startswith("OpenAI") else []
+        check(missing == want, f"{name}: missing {missing[:5]}…, expected {want[:5]}…")
+        seed0 = [k for k in missing if not torch.equal(state[k], sd[k])]
+        check(not seed0, f"{name}: missing tensors not at the seeded init: {seed0[:5]}")
+        prefixes = sorted({k.split(".")[3] if k.startswith("clip.") else k.split(".")[0]
+                           for k in missing})
+        print(f"  {name}: load_model {ingest_s:.2f} s (read, seeded init, merge, to the "
+              f"card); inferred ModelConfig() exactly; {len(provided)} tensors loaded bit "
+              f"for bit after the fp32 cast; missing "
+              f"{len(missing)} tensors ({', '.join(prefixes) or 'none'}), kept at the "
+              f"seeded init")
+        del loaded
+
+    spec = DATASET_SPECS["shapes"]
+    eval_root = os.path.join(tmp, "shapes", "eval")
+    with open(os.path.join(eval_root, spec.split)) as f:
+        stems = [line.strip() for line in f if line.strip()][:CORPUS_EVAL_N]
+    image = stems[0] + spec.img_suffix
+    per_request = {"attention_fwd": 2 * (cfg.vision_layers + cfg.cross_layer),
+                   "attention_bwd": 0, "group_assign": 2, "group_assign_st": 0,
+                   "plain_route": 0}
+    runs = (("single image (slide)", ["--input", os.path.join(eval_root, "JPEGImages", image),
+                                      "--init-model", paths["segclip.bin"]],
+             [os.path.splitext(image)[0]]),
+            (f"dataset, first {CORPUS_EVAL_N} (whole)",
+             ["--data-root", eval_root, "--first-n", str(CORPUS_EVAL_N),
+              "--init-model", paths["OpenAI ViT-B-16.pt"]], stems))
+    reset_counters()
+    for i, (name, argv, names) in enumerate(runs):
+        out = os.path.join(tmp, f"demo{i}")
+        before = read_counters()
+        with CountingCalls(demo, "_run_one") as calls:
+            demo.main(argv + ["--dataset", "shapes", "--vis", *DEMO_VIS,
+                              "--output-dir", out])
+        delta = counter_delta(before)
+        files = {os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out)
+                 for f in fs if f != "log.txt"}
+        want = set().union(*(demo_files(n) for n in names))
+        check(files == want, f"demo {name}: wrote {sorted(files)}, expected {sorted(want)}")
+        for n in names:
+            labels = np.asarray(Image.open(os.path.join(out, "pred", f"{n}.png")))
+            check(labels.max() < len(spec.classes), f"demo {name}: label out of range")
+        check(all(c == per_request for c, _ in calls.calls),
+              f"demo {name}: launches per request {[c for c, _ in calls.calls]}, "
+              f"expected {per_request}")
+        bank = {k: delta[k] - sum(c[k] for c, _ in calls.calls) for k in delta}
+        check(bank == {**{k: 0 for k in delta}, "attention_fwd": cfg.transformer_layers},
+              f"demo {name}: launches outside the requests {bank}")
+        ms = [t for _, t in calls.calls]
+        print(f"  demo {name}: {len(files)} files for {len(names)} image(s), every --vis "
+              f"mode; per request (predict + group map + {len(DEMO_VIS)} images written), "
+              f"in order: {' '.join(f'{t:.1f}' for t in ms)} ms; launches per request "
+              f"{per_request['attention_fwd']} "
+              f"attention / {per_request['group_assign']} grouping, text bank "
+              f"{cfg.transformer_layers}")
+    return read_counters(), paths["segclip.bin"]
+
+
+def make_voc(root: str, shapes) -> str:
+    """A VOC-layout split of random images of the given (H, W) and random
+    labels, seeded."""
+    from PIL import Image
+    rng = np.random.default_rng(12)
+    for d in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i, (h, w) in enumerate(shapes):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(root, "JPEGImages", f"img{i}.jpg"))
+        Image.fromarray(rng.integers(0, 21, (h, w)).astype(np.uint8)).save(
+            os.path.join(root, "SegmentationClass", f"img{i}.png"))
+    with open(os.path.join(root, "ImageSets/Segmentation/val.txt"), "w") as f:
+        f.write("".join(f"img{i}\n" for i in range(len(shapes))))
+    return root
+
+
+def eval_cli_args(voc: str, model_path: str) -> list:
+    """Phase 8's eval CLI run: one image per call, float32, so that one and
+    two processes run the same decode calls."""
+    return ["--dataset", "voc", "--data-root", voc, "--init-model", model_path,
+            "--compute-dtype", "float32"]
+
+
+def phase_sharded_eval(dev, model, cfg, tmp: str, model_path: str) -> tuple:
+    """Phase 8: the sharded evaluator at 1 and SHARDED_PER_CALL images per
+    call against one image at a time, float32 and bf16, on SHARDED_IMAGES;
+    then the eval CLI in one process (its metrics are held against two
+    processes in phase 9's workers). Returns the launch counts of the bf16
+    sharded run, and the CLI's metrics."""
+    from segclip_tpu_torch.cli import eval_zeroshot
+    from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS, SegEvalDataset
+    from segclip_tpu_torch.evalseg.inference import (evaluate_dataset,
+                                                     evaluate_dataset_sharded)
+    from segclip_tpu_torch.models.segclip import SegCLIP
+
+    voc = make_voc(os.path.join(tmp, "voc8"), SHARDED_IMAGES)
+    spec = DATASET_SPECS["voc"]
+    dataset = SegEvalDataset(spec, voc)
+    samples = list(dataset)
+    images, shapes = [s.image for s in samples], [s.orig_shape for s in samples]
+    print(f"phase 8: the sharded evaluator, {len(samples)} images "
+          f"({' '.join(f'{h}x{w}' for h, w in SHARDED_IMAGES)}), {SHARDED_PER_CALL} per "
+          f"decode call")
+    counts = None
+    for dtype in ("float32", "bfloat16"):
+        mcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        m = model
+        if dtype != cfg.compute_dtype:
+            m = SegCLIP(mcfg)
+            m.load_state_dict(model.state_dict())
+            m = m.to(dev).eval()
+        seg = eval_zeroshot.build_segmenter(m, mcfg, spec)
+        windows = []
+        decode = seg._decode
+        seg._decode = lambda crops, h, w: (windows.append(len(crops)), decode(crops, h, w))[1]
+
+        def sequential():
+            return [seg.predict(x, o) for x, o in zip(images, shapes)]
+
+        def batched():
+            return [p for i in range(0, len(images), SHARDED_PER_CALL)
+                    for p in seg.predict_batch(images[i:i + SHARDED_PER_CALL],
+                                               shapes[i:i + SHARDED_PER_CALL])]
+
+        sequential(), batched()                           # warm
+        windows.clear()
+        seq, seq_ms = timed(sequential)
+        bat, bat_ms = timed(batched)
+        calls = windows[len(images):]
+        del seg._decode
+        check(max(calls) == SHARDED_MAX_WINDOWS and len(calls) == 2,
+              f"windows per batched decode call {calls}")
+        pixels = sum(p.size for p in seq)
+        flips = sum(int((a != b).sum()) for a, b in zip(seq, bat)) / pixels
+        want = evaluate_dataset(seg, dataset)
+        reset_counters()
+        got, sharded_ms = timed(lambda: evaluate_dataset_sharded(
+            seg, dataset, images_per_device=SHARDED_PER_CALL))
+        if dtype == "bfloat16":
+            counts = read_counters()
+        d_miou = abs(got["mIoU"] - want["mIoU"])
+        print(f"  {dtype}: one image per call {len(images) * 1e3 / seq_ms:.1f} img/s "
+              f"({seq_ms:.1f} ms), {SHARDED_PER_CALL} per call ({calls} windows) "
+              f"{len(images) * 1e3 / bat_ms:.1f} img/s ({bat_ms:.1f} ms); predictions differ "
+              f"on {flips:.2e} of {pixels} pixels; mIoU {want['mIoU']:.4f} sequential, "
+              f"{got['mIoU']:.4f} sharded (|Δ| {d_miou:.2e}; evaluate_dataset_sharded with "
+              f"image decode {sharded_ms:.1f} ms)")
+        check(np.isfinite(got["mIoU"]), f"{dtype}: mIoU {got['mIoU']}")
+        if dtype == "float32":
+            check(1 - flips >= SHARDED_MIN_AGREE, f"float32: {flips} of pixels flip")
+            check(d_miou <= SHARDED_MIOU_TOL, f"float32: mIoU off by {d_miou}")
+    per_call = {"attention_fwd": cfg.vision_layers + cfg.cross_layer, "attention_bwd": 0,
+                "group_assign": 1, "group_assign_st": 0, "plain_route": 0}
+    want_counts = {k: 2 * v for k, v in per_call.items()}
+    check(counts == want_counts, f"sharded eval launches {counts}, expected {want_counts}")
+    single = eval_zeroshot.main(eval_cli_args(voc, model_path)
+                                + ["--output-dir", os.path.join(tmp, "eval_one")])
+    print(f"  eval CLI, one process, float32: mIoU {single['mIoU']:.4f}; launches of the "
+          f"bf16 sharded run {counts}")
+    return counts, single, voc
+
+
+def dp_f32_step(dev, rank: int, world: int) -> tuple:
+    """One float32 training step at full width on this rank's share of a
+    DP_F32_BATCH batch with injected noise; the mean loss over the ranks and
+    the SemanticLearner's hard assignments and margins of this rank's rows."""
+    from segclip_tpu_torch.config import Config, ModelConfig
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    mcfg = ModelConfig(compute_dtype="float32")
+    cfg = Config(model=mcfg)
+    b, g, l = DP_F32_BATCH, mcfg.group_num, mcfg.num_patches
+    kept = int((l + 1) * (1 - mcfg.mae_vis_mask_ratio)) - 1
+    rows = slice(rank * b // world, (rank + 1) * b // world)
+    rng = np.random.default_rng(5)
+    noise = {"gumbel": rng.gumbel(size=(b, g, l)), "gumbel_mae": rng.gumbel(size=(b, g, kept)),
+             "mask_vis": rng.random((b, l + 1))}
+    noise = {k: torch.from_numpy(v[rows].astype(np.float32)).to(dev) for k, v in noise.items()}
+    batch = {k: v[rows] for k, v in synthetic_batch(b, mcfg, 1, dev).items()}
+    model = init_segclip(mcfg, seed=0, device=dev)
+    step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
+    probe = GroupingProbe(model.clip.visual.transformer.semantic_layer2,
+                          [noise["gumbel"], noise["gumbel_mae"]])
+    metrics = step(TrainState(), batch, noise)
+    probe.handle.remove()
+    return float(metrics["loss"]), probe.records
+
+
+def dp_bf16_steps(dev, rank: int, world: int) -> dict:
+    """1 + TRAIN_STEPS bf16 steps at ViT-B/16 width on this rank's share of
+    phase 4's B = 96 batch: losses, launches per step, times."""
+    from segclip_tpu_torch.config import Config
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    cfg = Config()
+    b = TRAIN_BATCH // world
+    batch = {k: v[rank * b:(rank + 1) * b]
+             for k, v in synthetic_batch(TRAIN_BATCH, cfg.model, 0, dev).items()}
+    model = init_segclip(cfg.model, seed=0, device=dev)
+    step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
+    state = TrainState(step=0, seed=0)
+    out = {"loss": [], "skipped": [], "counts": [], "ms": []}
+    for _ in range(1 + TRAIN_STEPS):
+        reset_counters()
+        metrics, ms = timed(lambda: step(state, batch))
+        out["counts"].append(read_counters())
+        out["loss"].append(float(metrics["loss"]))
+        out["skipped"].append(float(metrics["skipped_nan"]))
+        out["ms"].append(ms)
+    out["checksum"] = float(sum(p.double().sum() for p in model.parameters()))
+    return out
+
+
+def train_dp_args(tmp: str) -> list:
+    return ["--preset", "shapes-learnability", "--data-dir", os.path.join(tmp, "shapes"),
+            "--epochs", "1", "--num-workers", "0", "--n-display", "1",
+            "--output-dir", os.path.join(tmp, "dp_run")]
+
+
+def dp_rank(rank: int, world: int, tmp: str, voc: str, model_path: str) -> dict:
+    """Phases 8 and 9 on one of `world` ranks (a spawned process): the
+    float32 and bf16 data-parallel steps in one process group, then the
+    eval CLI and the train CLI, each starting its own group from --dist-*."""
+    from segclip_tpu_torch.cli import eval_zeroshot
+    from segclip_tpu_torch.cli import train as train_cli
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.parallel import dist
+
+    build.load()
+    dev = dist.init_distributed("cuda", f"file://{tmp}/rendezvous_steps", world, rank)
+    out = {"device": str(dev), "backend": dist.backend(), "cards": torch.cuda.device_count()}
+    try:
+        dist.warmup()
+        out["f32_loss"], records = dp_f32_step(dev, rank, world)
+        torch.save(records, os.path.join(tmp, f"dp_f32_records_{rank}.pt"))
+        torch.cuda.empty_cache()
+        out["bf16"] = dp_bf16_steps(dev, rank, world)
+    finally:
+        dist.shutdown()
+    torch.cuda.empty_cache()
+    flags = ["--dist-num-processes", str(world), "--dist-process-id", str(rank)]
+    reset_counters()
+    result = eval_zeroshot.main(eval_cli_args(voc, model_path) + [
+        "--output-dir", os.path.join(tmp, f"eval_rank{rank}"),
+        "--dist-coordinator", f"file://{tmp}/rendezvous_eval"] + flags)
+    out["eval_cli"] = {"metrics": {k: result[k] for k in ("mIoU", "mAcc", "aAcc")},
+                       "counts": read_counters()}
+    with CountingPath() as path:
+        reset_counters()
+        result = train_cli.main(train_dp_args(tmp) + [
+            "--dist-coordinator", f"file://{tmp}/rendezvous_train"] + flags)
+        counts = read_counters()
+    out["train_cli"] = {"steps": path.steps, "requests": path.requests, "counts": counts,
+                        "final_loss": result["final_loss"]}
+    return out
+
+
+def dp_worker(rank: int, world: int, tmp: str, voc: str, model_path: str) -> None:
+    """Entry point of a spawned rank: runs dp_rank with its output in
+    <tmp>/dp_rank<r>.log and its result in <tmp>/dp_rank<r>.json."""
+    import contextlib
+    import traceback
+    with open(os.path.join(tmp, f"dp_rank{rank}.log"), "w") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        try:
+            result = dp_rank(rank, world, tmp, voc, model_path)
+        except BaseException:
+            traceback.print_exc()
+            raise
+    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def run_ranks(world: int, args: tuple) -> list:
+    """Spawn `world` dp_worker processes and wait for them (DP_TIMEOUT_S);
+    every one must exit 0. Returns their results."""
+    import multiprocessing as mp
+    tmp = args[0]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_worker, args=(r, world, *args), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            with open(os.path.join(tmp, f"dp_rank{r}.log")) as f:
+                print(f"  rank {r} exited {p.exitcode}; the end of its log:\n"
+                      + f.read()[-6000:])
+        check(p.exitcode == 0, f"rank {r} of {world} exited {p.exitcode}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_data_parallel(dev, tmp: str, smi: str, warm_step_ms: float, voc: str,
+                        model_path: str, eval_one: dict) -> tuple:
+    """Phase 9 (with the end of phase 8): DP_WORLD ranks on this machine,
+    spawned; one card each over NCCL where there are enough cards, else
+    sharing the card over gloo. Returns the launch counts of the ranks'
+    training and of their sharded eval."""
+    from segclip_tpu_torch.cli import eval_zeroshot
+    from segclip_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    ref_loss, ref_records = dp_f32_step(dev, 0, 1)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(DP_WORLD, (tmp, voc, model_path))
+    ranks_s = time.perf_counter() - t0
+    route = ("NCCL, one card per rank" if ranks[0]["backend"] == "nccl" else
+             "gloo, the ranks share the card, collectives through host copies")
+    print(f"phase 9: data parallel, {DP_WORLD} ranks on {ranks[0]['cards']} card(s) "
+          f"({smi}): backend {ranks[0]['backend']} ({route}); devices "
+          f"{[r['device'] for r in ranks]}; the ranks ran {ranks_s:.1f} s (spawn included)")
+    check(len({r["backend"] for r in ranks}) == 1, "ranks disagree on the backend")
+    check(ranks[0]["backend"] == ("nccl" if ranks[0]["cards"] >= DP_WORLD else "gloo"),
+          f"backend {ranks[0]['backend']} with {ranks[0]['cards']} card(s)")
+
+    losses = [r["f32_loss"] for r in ranks]
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    n_near = n_bad = 0
+    b = DP_F32_BATCH // DP_WORLD
+    for r in range(DP_WORLD):
+        records = torch.load(os.path.join(tmp, f"dp_f32_records_{r}.pt"), weights_only=True)
+        for (hard, _), (hard_ref, margin) in zip(records, ref_records):
+            near = margin[r * b:(r + 1) * b] < NEAR_TIE
+            differ = (hard != hard_ref[r * b:(r + 1) * b]).any(dim=1)
+            n_near += int(near.sum())
+            n_bad += int((differ & ~near).sum())
+    print(f"  float32 step, {DP_WORLD} × {b} against 1 × {DP_F32_BATCH}, injected noise: "
+          f"loss {losses[0]!r} (every rank: {losses[0] == losses[1]}) against {ref_loss!r}, "
+          f"rel {rel:.2e}; hard assignments differ on {n_bad} clear patches, {n_near} "
+          f"near-tie patches")
+    check(losses[0] == losses[1], f"ranks report other losses {losses}")
+    check(rel <= DP_LOSS_RTOL, f"float32 DP loss rel {rel}")
+    check(n_bad == 0, f"DP hard assignments differ on {n_bad} clear patches")
+
+    expected = train_path_counts(cfg)
+    per_rank = TRAIN_BATCH // DP_WORLD
+    for r, res in enumerate(ranks):
+        bf = res["bf16"]
+        check(all(c == expected for c in bf["counts"]),
+              f"rank {r}: launches per step {bf['counts']}, expected {expected}")
+        check(all(np.isfinite(bf["loss"])) and not any(bf["skipped"]),
+              f"rank {r}: losses {bf['loss']} skipped {bf['skipped']}")
+        warm = sorted(bf["ms"][1:])
+        print(f"  bf16, rank {r}: {1 + TRAIN_STEPS} steps at {per_rank} "
+              f"({DP_WORLD} × {per_rank} = {TRAIN_BATCH}): losses "
+              f"{' '.join(f'{v:.5f}' for v in bf['loss'])}; warm step median "
+              f"{statistics.median(warm):.2f} ms (min {warm[0]:.2f}, max {warm[-1]:.2f}), "
+              f"{TRAIN_BATCH * 1e3 / statistics.median(warm):.1f} img/s for the pair; "
+              f"launches per step {bf['counts'][0]}")
+    check(ranks[0]["bf16"]["loss"] == ranks[1]["bf16"]["loss"]
+          and ranks[0]["bf16"]["checksum"] == ranks[1]["bf16"]["checksum"],
+          "the ranks' losses or parameters differ")
+    print(f"  bf16, one rank at {TRAIN_BATCH} (phase 4): warm step median "
+          f"{warm_step_ms:.2f} ms, {TRAIN_BATCH * 1e3 / warm_step_ms:.1f} img/s; the ranks' "
+          f"parameters equal after {1 + TRAIN_STEPS} steps")
+
+    metrics = [r["eval_cli"]["metrics"] for r in ranks]
+    want = {k: eval_one[k] for k in ("mIoU", "mAcc", "aAcc")}
+    print(f"phase 8 (end): eval CLI at {DP_WORLD} ranks, float32: {metrics} against one "
+          f"process {want}; launches per rank "
+          f"{[r['eval_cli']['counts'] for r in ranks]}")
+    check(all(m == want for m in metrics), "the ranks' eval metrics differ from one process")
+
+    expected_request = {"attention_fwd": cfg.vision_layers + cfg.cross_layer,
+                        "attention_bwd": 0, "group_assign": 1, "group_assign_st": 0,
+                        "plain_route": 0}
+    steps = len(ranks[0]["train_cli"]["steps"])
+    for r, res in enumerate(ranks):
+        tc = res["train_cli"]
+        check(all(c == expected for c in tc["steps"]) and len(tc["steps"]) == steps,
+              f"rank {r}: train CLI launches per step {tc['steps']}")
+        check(len(tc["requests"]) == (CORPUS_EVAL_N if r == 0 else 0)
+              and all(c == expected_request for c in tc["requests"]),
+              f"rank {r}: eval requests {tc['requests']}")
+    run = os.path.join(tmp, "dp_run")
+    logged = read_metrics(run)
+    with open(os.path.join(run, "log.txt")) as f:
+        step_times = [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
+    mious = [m["miou"] for m in logged if "miou" in m]
+    check(sorted(os.listdir(run)) == ["best.json", "ckpt_best", "ckpt_epoch_0", "log.txt",
+                                      "metrics.jsonl"], f"dp run wrote {os.listdir(run)}")
+    check(len([m for m in logged if "loss" in m]) == steps == 2 and len(mious) == 1,
+          f"dp run metrics {logged}")
+    single = eval_zeroshot.main(["--dataset", "shapes", "--data-root",
+                                 os.path.join(tmp, "shapes", "eval"), "--init-model",
+                                 os.path.join(run, "ckpt_epoch_0", "model.pt"),
+                                 "--output-dir", os.path.join(tmp, "dp_eval")])
+    print(f"  cli.train --dist-* at {DP_WORLD} ranks, 1 epoch of phase 6's corpus: "
+          f"{steps} steps of {DP_WORLD} × {per_rank}, Time/step "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms, final loss "
+          f"{ranks[0]['train_cli']['final_loss']:.5f} on every rank: "
+          f"{ranks[0]['train_cli']['final_loss'] == ranks[1]['train_cli']['final_loss']}; "
+          f"rank 0's eval mIoU {mious[0]:.4f}; its model.pt in a one-process eval: mIoU "
+          f"{single['mIoU']:.4f}")
+    check(ranks[0]["train_cli"]["final_loss"] == ranks[1]["train_cli"]["final_loss"],
+          "the ranks' final losses differ")
+    check(abs(single["mIoU"] - mious[0]) <= SHARDED_MIOU_TOL,
+          f"rank 0's model.pt evaluates to {single['mIoU']}, the run logged {mious[0]}")
+    train = {k: sum(sum(c[k] for c in r["bf16"]["counts"]) + r["train_cli"]["counts"][k]
+                    for r in ranks) for k in expected}
+    evals = {k: sum(r["eval_cli"]["counts"][k] for r in ranks) for k in expected}
+    return train, evals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1170,7 +1785,12 @@ def main() -> int:
     train_model, step, state, batch, train_counts, warm_step_ms = phase_train(dev)
     per_step = train_path_counts(cfg)
     phase_train_plain_self(dev, train_model)
-    cli_counts = phase_train_cli(smi, warm_step_ms)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cli_counts = phase_train_cli(smi, warm_step_ms, tmp)
+        demo_counts, model_path = phase_ingest_demo(dev, model, tmp)
+        sharded_counts, eval_one, voc = phase_sharded_eval(dev, model, cfg, tmp, model_path)
+        dp_counts, dp_eval_counts = phase_data_parallel(dev, tmp, smi, warm_step_ms, voc,
+                                                        model_path, eval_one)
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
 
     kernels = []
@@ -1182,7 +1802,9 @@ def main() -> int:
         t = timings[summary[key]["timing"]]
         row = rows[summary[key]["timing"]]
         by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
-                   "train_cli": cli_counts[counter]}
+                   "train_cli": cli_counts[counter], "demo": demo_counts[counter],
+                   "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
+                   "train_dp": dp_counts[counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=per_step[counter],

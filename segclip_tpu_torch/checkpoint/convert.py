@@ -14,8 +14,13 @@ decoders the configuration builds (`vis_mae_decoder.*`, `seq_mae_decoder.*`).
 A decoder the configuration does not build (the text one, off at the
 defaults) is dropped and reported. The reference also stores each decoder's
 fixed position table (`decoder_pos_embed`); the port builds that table
-itself, so the key is checked against it and dropped. The surgery that turns OpenAI's ViT-B-16.pt
-resblocks into layers0/layers2 is not ported yet.
+itself, so the key is checked against it and dropped.
+
+OpenAI's ViT-B-16.pt, segclip.bin and other reference checkpoints, with
+the resblocks → layers0/layers2 surgery, the architecture inferred from
+their shapes and absent weights kept at their init, go through
+`checkpoint/torch_convert.py` (`cli/common.load_model`); `load_into` is the
+strict load of a state dict in the port's own layout.
 """
 from __future__ import annotations
 
@@ -49,6 +54,24 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def drop_position_tables(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
+    """Pop each decoder's reference position table (`*.decoder_pos_embed`)
+    from `sd`, checking it against the port's fixed table where the model
+    builds that decoder. Returns the keys popped, sorted; raises on a table
+    that differs from the port's."""
+    dropped = sorted(k for k in sd if k.endswith("." + POS_TABLE_KEY))
+    for key in dropped:
+        table = sd.pop(key)
+        decoder = getattr(model, key.split(".", 1)[0], None)
+        if decoder is None:
+            continue
+        table = table.reshape(decoder.pos_table.shape).float()
+        err = (table - decoder.pos_table.cpu()).abs().max().item()
+        if err > POS_TABLE_TOL:
+            raise ValueError(f"{key} differs from the port's fixed table by {err}")
+    return dropped
+
+
 def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
     """Load `sd` into a SegCLIP: `clip.*` and the decoders the model builds,
     every key strictly. Returns what was dropped, sorted: the prefix of a
@@ -62,15 +85,7 @@ def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
         if not hasattr(model, prefix[:-1]) and any(k.startswith(prefix) for k in sd):
             sd = {k: v for k, v in sd.items() if not k.startswith(prefix)}
             dropped.append(prefix)
-    for key in sorted(k for k in sd if k.endswith("." + POS_TABLE_KEY)):
-        decoder = getattr(model, key.split(".", 1)[0], None)
-        if decoder is None:
-            raise KeyError(f"{key}: the model has no such decoder")
-        table = sd.pop(key).reshape(decoder.pos_table.shape).float()
-        err = (table - decoder.pos_table.cpu()).abs().max().item()
-        if err > POS_TABLE_TOL:
-            raise ValueError(f"{key} differs from the port's fixed table by {err}")
-        dropped.append(key)
+    dropped += drop_position_tables(model, sd)
     unknown = sorted(set(sd) - set(model.state_dict()))
     if unknown:
         raise KeyError(f"state dict keys the model does not have: {unknown[:5]}")

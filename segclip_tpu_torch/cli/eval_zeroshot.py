@@ -1,12 +1,15 @@
-"""Zero-shot segmentation mIoU evaluation on one device
-(segclip_tpu/cli/eval_zeroshot.py).
+"""Zero-shot segmentation mIoU evaluation (segclip_tpu/cli/eval_zeroshot.py).
 
     python -m segclip_tpu_torch.cli.eval_zeroshot --dataset voc \
         --data-root /data/VOC2012 --init-model segclip.bin
 
+Several images per decode call (`--images-per-device`) and several
+processes (`--dist-*`, each on its strided share of the dataset, the
+metrics summed across them) go through the sharded evaluator.
+
 Runs on the CUDA card (`--device cuda`, the default) and raises when there
 is none; `--device cpu` runs on the CPU with the kernels' plain versions.
-Prints one JSON line with the results last.
+Prints one JSON line with the results last (on every rank).
 """
 from __future__ import annotations
 
@@ -15,12 +18,15 @@ import dataclasses
 import json
 import os
 
+import torch
+
 from segclip_tpu_torch.config import ModelConfig, apply_overrides
 from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS, SegEvalDataset
 from segclip_tpu_torch.cli.common import load_model
-from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter, evaluate_dataset
+from segclip_tpu_torch.evalseg.inference import (ZeroShotSegmenter, evaluate_dataset,
+                                                 evaluate_dataset_sharded)
 from segclip_tpu_torch.evalseg.text_bank import build_text_bank
-from segclip_tpu_torch.utils.device import resolve_device
+from segclip_tpu_torch.parallel import dist
 from segclip_tpu_torch.utils.logging import get_logger
 
 
@@ -53,6 +59,24 @@ def main(argv=None):
                     help="encode dtype; default keeps the model config's "
                          "(bfloat16). float32 is the reference's eval "
                          "precision")
+    ap.add_argument("--sharded", choices=["auto", "on", "off"], default="auto",
+                    help="the sharded evaluator (auto: when there is more than "
+                         "one process or more than one image per device)")
+    ap.add_argument("--images-per-device", type=int, default=1,
+                    help=">1 decodes the windows of several images in one call; "
+                         "at bfloat16 a larger batch may flip near-tie pixels "
+                         "(PERF.md), at float32 with TF32 off it does not")
+    ap.add_argument("--matmul-precision", default="highest",
+                    choices=["highest", "high"],
+                    help="float32 matrix products on the card: highest (full "
+                         "float32, TF32 off: the default) or high (TF32). The "
+                         "JAX package's TPU default is bf16 passes; the port "
+                         "keeps float32 exact so that a float32 eval does not "
+                         "depend on the batching (README)")
+    ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                    help="rendezvous of a multi-process eval (see cli.train)")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N, or cpu; the CPU runs the "
                          "kernels' plain versions and is used only when named")
@@ -60,9 +84,23 @@ def main(argv=None):
     ap.add_argument("--opts", nargs="*", default=[],
                     help="model config overrides key=value")
     args = ap.parse_args(argv)
+    if args.sharded == "off" and args.images_per_device > 1:
+        raise SystemExit("--images-per-device > 1 requires the sharded eval path; "
+                         "drop --sharded off (or use --images-per-device 1)")
 
-    logger = get_logger(args.output_dir)
-    device = resolve_device(args.device)
+    device = dist.init_distributed(args.device, args.dist_coordinator,
+                                   args.dist_num_processes, args.dist_process_id)
+    try:
+        return _evaluate(args, device)
+    finally:
+        dist.shutdown()
+
+
+def _evaluate(args, device):
+    lead = dist.rank() == 0
+    logger = get_logger(args.output_dir if lead else None)
+    if args.matmul_precision == "high":
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     cfg = ModelConfig()
     for item in args.opts:
         cfg = apply_overrides(cfg, [item])
@@ -71,10 +109,15 @@ def main(argv=None):
 
     model, cfg = load_model(args.init_model, cfg, device)
     spec = DATASET_SPECS[args.dataset]
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump({"model": dataclasses.asdict(cfg), "dataset": args.dataset,
-                   "template": args.template, "bg_thresh": args.bg_thresh,
-                   "device": str(device)}, f, indent=2)
+    world = dist.world_size()
+    if lead:
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump({"model": dataclasses.asdict(cfg), "dataset": args.dataset,
+                       "template": args.template, "bg_thresh": args.bg_thresh,
+                       "device": str(device), "world_size": world,
+                       "images_per_device": args.images_per_device,
+                       "sharded": args.sharded,
+                       "matmul_precision": args.matmul_precision}, f, indent=2)
     logger.info("device=%s dataset=%s classes=%d bg_thresh=%.2f", device,
                 spec.name, len(spec.classes),
                 spec.bg_thresh if args.bg_thresh is None else args.bg_thresh)
@@ -83,7 +126,13 @@ def main(argv=None):
     logger.info("evaluating %d images", len(dataset))
     segmenter = build_segmenter(model, cfg, spec, template_set=args.template,
                                 bg_thresh=args.bg_thresh)
-    results = evaluate_dataset(segmenter, dataset, logger=logger)
+    sharded = args.sharded == "on" or args.images_per_device > 1 or (
+        args.sharded == "auto" and world > 1)
+    if sharded:
+        results = evaluate_dataset_sharded(segmenter, dataset, logger=logger,
+                                           images_per_device=args.images_per_device)
+    else:                       # --sharded off: each rank evaluates every image
+        results = evaluate_dataset(segmenter, dataset, logger=logger)
     logger.info("mIoU=%.2f mAcc=%.2f aAcc=%.2f", results["mIoU"],
                 results["mAcc"], results["aAcc"])
     per_class = results.get("per_class", {})

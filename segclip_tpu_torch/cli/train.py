@@ -1,5 +1,5 @@
 """Pretraining CLI (segclip_tpu/cli/train.py, the reference's
-main_task_align.py) on one device.
+main_task_align.py), on one device or data parallel across processes.
 
     python -m segclip_tpu_torch.cli.prepare_data shapes --out-dir /data/shapes \
         --train-n 60000 --eval-n 300
@@ -10,12 +10,17 @@ Smoke run on the CPU (no data needed):
     python -m segclip_tpu_torch.cli.train --device cpu --datatype synthetic \
         --batch-size 8 --epochs 1 --opts model.vision_width=64 ...
 
+Data parallel, two processes on one host (each runs this command; the
+global batch is split across them; parallel/dist.py picks NCCL with a card
+per rank, gloo otherwise):
+    python -m segclip_tpu_torch.cli.train --dist-coordinator localhost:29500 \
+        --dist-num-processes 2 --dist-process-id {0,1} ...
+
 Runs on the CUDA card (`--device cuda`, the default) and raises when there
 is none; `--device cpu` runs on the CPU with the kernels' plain versions.
 The data transport is rgb (`data.transfer=rgb` is this CLI's default); the
-yuv420 transport, device-side augmentation, tensor and data parallelism,
-`train.epochs_per_run`, the `--dist-*` flags and `eval.images_per_device > 1`
-are not ported and raise (ROADMAP.md).
+yuv420 transport, device-side augmentation, tensor parallelism and
+`train.epochs_per_run` are not ported and raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -81,12 +86,11 @@ def make_eval_fn(cfg: Config, data_root: str, logger):
     whatever the training precision, main_seg_zeroshot.py:179)."""
     from segclip_tpu_torch.cli.eval_zeroshot import build_segmenter
     from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS, SegEvalDataset
-    from segclip_tpu_torch.evalseg.inference import evaluate_dataset
+    from segclip_tpu_torch.evalseg.inference import (evaluate_dataset,
+                                                     evaluate_dataset_sharded)
     from segclip_tpu_torch.models.segclip import SegCLIP
+    from segclip_tpu_torch.parallel import dist
 
-    if cfg.eval.images_per_device > 1:
-        raise ValueError("eval.images_per_device > 1 runs the sharded evaluator, "
-                         "which is not ported yet (ROADMAP.md, item 3a)")
     spec = DATASET_SPECS[cfg.eval.dataset]
     mcfg = cfg.model
     if cfg.eval.compute_dtype:
@@ -102,8 +106,14 @@ def make_eval_fn(cfg: Config, data_root: str, logger):
                 shared.update(of=model, model=clone.to(device).eval())
             model = shared["model"]
         seg = build_segmenter(model, mcfg, spec, template_set=cfg.eval.template_set)
-        return evaluate_dataset(seg, SegEvalDataset(spec, data_root),
-                                logger=logger)["mIoU"]
+        ds = SegEvalDataset(spec, data_root)
+        # the loop calls eval_fn on rank 0 alone, so the sharded evaluator
+        # (several images per decode) runs only in a world of one process
+        if dist.world_size() == 1 and cfg.eval.images_per_device > 1:
+            return evaluate_dataset_sharded(
+                seg, ds, logger=logger,
+                images_per_device=cfg.eval.images_per_device)["mIoU"]
+        return evaluate_dataset(seg, ds, logger=logger)["mIoU"]
 
     return eval_fn
 
@@ -155,9 +165,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N, or cpu; the CPU runs the "
                          "kernels' plain versions and is used only when named")
-    for flag in ("--dist-coordinator", "--dist-num-processes", "--dist-process-id"):
-        ap.add_argument(flag, default=None,
-                        help="multi-process training: not ported yet (slice 5)")
+    ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                    help="data-parallel rendezvous: HOST:PORT of rank 0, or an "
+                         "init URL (tcp://…, file://…); also read from "
+                         "SEGCLIP_DIST_COORDINATOR, or torchrun's variables "
+                         "under SEGCLIP_DIST=1")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
     ap.add_argument("--opts", nargs="*", default=[],
                     help="config overrides, e.g. model.vision_width=256")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
@@ -176,25 +190,26 @@ def main(argv=None):
     if (args.preset and args.eval_data_root is None and args.data_dir
             and args.eval_each_epoch):
         args.eval_data_root = os.path.join(args.data_dir, "eval")
-    if any(v is not None for v in (args.dist_coordinator, args.dist_num_processes,
-                                   args.dist_process_id)):
-        raise ValueError("the --dist-* flags are not ported: data parallelism is "
-                         "slice 5 (ROADMAP.md)")
 
-    cfg = build_config(args)
-    logger = get_logger(cfg.train.output_dir)
-    logger.info("config: %s", dataclasses.asdict(cfg))
-
-    eval_fn = None
-    if args.eval_each_epoch and args.eval_data_root:
-        eval_fn = make_eval_fn(cfg, args.eval_data_root, logger)
-
+    from segclip_tpu_torch.parallel import dist
     from segclip_tpu_torch.train.loop import train
-    result = train(cfg, init_model=args.init_model,
-                   resume=args.do_resume or bool(args.resume_model),
-                   eval_fn=eval_fn, device=args.device, profile_dir=args.profile)
-    logger.info("training done: %d epochs, final loss %f",
-                result["epochs_run"], result["final_loss"])
+    cfg = build_config(args)
+    device = dist.init_distributed(args.device, args.dist_coordinator,
+                                   args.dist_num_processes, args.dist_process_id)
+    try:
+        # log.txt is rank 0's; every rank logs to its own stderr
+        logger = get_logger(cfg.train.output_dir if dist.rank() == 0 else None)
+        logger.info("config: %s", dataclasses.asdict(cfg))
+        eval_fn = None
+        if args.eval_each_epoch and args.eval_data_root:
+            eval_fn = make_eval_fn(cfg, args.eval_data_root, logger)
+        result = train(cfg, init_model=args.init_model,
+                       resume=args.do_resume or bool(args.resume_model),
+                       eval_fn=eval_fn, device=device, profile_dir=args.profile)
+        logger.info("training done: %d epochs, final loss %f",
+                    result["epochs_run"], result["final_loss"])
+    finally:
+        dist.shutdown()
     return result
 
 

@@ -11,12 +11,16 @@ group-attention decode and the sliding window.
 
 The JAX package pads crops to power-of-two buckets and caches jitted
 programs per shape; both exist only for XLA recompiles, and eager PyTorch
-has no use for them.
+has no use for them. Its sharded evaluator batches images of one bucket;
+here every slide window is crop × crop, so the windows of any several
+images go through one `_decode_crops` call and are split back per image
+(`ZeroShotSegmenter.predict_batch`), and ranks of a process group each take
+a strided share of the dataset (`evaluate_dataset_sharded`).
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from segclip_tpu_torch.evalseg.miou import MIoUMeter
 from segclip_tpu_torch.ops.pos_embed import interp_tensor
+from segclip_tpu_torch.parallel import dist
 
 
 def _upsample_attn(soft_attn: torch.Tensor, gh: int, gw: int, out_h: int,
@@ -118,21 +123,31 @@ class ZeroShotSegmenter:
                 wins.append((y1, x1, y2, x2))
         return wins
 
-    def _slide(self, image: np.ndarray) -> torch.Tensor:
+    def _slide_windows(self, image: np.ndarray):
+        """The crops of `image`, zero-padded to the crop where it is
+        smaller, and their windows."""
         h0, w0, _ = image.shape
         if h0 < self.crop or w0 < self.crop:
             image = np.pad(image, ((0, max(0, self.crop - h0)),
                                    (0, max(0, self.crop - w0)), (0, 0)))
-        h, w, _ = image.shape
-        wins = self._windows(h, w)
-        crops = np.stack([image[y1:y2, x1:x2] for y1, x1, y2, x2 in wins])
-        logits = self._decode(crops, self.crop, self.crop)
+        wins = self._windows(*image.shape[:2])
+        return [image[y1:y2, x1:x2] for y1, x1, y2, x2 in wins], wins
+
+    def _stitch(self, logits: torch.Tensor, wins, h0: int, w0: int) -> torch.Tensor:
+        """Window logits → the image's (C, h0, w0) logits, averaged where
+        windows overlap."""
+        h, w = max(h0, self.crop), max(w0, self.crop)
         canvas = torch.zeros((self.num_classes, h, w), device=self.device)
         count = torch.zeros((1, h, w), device=self.device)
         for lg, (y1, x1, y2, x2) in zip(logits, wins):
             canvas[:, y1:y2, x1:x2] += lg
             count[:, y1:y2, x1:x2] += 1.0
         return (canvas / count)[:, :h0, :w0]
+
+    def _slide(self, image: np.ndarray) -> torch.Tensor:
+        crops, wins = self._slide_windows(image)
+        logits = self._decode(np.stack(crops), self.crop, self.crop)
+        return self._stitch(logits, wins, *image.shape[:2])
 
     def _whole(self, image: np.ndarray) -> torch.Tensor:
         h, w, _ = image.shape
@@ -174,10 +189,30 @@ class ZeroShotSegmenter:
         if mode not in ("slide", "whole"):
             raise ValueError(f"mode must be slide or whole, got {mode!r}")
         logits = self._slide(image) if mode == "slide" else self._whole(image)
+        return self._labels(logits, orig_shape)
+
+    @staticmethod
+    def _labels(logits: torch.Tensor, orig_shape: Tuple[int, int]) -> np.ndarray:
         oh, ow = orig_shape
         if logits.shape[1:] != (oh, ow):
             logits = _resize_chw(logits, oh, ow)
         return logits.argmax(dim=0).to(torch.int32).cpu().numpy()
+
+    @torch.inference_mode()
+    def predict_batch(self, images: Sequence[np.ndarray],
+                      orig_shapes: Sequence[Tuple[int, int]]) -> List[np.ndarray]:
+        """Slide-mode `predict` of several images with one decode call over
+        all their windows (every window is crop × crop), split back per
+        image. One image gives `predict`'s decode call exactly."""
+        per_image = [self._slide_windows(image) for image in images]
+        logits = self._decode(np.stack([c for crops, _ in per_image for c in crops]),
+                              self.crop, self.crop)
+        preds, start = [], 0
+        for image, (crops, wins), shape in zip(images, per_image, orig_shapes):
+            part = logits[start:start + len(crops)]
+            start += len(crops)
+            preds.append(self._labels(self._stitch(part, wins, *image.shape[:2]), shape))
+        return preds
 
 
 def evaluate_dataset(segmenter: ZeroShotSegmenter, dataset,
@@ -192,4 +227,48 @@ def evaluate_dataset(segmenter: ZeroShotSegmenter, dataset,
         if logger and (i + 1) % log_every == 0:
             logger.info("eval %d/%d  running mIoU %.2f", i + 1, len(dataset),
                         meter.results()["mIoU"])
+    return meter.results(dataset.spec.classes)
+
+
+def evaluate_dataset_sharded(segmenter: ZeroShotSegmenter, dataset, log_every: int = 50,
+                             logger=None, images_per_device: int = 1) -> dict:
+    """Zero-shot mIoU with `images_per_device` images per decode call and,
+    in a process group, each rank on its strided share of the dataset (the
+    reference's dataset sharding across GPUs, main_seg_zeroshot.py:137-146).
+    The confusion-matrix accumulators are summed across the ranks (an int64
+    all-reduce), so every rank returns the whole dataset's metrics. With one
+    image per call in a world of one process it is `evaluate_dataset`."""
+    world, rank = dist.world_size(), dist.rank()
+    per_call = max(1, images_per_device)
+    if per_call == 1 and world == 1:
+        return evaluate_dataset(segmenter, dataset, log_every, logger)
+    # the communicators are set up now, while every rank is at the same
+    # point, and not at the final reduce after each rank's eval
+    dist.warmup()
+    meter = MIoUMeter(segmenter.num_classes, ignore_index=dataset.spec.ignore_index)
+    group, n_done = [], 0
+    mine = range(rank, len(dataset), world)
+
+    def flush():
+        nonlocal n_done
+        preds = segmenter.predict_batch([s.image for s in group],
+                                        [s.orig_shape for s in group])
+        for sample, pred in zip(group, preds):
+            if sample.label is not None:
+                meter.update(pred, sample.label)
+        n_done += len(group)
+        if logger and n_done % max(log_every, per_call) < len(group):
+            logger.info("eval %d/%d (rank %d)  running mIoU %.2f", n_done, len(mine),
+                        rank, meter.results()["mIoU"])
+        group.clear()
+
+    for i in mine:
+        group.append(dataset.load(i))
+        if len(group) == per_call:
+            flush()
+    if group:
+        flush()
+    if world > 1:
+        state = torch.from_numpy(np.rint(meter.state()).astype(np.int64))
+        meter.set_state(dist.all_reduce_(state).numpy())
     return meter.results(dataset.spec.classes)

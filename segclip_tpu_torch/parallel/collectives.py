@@ -1,39 +1,70 @@
-"""Collectives for the global-batch contrastive loss
-(segclip_tpu/parallel/collectives.py), at world size 1.
+"""Collectives for the global-batch contrastive loss and the data-parallel
+step (segclip_tpu/parallel/collectives.py).
 
-The loss code calls `global_gather` and `rank_of` as the JAX package's does.
-With no process group, or a group of one process, they are the identity
-and rank 0. A larger world needs a differentiable all-gather, which is the
-data-parallel slice's work: until then they raise instead of computing a
-loss over one shard's batch as if it were the global one.
+The loss code calls `global_gather` and `rank_of` as the JAX package's
+does. With no process group, or a group of one process, they are the
+identity and rank 0. Across processes `global_gather` concatenates along dim
+0 and is differentiable: its backward sums the cotangent across the ranks
+and keeps this rank's rows, the transpose of `lax.all_gather`
+(psum_scatter), so each rank's gradient takes in every rank's loss. The
+reference needed diffdist's autograd all_gather for the same
+(util_module.py:180-190).
+
+The gather is an all-reduce of a zero-filled (world·B, …) buffer holding
+this rank's rows: exact (x + 0 = x), and the same code on gloo and NCCL,
+where gloo refuses all_gather on CUDA tensors. Every rank must give the
+same B.
 """
 from __future__ import annotations
 
+from typing import List
+
 import torch
-import torch.distributed as dist
+
+from segclip_tpu_torch.parallel.dist import all_reduce_, rank, world_size
 
 
-def world_size() -> int:
-    if not (dist.is_available() and dist.is_initialized()):
-        return 1
-    return dist.get_world_size()
+def _gather(x: torch.Tensor) -> torch.Tensor:
+    b, r = x.shape[0], rank()
+    out = x.new_zeros((world_size() * b,) + tuple(x.shape[1:]))
+    out[r * b:(r + 1) * b] = x
+    return all_reduce_(out)
 
 
-def _single_process(what: str) -> None:
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"{what} at world size {world_size()}: the port gathers across "
-            f"processes only once data parallelism is ported")
+class _GlobalGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.rows = x.shape[0]
+        return _gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        b, r = ctx.rows, rank()
+        return all_reduce_(grad.contiguous().clone())[r * b:(r + 1) * b]
 
 
 def global_gather(x: torch.Tensor) -> torch.Tensor:
-    """x concatenated across the processes along dim 0 (identity at world
-    size 1)."""
-    _single_process("global_gather")
-    return x
+    """x concatenated across the processes along dim 0, rank order; the
+    identity at world size 1."""
+    if world_size() == 1:
+        return x
+    return _GlobalGather.apply(x)
 
 
 def rank_of() -> int:
     """This process's rank (0 at world size 1)."""
-    _single_process("rank_of")
-    return 0
+    return rank()
+
+
+def mean_across_ranks_(tensors: List[torch.Tensor]) -> None:
+    """Replace each tensor by its mean over the ranks, in place, with one
+    all-reduce of their concatenation (the data-parallel step's `pmean` of
+    gradients and of losses). All tensors share one dtype."""
+    world = world_size()
+    if world == 1 or not tensors:
+        return
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors])).div_(world)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()

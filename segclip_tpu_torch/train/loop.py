@@ -1,14 +1,23 @@
-"""The training loop (segclip_tpu/train/loop.py) on one device: epochs of
-the training step over the record pipeline, with logging, checkpoints,
-resume, and the per-epoch zero-shot eval with keep_best.
+"""The training loop (segclip_tpu/train/loop.py): epochs of the training
+step over the record pipeline, with logging, checkpoints, resume, and the
+per-epoch zero-shot eval with keep_best, on one device or data parallel
+across the ranks of a process group (parallel/dist.py).
 
 Cadence mirrors main_task_align.py:292-359 + 455-495: per-`log_every` step
 LR/loss/time logging, per-epoch checkpoint, optional in-training mIoU.
 
+Across ranks, as the JAX loop across hosts: each rank loads its shard of
+every global batch (`ShardedEpochSampler(shard=rank, num_shards=world)`);
+log.txt, metrics.jsonl and best.json are written by rank 0 only; rank 0
+saves each checkpoint (torch.save is not a collective, unlike Orbax's save)
+and the others wait at a barrier; rank 0 runs the per-epoch eval and
+broadcasts its mIoU, and keep_best's running best, so that every rank takes
+the same branch. A warm-up collective runs before the first step.
+
 Not ported, and refused with a message rather than run otherwise: tensor
-parallelism, more than one data-parallel device (slice 5), and
-`train.epochs_per_run` (ROADMAP.md). `data.packed_transfer` has no meaning
-here (each field is copied through pinned memory) and is ignored.
+parallelism, a `train.data_parallelism` other than -1 or the world size,
+and `train.epochs_per_run` (ROADMAP.md). `data.packed_transfer` has no
+meaning here (each field is copied through pinned memory) and is ignored.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from segclip_tpu_torch.checkpoint.io import (auto_resume_path, restore_checkpoin
 from segclip_tpu_torch.config import Config
 from segclip_tpu_torch.data.pipeline import BatchLoader, ShardedEpochSampler, build_dataset
 from segclip_tpu_torch.models.segclip import init_segclip
+from segclip_tpu_torch.parallel import dist
 from segclip_tpu_torch.parallel.prefetch import prefetch_to_device
 from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 from segclip_tpu_torch.utils.device import resolve_device
@@ -37,10 +47,11 @@ def check_supported(cfg: Config) -> None:
     if t.tensor_parallelism != 1:
         raise ValueError(f"train.tensor_parallelism={t.tensor_parallelism} is not "
                          f"ported (ROADMAP.md, 'do not port')")
-    if t.data_parallelism not in (1, -1):
-        raise ValueError(f"train.data_parallelism={t.data_parallelism}: the port "
-                         f"trains on one device; data parallelism is slice 5 "
-                         f"(ROADMAP.md)")
+    world = dist.world_size()
+    if t.data_parallelism not in (-1, world):
+        raise ValueError(f"train.data_parallelism={t.data_parallelism} must be -1 or "
+                         f"the world size, {world}: start that many processes with "
+                         f"the --dist-* flags (README.md)")
     if t.epochs_per_run > 0:
         raise ValueError("train.epochs_per_run is not ported (ROADMAP.md, 'do not "
                          "port'): resume with --do-resume instead")
@@ -55,11 +66,13 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
     eval_fn(model) → mIoU float, called per epoch when
     cfg.train.eval_each_epoch (cli/train.py wires the zero-shot evaluator
     in). `device`: "cuda" (None), "cuda:N" or "cpu"; the CPU only when
-    named. `profile_dir`: a torch.profiler trace of the first epoch run."""
+    named; in a process group, this rank's device. `profile_dir`: a
+    torch.profiler trace of rank 0's first epoch run."""
     check_supported(cfg)
     device = resolve_device(device)
-    logger = get_logger(cfg.train.output_dir)
-    metrics_writer = MetricWriter(cfg.train.output_dir)
+    rank, world = dist.rank(), dist.world_size()
+    logger = get_logger(cfg.train.output_dir if rank == 0 else None)
+    metrics_writer = MetricWriter(cfg.train.output_dir) if rank == 0 else None
     if cfg.data.packed_transfer:
         logger.info("data.packed_transfer is ignored: the port copies each batch "
                     "field through pinned memory (ROADMAP.md, 'do not port')")
@@ -71,8 +84,8 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
         patch_size=cfg.model.vision_patch_size,
         emit_class_ids=cfg.model.infonce_mask != "none")
     dataset = factory()
-    sampler = ShardedEpochSampler(len(dataset), cfg.data.batch_size,
-                                  seed=cfg.train.seed)
+    sampler = ShardedEpochSampler(len(dataset), cfg.data.batch_size, shard=rank,
+                                  num_shards=world, seed=cfg.train.seed)
     num_workers = cfg.data.num_workers
     if num_workers < 0:
         num_workers = max(1, (os.cpu_count() or 1) - 1)
@@ -86,8 +99,9 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
                 f"dataset of {len(dataset)} samples yields zero steps at global "
                 f"batch {cfg.data.batch_size} — reduce the batch size")
         t_total = steps_per_epoch * cfg.train.epochs
-        logger.info("dataset=%s len=%d steps/epoch=%d t_total=%d device=%s",
-                    cfg.data.datatype, len(dataset), steps_per_epoch, t_total, device)
+        logger.info("dataset=%s len=%d steps/epoch=%d t_total=%d device=%s rank=%d/%d",
+                    cfg.data.datatype, len(dataset), steps_per_epoch, t_total, device,
+                    rank, world)
 
         if init_model:
             from segclip_tpu_torch.cli.common import load_model
@@ -108,6 +122,7 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
                 start_epoch = last_epoch + 1
                 logger.info("resumed from %s → epoch %d", path, start_epoch)
 
+        dist.warmup()
         ckpts: list = []
         final_loss = _run_epochs(cfg, range(start_epoch, cfg.train.epochs), loader,
                                  step_fn, state, model, optimizer, device,
@@ -135,23 +150,39 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
                 steps_per_epoch, eval_fn, logger, metrics_writer, ckpts,
                 profile_dir) -> float:
     """Train `epochs` (a range), appending each checkpoint's path to
-    `ckpts`; returns the last step's loss."""
+    `ckpts` (on rank 0); returns the last step's loss, the mean over the
+    ranks."""
     final_loss = float("nan")
+    lead = dist.rank() == 0
     keep_best = cfg.train.keep_best
     if keep_best and not (eval_fn is not None and cfg.train.eval_each_epoch):
         logger.warning("train.keep_best needs eval_each_epoch + an eval "
                        "dataset — ignoring it")
         keep_best = False
-    best = float(_read_best(cfg.train.output_dir)["miou"]) if keep_best else -1.0
+    best = -1.0
+    if keep_best:
+        # rank 0 owns best.json; every rank takes the same save-or-not branch
+        best = dist.broadcast_float(
+            float(_read_best(cfg.train.output_dir)["miou"]) if lead else -1.0)
+
+    def save(epoch, name=None):
+        path = None
+        if lead:
+            path = save_checkpoint(cfg.train.output_dir, epoch, model, optimizer, state,
+                                   name=name)
+        dist.barrier()
+        return path
+
     for epoch in epochs:
         t_start = time.time()
         window_start = time.time()
         n_steps = 0
-        with trace_if(profile_dir, enabled=profile_dir is not None and epoch == epochs[0]):
+        with trace_if(profile_dir, enabled=(profile_dir is not None and lead
+                                            and epoch == epochs[0])):
             for batch in prefetch_to_device(loader.epoch(epoch), device,
                                             depth=cfg.data.device_prefetch):
                 metrics = step_fn(state, batch)
-                if state.step % cfg.train.log_every == 0:
+                if lead and state.step % cfg.train.log_every == 0:
                     loss = float(metrics["loss"])
                     lr = cfg.optim.lr * optimizer.schedule_factor(optimizer.step_count)
                     dt = (time.time() - window_start) / cfg.train.log_every
@@ -170,25 +201,31 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
 
         # every checkpoint_every epochs, and always after the last one
         if (epoch + 1) % cfg.train.checkpoint_every == 0 or epoch == epochs[-1]:
-            path = save_checkpoint(cfg.train.output_dir, epoch, model, optimizer, state)
-            ckpts.append(path)
-            logger.info("checkpoint saved to %s", path)
+            path = save(epoch)
+            if lead:
+                ckpts.append(path)
+                logger.info("checkpoint saved to %s", path)
 
         if eval_fn is not None and cfg.train.eval_each_epoch:
+            # rank 0 evaluates; the others wait at the broadcast
             miou = float("nan")
-            try:
-                miou = float(eval_fn(model))
-            except Exception as e:               # eval must not kill training
-                logger.warning("per-epoch eval failed: %s: %s", type(e).__name__, e,
-                               exc_info=True)
+            if lead:
+                try:
+                    miou = float(eval_fn(model))
+                except Exception as e:           # eval must not kill training
+                    logger.warning("per-epoch eval failed: %s: %s", type(e).__name__, e,
+                                   exc_info=True)
+            miou = dist.broadcast_float(miou)
             if not math.isnan(miou):
                 logger.info("Epoch %d zero-shot mIoU: %.2f", epoch + 1, miou)
-                metrics_writer.write(state.step, epoch=epoch, miou=miou)
+                if lead:
+                    metrics_writer.write(state.step, epoch=epoch, miou=miou)
                 if keep_best and miou > best:
                     best = miou
-                    path = save_checkpoint(cfg.train.output_dir, epoch, model,
-                                           optimizer, state, name="ckpt_best")
-                    with open(os.path.join(cfg.train.output_dir, "best.json"), "w") as f:
-                        json.dump({"miou": best, "epoch": epoch}, f)
-                    logger.info("new best mIoU %.2f → %s", best, path)
+                    path = save(epoch, name="ckpt_best")
+                    if lead:
+                        with open(os.path.join(cfg.train.output_dir, "best.json"),
+                                  "w") as f:
+                            json.dump({"miou": best, "epoch": epoch}, f)
+                        logger.info("new best mIoU %.2f → %s", best, path)
     return final_loss

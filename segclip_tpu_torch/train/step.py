@@ -1,4 +1,5 @@
-"""The training step (segclip_tpu/train/step.py), on one device.
+"""The training step (segclip_tpu/train/step.py), on one device or data
+parallel across processes.
 
 One step, in the reference's order (main_task_align.py:292-359):
   uint8 images → CLIP-normalised on the device → forward (the loss dict)
@@ -7,9 +8,18 @@ One step, in the reference's order (main_task_align.py:292-359):
   untouched; the state's step still advances) → AdaptAdamW → the clamp of
   logit_scale at ≤ ln 100.
 
+Data parallel (a process group of several ranks, parallel/dist.py), as the
+JAX package's sharded step: each rank runs its shard of the global batch,
+the InfoNCE gathers features across ranks (parallel/collectives.py), the
+gradients and the losses are averaged across ranks (its `pmean`) in one
+flat all-reduce each, before the clip and before the NaN check, so that
+every rank takes the same branch and the replicas stay equal.
+
 The Gumbel and masking noise comes from a torch.Generator on the device,
-seeded by (seed, step), so a step is reproducible on one device; it is not
-the JAX package's stream (tests inject the same noise into both). The model
+seeded by (seed, step, rank) (the JAX step folds in the axis index), so a
+step is reproducible; at rank 0 the seed is (seed, step) alone, as at world
+size 1. It is not the JAX package's stream (tests inject the same noise
+into both). The model
 and the optimizer are updated in place; `TrainState` carries the step and
 the seed. Frozen parameters have requires_grad=False (param_groups.freeze),
 so they get no gradient and no share of the clip norm, as the JAX step's
@@ -24,11 +34,14 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from segclip_tpu_torch.config import Config
 from segclip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from segclip_tpu_torch.models.segclip import SegCLIP
+from segclip_tpu_torch.parallel.collectives import mean_across_ranks_, rank_of
+from segclip_tpu_torch.parallel.dist import world_size
 from segclip_tpu_torch.train.optimizer import AdaptAdamW, global_norm_clip
 from segclip_tpu_torch.train.param_groups import freeze, param_groups
 
@@ -65,11 +78,18 @@ def normalize_images(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {**batch, "image": (image.float() / 255.0 - mean) / std}
 
 
-def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
-    """The step's generator: a function of (seed, step) only."""
-    if not 0 <= seed < 2 ** 31 or not 0 <= step < 2 ** 32:
-        raise ValueError(f"seed {seed} or step {step} out of range")
-    return torch.Generator(device=device).manual_seed((seed << 32) | step)
+def step_generator(device: torch.device, seed: int, step: int,
+                   rank: int = 0) -> torch.Generator:
+    """The step's generator: a function of (seed, step, rank) only. Rank 0
+    (and so world size 1) seeds with (seed << 32) | step; another rank with
+    63 bits of numpy's SeedSequence of (seed, step, rank)."""
+    if not 0 <= seed < 2 ** 31 or not 0 <= step < 2 ** 32 or rank < 0:
+        raise ValueError(f"seed {seed}, step {step} or rank {rank} out of range")
+    key = (seed << 32) | step
+    if rank:
+        key = int(np.random.SeedSequence([seed, step, rank]).generate_state(
+            1, np.uint64)[0]) >> 1
+    return torch.Generator(device=device).manual_seed(key)
 
 
 def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
@@ -78,11 +98,14 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
     over micro-batches) plus "grad_norm" and "skipped_nan", as 0-d tensors.
     Updates the model, the optimizer and state.step in place. `noise` (the
     keys of models.segclip.NOISE_KEYS, at micro-batch size) replaces the
-    draws in every micro-batch; it is for tests."""
+    draws in every micro-batch; it is for tests. In a process group the
+    batch is this rank's shard, and the metrics are the means over the
+    ranks."""
     accum = cfg.train.grad_accum_steps
     max_norm = cfg.optim.max_grad_norm
     params = [p for p in model.parameters() if p.requires_grad]
     logit_scale = model.clip.logit_scale
+    world, rank = world_size(), rank_of()
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              noise: Optional[Dict[str, torch.Tensor]] = None
@@ -91,7 +114,7 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
         b = batch["image"].shape[0]
         if accum < 1 or b % accum:
             raise ValueError(f"batch {b} does not split into {accum} micro-batches")
-        gen = step_generator(batch["image"].device, state.seed, state.step)
+        gen = step_generator(batch["image"].device, state.seed, state.step, rank)
         for p in params:
             p.grad = None
         sums: Dict[str, torch.Tensor] = {}
@@ -111,6 +134,15 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(accum)
+        if world > 1:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mean_across_ranks_([p.grad for p in params])
+            keys = sorted(metrics)
+            values = torch.stack([metrics[k].float() for k in keys])
+            mean_across_ranks_([values])
+            metrics = dict(zip(keys, values.unbind()))
 
         metrics["grad_norm"] = global_norm_clip(params, max_norm)
         skipped = bool(torch.isnan(metrics["loss"]))

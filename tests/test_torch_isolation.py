@@ -5,8 +5,9 @@ wrappers never leave the device they were given.
 A fresh interpreter imports only segclip_tpu_torch, runs a tiny
 encode_image, encode_text and predict, and one tiny training step, on the
 CPU, imports the loop, the train CLI and prepare_data and runs the native
-superpixels, and must end with no module of segclip_tpu, jax or flax in
-sys.modules. An AST scan holds every file of the port, and chip_smoke.py,
+superpixels, loads a checkpoint through load_model and imports the demo,
+the process-group plumbing and the sharded evaluator, and must end with no
+module of segclip_tpu, jax or flax in sys.modules. An AST scan holds every file of the port, and chip_smoke.py,
 to importing nothing of segclip_tpu.
 """
 import ast
@@ -66,6 +67,17 @@ assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped_nan"]) == 
 
 import segclip_tpu_torch.cli.prepare_data, segclip_tpu_torch.cli.train
 import segclip_tpu_torch.train.loop
+import segclip_tpu_torch.cli.demo, segclip_tpu_torch.cli.eval_zeroshot
+import segclip_tpu_torch.evalseg.visualize, segclip_tpu_torch.parallel.dist
+from segclip_tpu_torch.evalseg.inference import evaluate_dataset_sharded
+import os, tempfile
+from segclip_tpu_torch.cli.common import load_model
+with tempfile.TemporaryDirectory() as tmp:
+    torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
+    loaded, inferred = load_model(os.path.join(tmp, "model.pt"), cfg.model, torch.device("cpu"))
+assert inferred == cfg.model
+assert all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                              model.state_dict().values()))
 from segclip_tpu_torch.data.superpixel import felzenszwalb
 assert felzenszwalb(rng.integers(0, 256, (16, 16, 3)).astype(np.uint8)).shape == (16, 16)
 leaked = sorted(m for m in sys.modules

@@ -371,17 +371,43 @@ def test_eval_under_compute_dtype_shares_the_training_parameters(tmp_path):
     assert ([p.requires_grad for p in model.parameters()], model.training) == before
 
 
-@pytest.mark.parametrize("extra", [
-    ["--opts", "train.tensor_parallelism=2"], ["--opts", "train.data_parallelism=2"],
-    ["--opts", "train.epochs_per_run=1"], ["--opts", "data.transfer=yuv420"],
-    ["--opts", "data.device_aug=true"], ["--dist-coordinator", "localhost:1234"],
-    ["--eval-each-epoch", "--eval-data-root", ".", "--opts", "eval.images_per_device=2"]],
-    ids=["tp", "dp", "epochs_per_run", "yuv420", "device_aug", "dist", "images_per_device"])
-def test_unported_settings_raise_naming_the_roadmap(tmp_path, extra):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+@pytest.mark.parametrize("extra, match", [
+    (["--opts", "train.tensor_parallelism=2"], "ROADMAP.md"),
+    (["--opts", "train.data_parallelism=2"], "world size, 1"),
+    (["--opts", "train.epochs_per_run=1"], "ROADMAP.md"),
+    (["--opts", "data.transfer=yuv420"], "ROADMAP.md"),
+    (["--opts", "data.device_aug=true"], "ROADMAP.md"),
+    (["--dist-coordinator", "localhost:1234"], "--dist-num-processes")],
+    ids=["tp", "dp", "epochs_per_run", "yuv420", "device_aug", "dist"])
+def test_unported_settings_raise_naming_the_roadmap(tmp_path, extra, match):
+    """Unported settings name ROADMAP.md; a data parallelism other than the
+    world size, and an incomplete --dist-* triple, are refused before any
+    rendezvous."""
+    with pytest.raises(ValueError, match=match):
         train_cli.main(["--device", "cpu", "--datatype", "synthetic", "--batch-size", "4",
                         "--epochs", "1", "--output-dir", str(tmp_path)] + extra)
     assert not (tmp_path / "ckpt_epoch_0").exists()
+
+
+def test_per_epoch_eval_takes_the_sharded_evaluator(tmp_path):
+    """eval.images_per_device > 1 in a world of one process: the per-epoch
+    eval decodes several images per call, with the sequential metrics at
+    float32."""
+    from segclip_tpu_torch.evalseg import inference
+    mcfg = _tiny_model_config(compute_dtype="float32")
+    voc = str(_voc(tmp_path / "voc", n=3))
+    model = init_segclip(mcfg, seed=2)
+    results = {}
+    for per_call in (1, 2):
+        cfg = dataclasses.replace(tconfig.Config(model=mcfg), eval=tconfig.EvalConfig(
+            dataset="voc", images_per_device=per_call))
+        with mock.patch.object(inference.ZeroShotSegmenter, "predict_batch",
+                               autospec=True,
+                               side_effect=inference.ZeroShotSegmenter.predict_batch) as spy:
+            results[per_call] = train_cli.make_eval_fn(cfg, voc, get_logger())(model)
+        assert [len(c.args[1]) for c in spy.call_args_list] == ([] if per_call == 1
+                                                                else [2, 1])
+    assert results[1] == results[2]
 
 
 def test_train_cli_runs_on_the_card_unless_the_cpu_is_named(tmp_path):

@@ -429,13 +429,18 @@ def test_grad_accumulation_matches_jax(jax_init):
 
 
 def test_collectives_are_the_identity_at_world_size_one(monkeypatch):
+    """At world size 1 the gather is the identity and the rank 0; at a
+    larger world (tests/test_torch_parallel.py runs one) it places this
+    rank's rows in a (world·B, …) buffer and its backward keeps them."""
     x = torch.arange(6.0).reshape(3, 2)
     assert collectives.global_gather(x) is x and collectives.rank_of() == 0
     monkeypatch.setattr(collectives, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError):
-        collectives.global_gather(x)
-    with pytest.raises(NotImplementedError):
-        collectives.rank_of()
+    leaf = x.clone().requires_grad_()
+    gathered = collectives.global_gather(leaf)
+    assert gathered.shape == (6, 2) and torch.equal(gathered[:3], x)
+    assert torch.equal(gathered[3:], torch.zeros(3, 2))
+    (gathered * torch.arange(12.0).reshape(6, 2)).sum().backward()
+    assert torch.equal(leaf.grad, torch.arange(6.0).reshape(3, 2))
 
 
 def test_load_into_checks_the_fixed_position_tables(jax_init):
