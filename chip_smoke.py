@@ -1,7 +1,7 @@
 """Drive the PyTorch port's zero-shot segmentation path, its training step,
 pretraining through the CLI, checkpoint ingest, the demo, the sharded
-evaluator and data-parallel training on one CUDA card (an H100), and check
-them.
+evaluator, data-parallel training and the studies that load a model on one
+CUDA card (an H100), and check them.
 
     python3 chip_smoke.py
 
@@ -61,6 +61,14 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      rank per step, warm step time beside phase 4's 1 × 96), then
      `cli.train --dist-*` for one epoch of phase 6's corpus, rank 0's
      model.pt evaluated in one process;
+ 10. the studies (segclip_tpu_torch/studies), each a subprocess on the card
+     on phase 6's best checkpoint and a holdout corpus (16 eval images, 48
+     pair images): classprobe at a batch of 16, the margin probe on 8
+     images, the holdout study with both banks, the ipd study at 4 images
+     per call in float32 (≥ 99.9 % of pixels equal, mIoU within 0.01) and
+     bf16; each report with its script's keys and finite numbers, and each
+     study's launches equal to its path's (attention forward and eval
+     grouping only);
 then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
@@ -72,20 +80,25 @@ instructions (HMMA) in each kernel; the bf16 attention kernels and the
 bf16 grouping kernel must have some. The profiles list the port's own
 kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
 
+`python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
+10's subprocess: one study with the launch counters read around it.
+
 Exits non-zero when there is no CUDA card or any check fails. Prints the
-card's name and power limit, one JSON line of kernel results ("ms",
-"plain_ms", "library_ms", "bound_ms" at each kernel's main shape, and the
-Gumbel grouping's at the MAE shape as "mae_*"; launches per training step
+card's name and power limit, whether cv2 is importable, one JSON line of
+kernel results ("ms", "plain_ms", "library_ms", "bound_ms" at each
+kernel's main shape, and the Gumbel grouping's at the MAE shape as
+"mae_*"; launches per training step
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
 "train_cli" (phase 6's run A), "demo" (phase 7), "eval_sharded" (phase 8,
-both ranks of its CLI run included) and "train_dp" (phase 9, both ranks)),
-and as its last line
+both ranks of its CLI run included), "train_dp" (phase 9, both ranks) and
+"studies" (phase 10, every study)), and as its last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
 import json
 import os
 import re
@@ -133,6 +146,13 @@ ATTN_CASES = (
     ("sharded eval vision 11x196", SHARDED_MAX_WINDOWS, 196, 196, 12, None, "self"),
     ("sharded eval cross 11x8x204", SHARDED_MAX_WINDOWS, 8, 204, 12, None, "cross"),
     ("sharded eval group stage 11x8x8", SHARDED_MAX_WINDOWS, 8, 8, 12, None, "self"),
+    # phase 10's studies: classprobe's batch of 16 center crops, the shape
+    # bank (6 names) and the composed bank (48 "{color} {shape}" names)
+    ("studies vision 16x196 (classprobe)", 16, 196, 196, 12, None, "self"),
+    ("studies cross 16x8x204 (classprobe)", 16, 8, 204, 12, None, "cross"),
+    ("studies group stage 16x8x8 (classprobe)", 16, 8, 8, 12, None, "self"),
+    ("studies text 6x77 causal (shape bank)", 6, 77, 77, 8, "causal", "self"),
+    ("studies text 48x77 causal (composed bank)", 48, 77, 77, 8, "causal", "self"),
 )
 # Attention shapes of the training step at B = 96: forward with P saved
 # and backward. The grouping path's vision blocks, cross blocks and group
@@ -161,6 +181,7 @@ GROUP_CASES = (
     ("eval 1x8x196x768 (whole 224x224)", 1, 8, 196, 768),
     ("eval 1x8x294x768 (whole 224x336)", 1, 8, 294, 768),
     ("sharded eval 11x8x196x768", SHARDED_MAX_WINDOWS, 8, 196, 768),
+    ("studies 16x8x196x768 (classprobe)", 16, 8, 196, 768),
 )
 GROUP_ST_CASES = (
     ("train 96x8x196x768", 96, 8, 196, 768),
@@ -1021,6 +1042,7 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
     check(same or (worst <= RESUME_PARAM_TOL and loss_rel <= RESUME_LOSS_RTOL),
           f"resume differs from run A: |Δparam| {worst}, loss rel {loss_rel}")
     del result_a, result_b, a, b
+    shutil.copy(os.path.join(run_a, "ckpt_best", "model.pt"), os.path.join(tmp, STUDY_CKPT))
     shutil.rmtree(run_a)
     shutil.rmtree(run_b)
     torch.cuda.empty_cache()
@@ -1755,7 +1777,187 @@ def phase_data_parallel(dev, tmp: str, smi: str, warm_step_ms: float, voc: str,
     return train, evals
 
 
+# Phase 10: the studies (segclip_tpu_torch/studies), each a subprocess on the
+# card, on phase 6's best checkpoint and a holdout corpus made here: 16 eval
+# images and one pair_eval image per color × shape pair (48). classprobe
+# encodes the 16 in one batch, the margin probe decodes STUDY_MARGIN_LIMIT,
+# the ipd study compares one image per decode call with STUDY_IPD, at
+# float32 (SHARDED_MIN_AGREE of pixels equal and the mIoU within
+# SHARDED_MIOU_TOL, phase 8's rule) and at bf16 (reported). The studies run
+# as a user runs them, with no --device: on the card.
+STUDY_CORPUS = ("--train-n", "8", "--eval-n", "16", "--pair-eval-n", "1")
+STUDY_EVAL_N, STUDY_PAIRS = 16, 48
+STUDY_BATCH, STUDY_MARGIN_LIMIT, STUDY_IPD = 16, 8, 4
+STUDY_TIMEOUT_S = 300
+STUDY_CKPT = "best_model.pt"        # phase 6's run A ckpt_best/model.pt, kept for phase 10
+# Each report's keys, as the JAX scripts write them.
+STUDY_KEYS = {
+    "classprobe": {"ckpt", "n_images", "per_class"},
+    "spatial_margin_probe": {"ckpt", "bg_thresh", "per_class"},
+    "holdout_study": {"holdout_pairs", "standard_bank", "composed_bank",
+                      "composed_per_pair_iou"},
+    "eval_ipd_study": {"n_images", "seq", f"ipd{STUDY_IPD}", "d_miou", "flipped_pixel_frac"},
+}
+CLASSPROBE_KEYS = {"auc", "n_present", "mean_sim_present", "mean_sim_absent"}
+MARGIN_KEYS = {"gt_pixels", "fg_argmax_is_own", "pred_background", "pred_own",
+               "pred_other_fg", "mean_own_aff", "mean_best_other_fg_aff"}
+IPD_KEYS = {"mIoU", "mAcc", "aAcc", "img_s"}
+
+
+def study_worker(name: str, result: str, argv: list) -> int:
+    """`python3 chip_smoke.py study <name> <result.json> <argv...>`: one
+    study's main(argv) in this process, the launch counters over it and
+    its report written to result.json."""
+    from segclip_tpu_torch.kernels import build
+    build.load()
+    module = importlib.import_module(f"segclip_tpu_torch.studies.{name}")
+    reset_counters()
+    report = module.main(argv)
+    with open(result, "w") as f:
+        json.dump({"counts": read_counters(), "report": report}, f)
+    return 0
+
+
+def study_path_counts(cfg, banks: int, encodes: int) -> dict:
+    """Launches of `banks` text banks (one text-tower call each) and
+    `encodes` eval image encodes (layers0, the cross blocks and the group
+    stage; one eval grouping each): rows 1 and 3 only."""
+    return {"attention_fwd": banks * cfg.transformer_layers
+            + encodes * (cfg.vision_layers + cfg.cross_layer),
+            "attention_bwd": 0, "group_assign": encodes, "group_assign_st": 0,
+            "plain_route": 0}
+
+
+def finite(x) -> bool:
+    return isinstance(x, (int, float)) and bool(np.isfinite(x))
+
+
+def check_report(name: str, report: dict) -> None:
+    """The script's keys, and every number finite where the script's would
+    be (an AUC and a mean over the images with, or without, a class are
+    NaN when none has it, or all do; an IoU is None where the class is
+    neither predicted nor present)."""
+    check(set(report) == STUDY_KEYS[name], f"{name}: keys {sorted(report)}")
+    if name == "classprobe":
+        n = report["n_images"]
+        check(n == STUDY_EVAL_N and len(report["per_class"]) == 6, f"classprobe: {report}")
+        for cls, r in report["per_class"].items():
+            check(set(r) == CLASSPROBE_KEYS, f"classprobe {cls}: keys {sorted(r)}")
+            mixed = 0 < r["n_present"] < n
+            check(finite(r["auc"]) == mixed, f"classprobe {cls}: auc {r['auc']}")
+            check(finite(r["mean_sim_present"]) == (r["n_present"] > 0)
+                  and finite(r["mean_sim_absent"]) == (r["n_present"] < n),
+                  f"classprobe {cls}: {r}")
+    elif name == "spatial_margin_probe":
+        check(finite(report["bg_thresh"]) and report["per_class"], f"margin probe: {report}")
+        for cls, r in report["per_class"].items():
+            check(set(r) == MARGIN_KEYS and all(finite(v) for v in r.values())
+                  and r["gt_pixels"] > 0, f"margin probe {cls}: {r}")
+            check(abs(r["pred_background"] + r["pred_own"] + r["pred_other_fg"] - 1) <= 2e-4,
+                  f"margin probe {cls}: shares do not sum to 1: {r}")
+    elif name == "holdout_study":
+        check(len(report["holdout_pairs"]) > 0
+              and len(report["composed_per_pair_iou"]) == STUDY_PAIRS, f"holdout: {report}")
+        for bank in ("standard_bank", "composed_bank"):
+            check(set(report[bank]) == {"held_out", "seen"}, f"holdout {bank}")
+            for split, r in report[bank].items():
+                check(finite(r["mIoU"]) and finite(r["mAcc"]), f"holdout {bank} {split}: {r}")
+                check(all(v is None or finite(v) for v in (r.get("per_class") or {}).values()),
+                      f"holdout {bank} {split}: {r}")
+        check(all(v is None or finite(v) for v in report["composed_per_pair_iou"].values()),
+              "holdout: per-pair IoU")
+    else:
+        for path in ("seq", f"ipd{STUDY_IPD}"):
+            check(set(report[path]) == IPD_KEYS and all(finite(v) for v in report[path].values()),
+                  f"ipd {path}: {report[path]}")
+        check(report["n_images"] == STUDY_EVAL_N and finite(report["d_miou"])
+              and finite(report["flipped_pixel_frac"]), f"ipd: {report}")
+
+
+def phase_studies(smi: str, tmp: str) -> dict:
+    """Phase 10: the four studies, each run as a subprocess on the card
+    (this script's `study` mode) on phase 6's best checkpoint. Returns the
+    launch counts of all of them."""
+    from segclip_tpu_torch.cli import prepare_data
+    from segclip_tpu_torch.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    ckpt, corpus = os.path.join(tmp, STUDY_CKPT), os.path.join(tmp, "holdout")
+    prepare_data.main(["shapes", "--out-dir", corpus, "--holdout", *STUDY_CORPUS])
+    eval_root = os.path.join(corpus, "eval")
+    ipd_counts = study_path_counts(cfg, 1, 2 * STUDY_EVAL_N + 2 * -(-STUDY_EVAL_N // STUDY_IPD))
+    runs = (
+        ("classprobe", ["--ckpt", ckpt, "--data-root", corpus, "--batch", str(STUDY_BATCH)],
+         study_path_counts(cfg, 1, -(-STUDY_EVAL_N // STUDY_BATCH))),
+        ("spatial_margin_probe", ["--ckpt", ckpt, "--data-root", eval_root, "--limit",
+                                  str(STUDY_MARGIN_LIMIT)],
+         study_path_counts(cfg, 1, STUDY_MARGIN_LIMIT)),
+        ("holdout_study", ["--ckpt", ckpt, "--data-root", corpus],
+         study_path_counts(cfg, 2, 2 * STUDY_PAIRS)),
+    ) + tuple(("eval_ipd_study", ["--ckpt", ckpt, "--data-root", eval_root, "--ipd",
+                                  str(STUDY_IPD), "--dtype", dtype], ipd_counts)
+              for dtype in ("float32", "bfloat16"))
+    print(f"phase 10: the studies, each a subprocess on the card ({smi}), on phase 6's best "
+          f"checkpoint; corpus prepare_data shapes --holdout {' '.join(STUDY_CORPUS)} "
+          f"({STUDY_EVAL_N} eval images, {STUDY_PAIRS} pair images) in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    total = {}
+    for i, (name, argv, expected) in enumerate(runs):
+        result = os.path.join(tmp, f"study{i}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "study", name,
+                               result, *argv], capture_output=True, text=True,
+                              timeout=STUDY_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(f"  {name} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                  f"{proc.stderr[-6000:]}")
+        check(proc.returncode == 0, f"study {name} exited {proc.returncode}")
+        with open(result) as f:
+            out = json.load(f)
+        report, counts = out["report"], out["counts"]
+        check_report(name, report)
+        notes = [line for line in proc.stdout.splitlines()
+                 if line.startswith(("device ", f"{name}:"))]
+        print(f"  {' '.join([name] + argv[4:])}: wall {wall:.1f} s (process start, model load "
+              f"and run); launches {counts}; " + "; ".join(notes))
+        check(counts == expected, f"study {name}: launches {counts}, expected {expected}")
+        if name == "classprobe":
+            print("    pooled AUC per class: " + ", ".join(
+                f"{c} {r['auc']}" for c, r in report["per_class"].items()))
+        elif name == "spatial_margin_probe":
+            print("    own-class affinity / best other: " + ", ".join(
+                f"{c} {r['mean_own_aff']}/{r['mean_best_other_fg_aff']}"
+                for c, r in report["per_class"].items()))
+        elif name == "holdout_study":
+            print("    mIoU held out / seen: standard bank " + " / ".join(
+                f"{report['standard_bank'][k]['mIoU']:.4f}" for k in ("held_out", "seen"))
+                + ", composed bank " + " / ".join(
+                f"{report['composed_bank'][k]['mIoU']:.4f}" for k in ("held_out", "seen")))
+        else:
+            ipd = report[f"ipd{STUDY_IPD}"]
+            dtype = argv[argv.index("--dtype") + 1]
+            print(f"    {dtype}: one image per call {report['seq']['img_s']} img/s, "
+                  f"{STUDY_IPD} per call {ipd['img_s']} img/s; mIoU {report['seq']['mIoU']:.4f} "
+                  f"/ {ipd['mIoU']:.4f} (d_miou {report['d_miou']}); flipped pixel share "
+                  f"{report['flipped_pixel_frac']}")
+            if dtype == "float32":
+                check(1 - report["flipped_pixel_frac"] >= SHARDED_MIN_AGREE,
+                      f"ipd float32: {report['flipped_pixel_frac']} of pixels flip")
+                check(abs(report["d_miou"]) <= SHARDED_MIOU_TOL,
+                      f"ipd float32: mIoU off by {report['d_miou']}")
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s; launches of the studies "
+          f"{total}")
+    return total
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["study"]:                   # phase 10's subprocesses
+        return study_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1771,6 +1973,11 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}")
+    # without cv2, evalseg/datasets.keep_ratio_resize resizes eval images
+    # with PIL BILINEAR instead of the mmseg kernel (cv2 INTER_LINEAR)
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    print(f"cv2 importable: {has_cv2} (eval image resize: "
+          f"{'cv2 INTER_LINEAR, as mmseg' if has_cv2 else 'PIL BILINEAR fallback'})")
 
     t0 = time.perf_counter()
     build.load()
@@ -1791,6 +1998,7 @@ def main() -> int:
         sharded_counts, eval_one, voc = phase_sharded_eval(dev, model, cfg, tmp, model_path)
         dp_counts, dp_eval_counts = phase_data_parallel(dev, tmp, smi, warm_step_ms, voc,
                                                         model_path, eval_one)
+        studies_counts = phase_studies(smi, tmp)
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
 
     kernels = []
@@ -1804,7 +2012,7 @@ def main() -> int:
         by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
                    "train_cli": cli_counts[counter], "demo": demo_counts[counter],
                    "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
-                   "train_dp": dp_counts[counter]}
+                   "train_dp": dp_counts[counter], "studies": studies_counts[counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=per_step[counter],

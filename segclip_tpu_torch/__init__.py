@@ -24,7 +24,9 @@ Layout (bottom-up):
   data/         tokenizer, transforms, SGR records, superpixels, the shapes
                 corpus, the input pipeline
   evalseg/      text bank and zero-shot segmentation inference
-  cli/          command-line entry points (eval_zeroshot, train, prepare_data)
+  cli/          command-line entry points (eval_zeroshot, train, demo,
+                prepare_data)
+  studies/      the studies that load a model and write a JSON report
   utils/        device resolution, logging, profiling
 """
 

@@ -6,9 +6,11 @@ A fresh interpreter imports only segclip_tpu_torch, runs a tiny
 encode_image, encode_text and predict, and one tiny training step, on the
 CPU, imports the loop, the train CLI and prepare_data and runs the native
 superpixels, loads a checkpoint through load_model and imports the demo,
-the process-group plumbing and the sharded evaluator, and must end with no
-module of segclip_tpu, jax or flax in sys.modules. An AST scan holds every file of the port, and chip_smoke.py,
-to importing nothing of segclip_tpu.
+the process-group plumbing, the sharded evaluator, the four studies and
+the profiling helpers, and must end with no module of segclip_tpu, jax or
+flax in sys.modules. An AST scan holds every file of the port, and
+chip_smoke.py, to importing nothing of segclip_tpu, and the studies to
+importing no cv2 (the card's machine need not have OpenCV).
 """
 import ast
 import os
@@ -70,6 +72,9 @@ import segclip_tpu_torch.train.loop
 import segclip_tpu_torch.cli.demo, segclip_tpu_torch.cli.eval_zeroshot
 import segclip_tpu_torch.evalseg.visualize, segclip_tpu_torch.parallel.dist
 from segclip_tpu_torch.evalseg.inference import evaluate_dataset_sharded
+import segclip_tpu_torch.studies.classprobe, segclip_tpu_torch.studies.spatial_margin_probe
+import segclip_tpu_torch.studies.holdout_study, segclip_tpu_torch.studies.eval_ipd_study
+from segclip_tpu_torch.utils.profiling import StepTimer, step_annotation
 import os, tempfile
 from segclip_tpu_torch.cli.common import load_model
 with tempfile.TemporaryDirectory() as tmp:
@@ -115,6 +120,16 @@ def test_port_files_import_nothing_of_the_jax_package():
                  if (bad := {m for m in _imported_modules(f)
                              if m.split(".")[0] in ("segclip_tpu", "jax", "flax")})}
     assert offenders == {}
+
+
+def test_studies_import_no_cv2():
+    """The studies reproduce cv2's resize themselves: no module under
+    studies/ imports cv2, at any depth."""
+    files = sorted(Path(REPO, "segclip_tpu_torch", "studies").rglob("*.py"))
+    assert len(files) >= 5
+    offenders = {str(f.relative_to(REPO)) for f in files
+                 if any(m.split(".")[0] == "cv2" for m in _imported_modules(f))}
+    assert offenders == set()
 
 
 def test_cuda_device_without_a_card_raises():
