@@ -1,7 +1,8 @@
 """Drive the PyTorch port's zero-shot segmentation path, its training step,
-pretraining through the CLI, checkpoint ingest, the demo, the sharded
-evaluator, data-parallel training and the studies that load a model on one
-CUDA card (an H100), and check them.
+pretraining through the CLI on its three input transports, checkpoint
+ingest, the demo, the sharded evaluator, data-parallel training, the
+studies that load a model and the device-side transforms on one CUDA card
+(an H100), and check them.
 
     python3 chip_smoke.py
 
@@ -37,11 +38,16 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      (96 scenes, two captions each, native Felzenszwalb superpixels, a
      4-image VOC-layout eval split), then run A, `cli.train --preset
      shapes-learnability --epochs 2 --num-workers 4` at ViT-B/16 width
-     (B = 96, 2 steps per epoch, per-epoch eval on the card, keep_best):
-     finite losses, checkpoints, the launch counters of every step and
-     every eval request; a resume from run A's first checkpoint must train
-     epoch 1 only and reproduce run A's last loss and model.pt; the loop's
-     time per step beside phase 4's and the loader's rate alone;
+     (B = 96, 2 steps per epoch, per-epoch eval on the card, keep_best) on
+     the CLI's default transport, yuv420: finite losses, checkpoints, the
+     launch counters of every step and every eval request; a resume from
+     run A's first checkpoint must train epoch 1 only and reproduce run A's
+     last loss and model.pt; run C, the same preset with
+     `data.device_aug=true train.epochs_per_run=1`, run twice (the second
+     with --do-resume), must train epoch 0, then epoch 1, write both
+     checkpoints and best.json, with the path's launches per step; the
+     loop's time per step of each run beside phase 4's, and the loader's
+     rate alone in each transport (rgb, yuv420, device_aug);
   7. checkpoint ingest and the demo: the seeded ViT-B/16 written as
      OpenAI's TorchScript ViT-B-16.pt (fp16, resblocks, metadata tensors)
      and as a segclip.bin, each read back through cli.common.load_model
@@ -59,8 +65,9 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      against 1 × 8 with injected noise (loss within 1e-4, hard assignments
      equal away from near ties), 1 + 5 bf16 steps of 2 × 48 (launches per
      rank per step, warm step time beside phase 4's 1 × 96), then
-     `cli.train --dist-*` for one epoch of phase 6's corpus, rank 0's
-     model.pt evaluated in one process;
+     `cli.train --dist-*` for one epoch of phase 6's corpus on the rgb
+     transport (`--opts data.transfer=rgb`), rank 0's model.pt evaluated
+     in one process;
  10. the studies (segclip_tpu_torch/studies), each a subprocess on the card
      on phase 6's best checkpoint and a holdout corpus (16 eval images, 48
      pair images): classprobe at a batch of 16, the margin probe on 8
@@ -68,7 +75,14 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      per call in float32 (≥ 99.9 % of pixels equal, mIoU within 0.01) and
      bf16; each report with its script's keys and finite numbers, and each
      study's launches equal to its path's (attention forward and eval
-     grouping only);
+     grouping only); and `studies.host_stage_bench` on phase 6's corpus
+     (the host's ms per sample of each pipeline stage and transport);
+ 11. the transports: host→device bytes and copy time of phase 6's batch
+     in each transport; on phase 6's B = 96 batches, `yuv420_to_rgb` with
+     the step's normalisation (card vs CPU within 1e-3 on the [0, 255]
+     scale) and `crop_resize_batch` over wide and transposed samples (card
+     vs CPU within one uint8 level, at most a 1e-3 share of values apart),
+     each with its device ms per call by CUDA events beside its bound;
 then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
@@ -89,7 +103,8 @@ kernel results ("ms", "plain_ms", "library_ms", "bound_ms" at each
 kernel's main shape, and the Gumbel grouping's at the MAE shape as
 "mae_*"; launches per training step
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
-"train_cli" (phase 6's run A), "demo" (phase 7), "eval_sharded" (phase 8,
+"train_cli" (phase 6's run A), "train_cli_device_aug" (phase 6's run C,
+both segments), "demo" (phase 7), "eval_sharded" (phase 8,
 both ranks of its CLI run included), "train_dp" (phase 9, both ranks) and
 "studies" (phase 10, every study)), and as its last line
 {"ok": true, "device": {...}}.
@@ -236,9 +251,19 @@ E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
 PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
 # Phase 6: the shapes corpus (96 scenes, two captions each: 192 samples, two
 # B = 96 steps per epoch) and its eval split; the loader timed alone over
-# LOADER_EPOCHS warm epochs after a cold one.
+# LOADER_EPOCHS warm epochs after a cold one, once in each transport (as the
+# DataConfig settings that select it).
 CORPUS_TRAIN_N, CORPUS_EVAL_N = 96, 4
 LOADER_WORKERS, LOADER_EPOCHS = 4, 3
+TRANSPORTS = {"rgb": dict(transfer="rgb"), "yuv420": dict(transfer="yuv420"),
+              "device_aug": dict(transfer="rgb", device_aug=True)}
+# Phase 11: the device transforms, card vs CPU on phase 6's batches:
+# yuv420_to_rgb (float32, no rounding: sums in another order) within
+# YUV_TOL on the [0, 255] scale; crop_resize_batch within one uint8 level
+# (a float32 sum in another order may cross a rounding boundary of the
+# rounded, clipped intermediate) on at most CROP_SHARE of the values.
+YUV_TOL = 1e-3
+CROP_SHARE = 1e-3
 # Phase 6, the resumed run against run A's last epoch: bit for bit is
 # expected, since every port kernel is free of atomics and the step's noise
 # is a function of (seed, step). If a library kernel of PyTorch (cuBLAS,
@@ -935,37 +960,45 @@ def read_metrics(out: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def loader_rate(data: str, batch: int) -> tuple:
-    """(batches per second of BatchLoader.epoch alone over LOADER_EPOCHS
-    epochs, seconds of the cold epoch before them that spawns the workers),
-    with LOADER_WORKERS spawned workers and the phase-6 corpus and dataset
-    settings."""
+def loader_rate(data: str, transport: str) -> tuple:
+    """(batches of TRAIN_BATCH per second of BatchLoader.epoch alone over
+    LOADER_EPOCHS epochs, seconds of the cold epoch before them that spawns
+    the workers, the cold epoch's first batch), with LOADER_WORKERS spawned
+    workers, the phase-6 corpus and dataset settings and `transport`."""
     from segclip_tpu_torch.config import DataConfig
     from segclip_tpu_torch.data.pipeline import BatchLoader, ShardedEpochSampler, build_dataset
 
     factory = functools.partial(build_dataset, DataConfig(
-        datatype="shapes", data_dir=data, batch_size=batch, transfer="rgb"),
+        datatype="shapes", data_dir=data, batch_size=TRAIN_BATCH, **TRANSPORTS[transport]),
         use_seg=True, normalize=False)
     dataset = factory()
-    sampler = ShardedEpochSampler(len(dataset), batch, seed=42)
+    sampler = ShardedEpochSampler(len(dataset), TRAIN_BATCH, seed=42)
     loader = BatchLoader(dataset, sampler, seed=42, num_workers=LOADER_WORKERS,
                          dataset_factory=factory)
     try:
         t0 = time.perf_counter()
-        check(len(list(loader.epoch(0))) == sampler.steps, "loader: short cold epoch")
+        cold = list(loader.epoch(0))
+        check(len(cold) == sampler.steps, f"loader ({transport}): short cold epoch")
         t1 = time.perf_counter()
         n = sum(1 for epoch in range(1, 1 + LOADER_EPOCHS) for _ in loader.epoch(epoch))
-        return n / (time.perf_counter() - t1), t1 - t0
+        return n / (time.perf_counter() - t1), t1 - t0, cold[0]
     finally:
         loader.close()
 
 
-def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
+def log_step_times(out: str) -> list:
+    with open(os.path.join(out, "log.txt")) as f:
+        return [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
+
+
+def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
     """Phase 6: pretraining through the CLI from SGR records made on the
-    machine (into <tmp>/shapes, kept for phases 7-9), at ViT-B/16 width in
-    bf16 (the preset's B = 96), per-epoch eval on the card, keep_best, and a
-    resume that must reproduce the last epoch. Returns the launch counts of
-    run A."""
+    machine (into <tmp>/shapes, kept for phases 7-10), at ViT-B/16 width in
+    bf16 (the preset's B = 96), per-epoch eval on the card, keep_best: run A
+    on the default transport (yuv420) and a resume that must reproduce its
+    last epoch; run C on device_aug in two epochs_per_run segments; the
+    loader alone in each transport. Returns the launch counts of run A and
+    of run C, and the first batch of each transport (for phase 11)."""
     from segclip_tpu_torch.cli import prepare_data
     from segclip_tpu_torch.cli import train as train_cli
     from segclip_tpu_torch.config import ModelConfig
@@ -976,7 +1009,7 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
                         "attention_bwd": 0, "group_assign": 1, "group_assign_st": 0,
                         "plain_route": 0}
     t_phase = time.perf_counter()
-    data, run_a, run_b = (os.path.join(tmp, d) for d in ("shapes", "a", "b"))
+    data, run_a, run_b, run_c = (os.path.join(tmp, d) for d in ("shapes", "a", "b", "c"))
     print(f"phase 6: pretraining through the CLI from SGR records ({smi}); "
           f"{shutil.disk_usage(tmp).free / 2**30:.0f} GiB free in {tmp}")
     t0 = time.perf_counter()
@@ -985,6 +1018,19 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
     prep_s = time.perf_counter() - t0
     argv = ["--preset", "shapes-learnability", "--data-dir", data, "--epochs", "2",
             "--num-workers", str(LOADER_WORKERS), "--n-display", "1"]
+
+    def check_launches(name, path, counts, evals):
+        check(all(c == expected_step for c in path.steps),
+              f"{name}: launches per step {path.steps}, expected {expected_step}")
+        check(len(path.requests) == evals * CORPUS_EVAL_N
+              and all(c == expected_request for c in path.requests),
+              f"{name}: launches per eval request {path.requests}, expected {expected_request}")
+        text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
+                      for k in counts}
+        check(text_banks == {**{k: 0 for k in counts},
+                             "attention_fwd": evals * cfg.transformer_layers},
+              f"{name}: launches outside the steps and requests {text_banks}: expected the "
+              f"{evals} text banks' attention only")
 
     with CountingPath() as path:
         reset_counters()
@@ -995,10 +1041,9 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
     metrics_a = read_metrics(run_a)
     losses_a = [m["loss"] for m in metrics_a if "loss" in m]
     mious = [m["miou"] for m in metrics_a if "miou" in m]
-    with open(os.path.join(run_a, "log.txt")) as f:
-        step_times = [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
+    step_times = {"A (yuv420)": log_step_times(run_a)}
     print(f"  prepare_data shapes --train-n {CORPUS_TRAIN_N} --eval-n {CORPUS_EVAL_N}: "
-          f"{prep_s:.2f} s; run A (2 epochs, 4 steps, 2 evals, "
+          f"{prep_s:.2f} s; run A (yuv420, the CLI's default; 2 epochs, 4 steps, 2 evals, "
           f"{len(result_a['checkpoints'])} epoch checkpoints + best): {run_a_s:.1f} s")
     print(f"  run A losses {' '.join(f'{v:.5f}' for v in losses_a)}; mIoU per epoch "
           f"{' '.join(f'{v:.2f}' for v in mious)}; launches per step {path.steps}")
@@ -1006,17 +1051,8 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
     check(len(mious) == 2 and all(np.isfinite(mious)), f"run A mIoU lines {mious}")
     for name in ("ckpt_epoch_0", "ckpt_epoch_1", "ckpt_best", "best.json"):
         check(os.path.exists(os.path.join(run_a, name)), f"run A wrote no {name}")
-    check(len(path.steps) == 4 and all(c == expected_step for c in path.steps),
-          f"launches per step {path.steps}, expected {expected_step}")
-    check(len(path.requests) == 2 * CORPUS_EVAL_N
-          and all(c == expected_request for c in path.requests),
-          f"launches per eval request {path.requests}, expected {expected_request}")
-    text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
-                  for k in counts}
-    check(text_banks == {**{k: 0 for k in counts},
-                         "attention_fwd": 2 * cfg.transformer_layers},
-          f"launches outside the steps and requests {text_banks}: expected the two "
-          f"text banks' attention only")
+    check(len(path.steps) == 4, f"run A ran {len(path.steps)} steps")
+    check_launches("run A", path, counts, 2)
 
     # The resumed run decodes in the loop's own thread (--num-workers 0):
     # the pipeline's batches are the same bits for any worker count, and
@@ -1047,17 +1083,55 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> dict:
     shutil.rmtree(run_b)
     torch.cuda.empty_cache()
 
-    (rate_96, cold_96), (rate_24, _) = loader_rate(data, TRAIN_BATCH), loader_rate(data, 24)
-    print(f"  the input pipeline against the card ({smi}): the loop's Time/step "
-          f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms (steps 1 and 3 open an "
-          f"epoch); phase 4's warm synthetic step {warm_step_ms:.2f} ms; the loader alone "
-          f"with {LOADER_WORKERS} workers: a cold epoch (spawn, then 2 batches) {cold_96:.2f} "
-          f"s, then {rate_96:.2f} batches of {TRAIN_BATCH}/s "
-          f"({rate_96 * TRAIN_BATCH:.0f} img/s, 2 batches per epoch), {rate_24:.2f} batches "
-          f"of 24/s ({rate_24 * 24:.0f} img/s, 8 per epoch); the step alone "
-          f"{1e3 / warm_step_ms:.2f} steps/s ({TRAIN_BATCH * 1e3 / warm_step_ms:.0f} img/s); "
-          f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    # Run C: device_aug (the canvas crop-resized in the step) in segments of
+    # one epoch; the second segment resumes from the first's checkpoint.
+    argv_c = argv + ["--output-dir", run_c, "--opts", "data.device_aug=true",
+                     "train.epochs_per_run=1"]
+    with CountingPath() as path_c:
+        reset_counters()
+        segments = []
+        for extra in ([], ["--do-resume"]):
+            t0 = time.perf_counter()
+            result = train_cli.main(argv_c + extra)
+            segments.append((result["epochs_run"], time.perf_counter() - t0,
+                             sorted(d for d in os.listdir(run_c) if d != "log.txt")))
+            del result
+            torch.cuda.empty_cache()
+        counts_c = read_counters()
+    metrics_c = read_metrics(run_c)
+    losses_c = [m["loss"] for m in metrics_c if "loss" in m]
+    step_times["C (device_aug)"] = log_step_times(run_c)
+    print(f"  run C (device_aug, train.epochs_per_run=1, twice, the second with --do-resume): "
+          f"segments {[(n, round(s, 1)) for n, s, _ in segments]} (epochs, s); what each left "
+          f"{[d for _, _, d in segments]}; losses {' '.join(f'{v:.5f}' for v in losses_c)}; "
+          f"mIoU per epoch {[round(m['miou'], 2) for m in metrics_c if 'miou' in m]}; "
+          f"launches per step {path_c.steps}")
+    check([n for n, _, _ in segments] == [1, 1], f"run C segments {segments}")
+    check(segments[0][2] == ["best.json", "ckpt_best", "ckpt_epoch_0", "metrics.jsonl"]
+          and segments[1][2] == ["best.json", "ckpt_best", "ckpt_epoch_0", "ckpt_epoch_1",
+                                 "metrics.jsonl"], f"run C wrote {segments}")
+    check([m["epoch"] for m in metrics_c if "loss" in m] == [0, 0, 1, 1]
+          and all(np.isfinite(losses_c)), f"run C trained {metrics_c}")
+    check([m["epoch"] for m in metrics_c if "miou" in m] == [0, 1], f"run C evals {metrics_c}")
+    check(len(path_c.steps) == 4, f"run C ran {len(path_c.steps)} steps")
+    check_launches("run C", path_c, counts_c, 2)
+    shutil.rmtree(run_c)
+    torch.cuda.empty_cache()
+
+    rates, batches = {}, {}
+    for transport in TRANSPORTS:
+        *rates[transport], batches[transport] = loader_rate(data, transport)
+    print(f"  the input pipeline against the card ({smi}): the loop's Time/step (ms; steps 1 "
+          f"and 3 open an epoch) " + "; ".join(
+              f"run {k} {' '.join(f'{t * 1e3:.1f}' for t in v)}" for k, v in step_times.items())
+          + f"; phase 4's warm synthetic step {warm_step_ms:.2f} ms, the step alone "
+          f"{1e3 / warm_step_ms:.2f} steps/s ({TRAIN_BATCH * 1e3 / warm_step_ms:.0f} img/s)")
+    for transport, (rate, cold) in rates.items():
+        print(f"  the loader alone, {transport}, {LOADER_WORKERS} workers: a cold epoch (spawn, "
+              f"then 2 batches) {cold:.2f} s, then {rate:.2f} batches of {TRAIN_BATCH}/s "
+              f"({rate * TRAIN_BATCH:.0f} img/s; {LOADER_EPOCHS} epochs of 2 batches)")
+    print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return counts, counts_c, batches
 
 
 def print_profile(name: str, fn) -> None:
@@ -1573,9 +1647,11 @@ def dp_bf16_steps(dev, rank: int, world: int) -> dict:
 
 
 def train_dp_args(tmp: str) -> list:
+    """Phase 9's train CLI: the phase-6 preset for one epoch on the rgb
+    transport, the one phase 6's runs (yuv420, device_aug) leave out."""
     return ["--preset", "shapes-learnability", "--data-dir", os.path.join(tmp, "shapes"),
             "--epochs", "1", "--num-workers", "0", "--n-display", "1",
-            "--output-dir", os.path.join(tmp, "dp_run")]
+            "--output-dir", os.path.join(tmp, "dp_run"), "--opts", "data.transfer=rgb"]
 
 
 def dp_rank(rank: int, world: int, tmp: str, voc: str, model_path: str) -> dict:
@@ -1760,7 +1836,7 @@ def phase_data_parallel(dev, tmp: str, smi: str, warm_step_ms: float, voc: str,
                                  os.path.join(tmp, "shapes", "eval"), "--init-model",
                                  os.path.join(run, "ckpt_epoch_0", "model.pt"),
                                  "--output-dir", os.path.join(tmp, "dp_eval")])
-    print(f"  cli.train --dist-* at {DP_WORLD} ranks, 1 epoch of phase 6's corpus: "
+    print(f"  cli.train --dist-* at {DP_WORLD} ranks, 1 epoch of phase 6's corpus on rgb: "
           f"{steps} steps of {DP_WORLD} × {per_rank}, Time/step "
           f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms, final loss "
           f"{ranks[0]['train_cli']['final_loss']:.5f} on every rank: "
@@ -1874,6 +1950,25 @@ def check_report(name: str, report: dict) -> None:
               and finite(report["flipped_pixel_frac"]), f"ipd: {report}")
 
 
+def host_stage_table(tmp: str) -> None:
+    """The end of phase 10: `python -m segclip_tpu_torch.studies.host_stage_bench`
+    on phase 6's corpus, as a user runs it; its table printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "segclip_tpu_torch.studies.host_stage_bench",
+                           os.path.join(tmp, "shapes"), str(TRAIN_BATCH)],
+                          capture_output=True, text=True, timeout=STUDY_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        print(f"  host_stage_bench exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+    check(proc.returncode == 0, f"host_stage_bench exited {proc.returncode}")
+    print(f"  studies.host_stage_bench on phase 6's corpus, {TRAIN_BATCH} samples, one "
+          f"process on the host's CPU ({time.perf_counter() - t0:.1f} s):")
+    for line in proc.stdout.splitlines():
+        print(f"    {line}")
+    check(sum("ms/sample" in line for line in proc.stdout.splitlines()) == 11,
+          "host_stage_bench printed another table")
+
+
 def phase_studies(smi: str, tmp: str) -> dict:
     """Phase 10: the four studies, each run as a subprocess on the card
     (this script's `study` mode) on phase 6's best checkpoint. Returns the
@@ -1950,9 +2045,89 @@ def phase_studies(smi: str, tmp: str) -> dict:
                       f"ipd float32: mIoU off by {report['d_miou']}")
         for key, n in counts.items():
             total[key] = total.get(key, 0) + n
+    host_stage_table(tmp)
     print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s; launches of the studies "
           f"{total}")
     return total
+
+
+def phase_transports(dev, smi: str, batches: dict) -> None:
+    """Phase 11: the three transports on phase 6's first B = 96 batch of
+    each: host→device bytes and copy time; yuv420_to_rgb with the step's
+    normalisation and crop_resize_batch, card against CPU, and their
+    device time per call beside the bound."""
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.data.transforms import CLIP_STD
+    from segclip_tpu_torch.ops.device_aug import crop_resize_batch, yuv420_to_rgb
+    from segclip_tpu_torch.ops.kernels.bounds import (bound_ms, crop_resize_work,
+                                                      yuv420_to_rgb_work)
+    from segclip_tpu_torch.parallel.prefetch import to_device
+    from segclip_tpu_torch.train.step import normalize_images
+
+    res = ModelConfig().image_resolution
+    print(f"phase 11: the transports on phase 6's B = {TRAIN_BATCH} batches ({smi})")
+    image_bytes = {"rgb": TRAIN_BATCH * res * res * 3,
+                   "yuv420": TRAIN_BATCH * (res * res + 2 * (res // 2) ** 2),
+                   "device_aug": TRAIN_BATCH * res * 2 * res * 3}
+    for transport, batch in batches.items():
+        images = sum(v.nbytes for k, v in batch.items()
+                     if k.startswith("image") and k != "image_seg")
+        total = sum(v.nbytes for v in batch.values())
+        copy_ms = statistics.median(timed(lambda: to_device(batch, dev))[1] for _ in range(7))
+        print(f"  {transport}: host→device {total} B per batch, {images} B of them image "
+              f"fields ({', '.join(f'{k} {tuple(v.shape)} {v.dtype}' for k, v in batch.items())}"
+              f"); to_device (pin, copy, widen) median {copy_ms:.3f} ms")
+        expected = image_bytes[transport]
+        if transport == "device_aug":
+            expected += TRAIN_BATCH * (4 * 4 + 1)          # int32 windows, uint8 flags
+        check(images == expected, f"{transport}: {images} image bytes, expected {expected}")
+
+    yb = batches["yuv420"]
+    planes = {k: torch.from_numpy(yb[k]) for k in ("image_y", "image_cbcr")}
+    on_card = {k: v.to(dev) for k, v in planes.items()}
+    rgb_cpu = yuv420_to_rgb(planes["image_y"], planes["image_cbcr"])
+    rgb_card = yuv420_to_rgb(on_card["image_y"], on_card["image_cbcr"]).cpu()
+    std = torch.tensor(CLIP_STD) * 255.0
+    norm_cpu = normalize_images(planes, res)["image"]
+    norm_card = normalize_images(on_card, res)["image"].cpu()
+    err = (rgb_card - rgb_cpu).abs().max().item()
+    err_norm = ((norm_card - norm_cpu).abs() * std).max().item()
+    ms = call_ms(lambda: normalize_images(on_card, res))
+    bound, by = bound_ms(*yuv420_to_rgb_work(TRAIN_BATCH, res, res), torch.float32)
+    print(f"  yuv420_to_rgb + normalisation, {TRAIN_BATCH}×{res}², card vs CPU: max |Δ| "
+          f"{err:.3e} (RGB), {err_norm:.3e} (normalised, on the [0, 255] scale; tol "
+          f"{YUV_TOL:g}); {ms:.4f} ms per call (CUDA events), bound {bound:.4f} ms ({by}), "
+          f"{bound / ms:.1%} of it")
+    check(torch.isfinite(norm_card).all() and tuple(norm_card.shape) == (TRAIN_BATCH, res,
+                                                                          res, 3),
+          f"yuv420 normalised {tuple(norm_card.shape)}")
+    check(err <= YUV_TOL and err_norm <= YUV_TOL, f"yuv420_to_rgb card vs CPU {err}, {err_norm}")
+
+    db = batches["device_aug"]
+    # as the prefetch hands them over: int32 windows widened to int64
+    args = [torch.from_numpy(db["image"]), torch.from_numpy(db["image_window"]).long(),
+            torch.from_numpy(db["image_transposed"])]
+    n_tall = int(args[2].sum())
+    crop_cpu = crop_resize_batch(*args, res)
+    args_card = [a.to(dev) for a in args]
+    crop_card = crop_resize_batch(*args_card, res).cpu()
+    diff = (crop_card - crop_cpu).abs()
+    share = (diff > 0).float().mean().item()
+    ms = call_ms(lambda: crop_resize_batch(*args_card, res), reps=20)
+    ms_norm = call_ms(lambda: normalize_images(
+        {"image": args_card[0], "image_window": args_card[1],
+         "image_transposed": args_card[2]}, res), reps=20)
+    bound, by = bound_ms(*crop_resize_work(TRAIN_BATCH - n_tall, n_tall, res, 2 * res, res),
+                         torch.float32)
+    print(f"  crop_resize_batch, {TRAIN_BATCH} canvases {res}×{2 * res} → {res}² "
+          f"({TRAIN_BATCH - n_tall} wide, {n_tall} transposed), card vs CPU: max |Δ| "
+          f"{diff.max().item():g} uint8 levels, {share:.3e} of values differ (tol 1 level on "
+          f"≤ {CROP_SHARE:g}); {ms:.4f} ms per call, {ms_norm:.4f} with the normalisation "
+          f"(CUDA events); bound {bound:.4f} ms ({by}: float32 products of the order each "
+          f"sample needs, where the call computes both), {bound / ms:.1%} of it")
+    check(0 < n_tall < TRAIN_BATCH, f"{n_tall} transposed samples: no mix")
+    check(diff.max().item() <= 1.0 and share <= CROP_SHARE,
+          f"crop_resize_batch card vs CPU: {diff.max().item()} levels on {share} of values")
 
 
 def main() -> int:
@@ -1993,12 +2168,13 @@ def main() -> int:
     per_step = train_path_counts(cfg)
     phase_train_plain_self(dev, train_model)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cli_counts = phase_train_cli(smi, warm_step_ms, tmp)
+        cli_counts, cli_c_counts, transport_batches = phase_train_cli(smi, warm_step_ms, tmp)
         demo_counts, model_path = phase_ingest_demo(dev, model, tmp)
         sharded_counts, eval_one, voc = phase_sharded_eval(dev, model, cfg, tmp, model_path)
         dp_counts, dp_eval_counts = phase_data_parallel(dev, tmp, smi, warm_step_ms, voc,
                                                         model_path, eval_one)
         studies_counts = phase_studies(smi, tmp)
+    phase_transports(dev, smi, transport_batches)
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
 
     kernels = []
@@ -2010,7 +2186,8 @@ def main() -> int:
         t = timings[summary[key]["timing"]]
         row = rows[summary[key]["timing"]]
         by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
-                   "train_cli": cli_counts[counter], "demo": demo_counts[counter],
+                   "train_cli": cli_counts[counter],
+                   "train_cli_device_aug": cli_c_counts[counter], "demo": demo_counts[counter],
                    "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
                    "train_dp": dp_counts[counter], "studies": studies_counts[counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,

@@ -18,9 +18,11 @@ per rank, gloo otherwise):
 
 Runs on the CUDA card (`--device cuda`, the default) and raises when there
 is none; `--device cpu` runs on the CPU with the kernels' plain versions.
-The data transport is rgb (`data.transfer=rgb` is this CLI's default); the
-yuv420 transport, device-side augmentation, tensor parallelism and
-`train.epochs_per_run` are not ported and raise (ROADMAP.md).
+It takes the JAX package's training settings, with its defaults: the
+yuv420 transport (`data.transfer=rgb` and `data.device_aug=true` select
+the other two), and `train.epochs_per_run=N` trains N epochs per run (go on
+with `--do-resume`). Tensor parallelism is not ported and raises
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def build_config(args) -> Config:
         freeze_text_layer_num=args.freeze_text_layer_num)
     data = DataConfig(datatype=args.datatype, batch_size=args.batch_size,
                       max_words=args.max_words, data_dir=args.data_dir,
-                      num_workers=args.num_workers, transfer="rgb")
+                      num_workers=args.num_workers)
     train_c = TrainConfig(epochs=args.epochs, seed=args.seed,
                           grad_accum_steps=args.grad_accum_steps,
                           log_every=args.n_display,

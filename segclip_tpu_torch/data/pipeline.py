@@ -1,5 +1,4 @@
-"""Training input pipeline (segclip_tpu/data/pipeline.py, rgb transport):
-record-backed image-text datasets, sharded epoch sampling, and a
+"""Training input pipeline (segclip_tpu/data/pipeline.py): record-backed image-text datasets, sharded epoch sampling, and a
 background-prefetch batch loader. Its batches are the JAX package's, bit for
 bit (tests/test_torch_data.py).
 
@@ -25,12 +24,19 @@ Storage is SGR record files (data/records.py):
 each building its own dataset from a picklable factory. Sample randomness is
 derived from the GLOBAL sample position — `default_rng((seed, epoch, shard,
 position))` — so batches are bit-identical for every worker count,
-including 0 (in-thread). Images ship as uint8; the train step normalizes
-them on the device. Nothing here imports torch, so a worker never creates a
-CUDA context.
+including 0 (in-thread). Nothing here imports torch, so a worker never
+creates a CUDA context.
 
-The yuv420 transport and device-side augmentation of the JAX pipeline are
-not ported (ROADMAP.md, "do not port"); `build_dataset` raises for them.
+Images ship as uint8 in one of three transports (`data.transfer`,
+`data.device_aug`), and the train step finishes them on the device
+(train/step.normalize_images):
+  - rgb: the (S, S, 3) crop, resized on the host;
+  - yuv420 (the default): decode, crop and resample YCbCr-native, Y at S²
+    and CbCr at (S/2)², half the bytes of rgb; the step rebuilds RGB
+    (ops/device_aug.yuv420_to_rgb);
+  - device_aug: the decoded image padded into an (S, 2S, 3) canvas plus
+    its crop window, twice the bytes of rgb and no host resample; the step
+    runs the bicubic crop-resize (ops/device_aug.crop_resize_batch).
 """
 from __future__ import annotations
 
@@ -51,12 +57,28 @@ from segclip_tpu_torch.data.records import SgrReader
 from segclip_tpu_torch.data.superpixel import crop_seg_from_cache, decode_seg_map
 from segclip_tpu_torch.data.tokenizer import (ClipTokenizer, default_tokenizer,
                                               tokenize_with_mask)
-from segclip_tpu_torch.data.transforms import clip_normalize, random_resized_crop_coord
+from segclip_tpu_torch.data.transforms import (clip_normalize, random_resized_crop_coord,
+                                               random_resized_crop_yuv420,
+                                               sample_crop_window)
 from segclip_tpu_torch.utils.logging import get_logger
 
 
-def _decode_jpeg(data: bytes) -> Image.Image:
-    """JPEG decode via PIL (the reference's decoder)."""
+def _decode_jpeg(data: bytes, mode: str = "RGB") -> Image.Image:
+    """JPEG decode via PIL (the reference's decoder).
+
+    mode='YCbCr' (yuv420 transport path) asks libjpeg for its NATIVE
+    output colorspace via draft() — the decoder skips its YCbCr→RGB
+    conversion and hands back the stored planes (grayscale/exotic JPEGs
+    fall back to a PIL convert, same JFIF matrix)."""
+    if mode == "YCbCr":
+        img = Image.open(io.BytesIO(data))
+        img.draft("YCbCr", img.size)
+        if img.mode != "YCbCr":
+            try:
+                img = img.convert("YCbCr")
+            except ValueError:
+                img = img.convert("RGB").convert("YCbCr")
+        return img
     return Image.open(io.BytesIO(data)).convert("RGB")
 
 
@@ -69,8 +91,17 @@ class PairRecordDataset:
                  tokenizer: Optional[ClipTokenizer] = None,
                  crop_scale: Tuple[float, float] = (0.5, 1.0),
                  normalize: bool = True,
+                 device_aug: bool = False,
+                 transfer: str = "rgb",
                  emit_class_ids: bool = False):
         self.normalize = normalize
+        self.device_aug = device_aug
+        if transfer not in ("rgb", "yuv420"):
+            raise ValueError(f"transfer must be rgb|yuv420, got {transfer!r}")
+        if transfer == "yuv420" and (normalize or device_aug):
+            raise ValueError("transfer='yuv420' requires normalize=False "
+                             "and the host-crop path (device_aug=False)")
+        self.transfer = transfer
         self.crop_scale = tuple(crop_scale)
         self.name = name
         self.images = SgrReader(os.path.join(data_dir, f"{name}_images.sgr"))
@@ -127,22 +158,72 @@ class PairRecordDataset:
         key = self._keys[img_i]
 
         caption = json.loads(self.captions.get(key))[cap_i]
-        img = _decode_jpeg(self.images.get(key))
+        img = _decode_jpeg(self.images.get(key),
+                           mode="YCbCr" if self.transfer == "yuv420" else "RGB")
         ids, mask = tokenize_with_mask(self.tokenizer, caption, self.max_words)
-        arr, coord = random_resized_crop_coord(img, self.image_size, rng,
-                                               scale=self.crop_scale)
-        # normalize=False ships uint8; the train step normalizes on device.
-        out = {"image": clip_normalize(arr) if self.normalize else arr,
-               "input_ids": ids, "attention_mask": mask}
+        if self.device_aug:
+            out = self._sample_device_aug(img, rng)
+            coord = out.pop("_coord")
+        elif self.transfer == "yuv420":
+            # decode, crop and resample YCbCr-native; the step rebuilds RGB
+            y, cbcr, coord = random_resized_crop_yuv420(
+                img, self.image_size, rng, scale=self.crop_scale)
+            out = {"image_y": y, "image_cbcr": cbcr}
+        else:
+            arr, coord = random_resized_crop_coord(img, self.image_size, rng,
+                                                   scale=self.crop_scale)
+            # normalize=False ships uint8; the train step normalizes on device.
+            out = {"image": clip_normalize(arr) if self.normalize else arr}
+        out["input_ids"] = ids
+        out["attention_mask"] = mask
         if self.meta is not None:
             out["text_class"] = np.int32(self._text_class[idx])
             out["scene_classes"] = np.int32(self._scene_classes[img_i])
         if self.seg is not None:
+            # the superpixel crop stays on the host in every transport
             seg_full = decode_seg_map(self.seg.get(key))
             out["image_seg"] = crop_seg_from_cache(
                 seg_full, coord, self.image_size,
                 self.patch_size).astype(np.int32)
         return out
+
+    def _sample_device_aug(self, img: Image.Image,
+                           rng: np.random.Generator) -> Dict:
+        """Device-augmentation schema: the decoded image padded into a
+        fixed (S, 2S, 3) canvas plus the crop window; the train step runs
+        the bicubic crop-resize (ops/device_aug.py). Tall images are
+        transposed into the canvas (exact for separable resampling); crop
+        windows are drawn with the IDENTICAL rng sequence as the
+        host-resize path, so both modes see the same crops.
+
+        Fallback pre-shrinks: short side > S, or aspect ratio > 2.
+        """
+        S = self.image_size
+        wmax = 2 * S
+        w0, h0 = img.size
+        short, long = min(w0, h0), max(w0, h0)
+        if short > S or long > min(2 * short, wmax):
+            s = min(S / short, wmax / long, 1.0)
+            img = img.resize((max(1, round(w0 * s)), max(1, round(h0 * s))),
+                             Image.BICUBIC)
+        if img.mode != "RGB":
+            img = img.convert("RGB")
+        width, height = img.size
+        i, j, h, w, coord = sample_crop_window(width, height, rng,
+                                               scale=self.crop_scale)
+        arr = np.asarray(img)
+        transposed = height > width
+        if transposed:
+            arr = np.ascontiguousarray(arr.transpose(1, 0, 2))
+            i, j, h, w = j, i, w, h
+        canvas = np.zeros((S, wmax, 3), np.uint8)
+        canvas[:arr.shape[0], :arr.shape[1]] = arr
+        return {
+            "image": canvas,
+            "image_window": np.array([j, i, w, h], np.int32),
+            "image_transposed": np.uint8(transposed),
+            "_coord": coord,
+        }
 
 
 class SyntheticDataset:
@@ -214,17 +295,6 @@ class ConcatDataset:
         return self.parts[part].sample(idx - int(self._offsets[part]), rng)
 
 
-def check_transport(cfg: DataConfig) -> None:
-    """Raise for the transports the port does not have."""
-    if cfg.transfer != "rgb":
-        raise ValueError(
-            f"data.transfer={cfg.transfer!r} is not ported: the port ships the "
-            f"rgb transport only (ROADMAP.md, 'do not port'); set data.transfer=rgb")
-    if cfg.device_aug:
-        raise ValueError("data.device_aug is not ported (ROADMAP.md, 'do not port'); "
-                         "set data.device_aug=false")
-
-
 def build_dataset(cfg: DataConfig, use_seg: bool = True,
                   normalize: bool = True, vocab_size: int = 49408,
                   image_size: int = 224, patch_size: int = 16,
@@ -234,9 +304,20 @@ def build_dataset(cfg: DataConfig, use_seg: bool = True,
     Also serves as the picklable per-worker dataset factory
     (functools.partial(build_dataset, cfg, ...)). vocab_size / image_size /
     patch_size come from the MODEL config so the samples match the model's
-    embedding table, input resolution, and superpixel grid."""
-    check_transport(cfg)
+    embedding table, input resolution, and superpixel grid.
+
+    yuv420 rides the uint8 schema that the step normalizes, and device_aug
+    ships its own canvas: with normalize=True, or with device_aug, the
+    transfer falls back to rgb (with a warning for device_aug, the
+    user-visible flag)."""
     names = [n for n in cfg.datatype.split(",") if n]
+    transfer = cfg.transfer
+    if transfer == "yuv420" and (normalize or cfg.device_aug):
+        if cfg.device_aug:
+            get_logger().warning(
+                "data.device_aug=True overrides data.transfer='yuv420' "
+                "(device_aug ships its own canvas); using transfer='rgb'")
+        transfer = "rgb"
     parts = []
     for name in names:
         if name == "synthetic":
@@ -255,6 +336,8 @@ def build_dataset(cfg: DataConfig, use_seg: bool = True,
                                            patch_size=patch_size,
                                            crop_scale=cfg.crop_scale,
                                            normalize=normalize,
+                                           device_aug=cfg.device_aug,
+                                           transfer=transfer,
                                            emit_class_ids=emit_class_ids))
     if not parts:
         raise ValueError(f"no datasets in datatype={cfg.datatype!r}")

@@ -1,6 +1,7 @@
-"""Train/eval image transforms with crop-coordinate tracking (a copy of the
-rgb functions of segclip_tpu/data/transforms.py; held equal to them by
-tests/test_torch_vendored.py and tests/test_torch_data.py).
+"""Train/eval image transforms with crop-coordinate tracking (a copy of
+segclip_tpu/data/transforms.py; held equal to it by
+tests/test_torch_vendored.py, tests/test_torch_data.py and
+tests/test_torch_device_aug.py).
 
 Mirrors dataloaders/rawimage_util.py:
   - train: RandomResizedCrop(224, scale=(0.5, 1.0), bicubic) returning
@@ -8,10 +9,11 @@ Mirrors dataloaders/rawimage_util.py:
     denominators of the reference (rawimage_util.py:355-359); no flip (the
     reference's train transform omits its Flip classes);
   - eval: Resize(short side, bicubic) + CenterCrop;
-  - CLIP mean/std normalization in [0,1] space.
+  - CLIP mean/std normalization in [0,1] space;
+  - the yuv420 transport: a YCbCr-native crop-resize and the RGB → Y +
+    4:2:0 CbCr conversion.
 
-The yuv420 transport's functions are not ported (ROADMAP.md, "do not
-port"). Randomness is numpy-Generator-driven (no global RNG).
+Randomness is numpy-Generator-driven (no global RNG).
 """
 from __future__ import annotations
 
@@ -86,6 +88,64 @@ def random_resized_crop_coord(
         img = img.convert("RGB")
     crop = img.crop((j, i, j + w, i + h)).resize((size, size), Image.BICUBIC)
     return np.asarray(crop), coord
+
+
+def random_resized_crop_yuv420(
+    img: Image.Image, size: int, rng: np.random.Generator,
+    scale: Tuple[float, float] = (0.5, 1.0),
+    ratio: Tuple[float, float] = (3 / 4, 4 / 3),
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """YCbCr-native RandomResizedCrop for the yuv420 transport path.
+
+    Takes a PIL image already decoded in 'YCbCr' mode (libjpeg's native
+    output colorspace — `_decode_jpeg(..., mode='YCbCr')` skips the
+    decoder's YCbCr→RGB conversion entirely), crops with the IDENTICAL rng
+    window sequence as `random_resized_crop_coord`, and resamples Y at
+    `size`² but Cb/Cr directly at (size/2)² — a quarter of the chroma
+    resample work, landing straight in the 4:2:0 transport geometry.
+
+    vs the reference-ordered path (RGB bicubic resize → rgb_to_yuv420):
+    the color matrix is affine and bicubic resampling is linear, so the two
+    orders agree in exact arithmetic; the measured uint8 difference on the
+    reconstructed RGB is quantified in tests/test_yuv_transport.py (luma
+    within rounding, chroma within the existing 4:2:0 loss envelope).
+
+    Returns (y (size, size) u8, cbcr (size/2, size/2, 2) u8, coord).
+    """
+    width, height = img.size
+    i, j, h, w, coord = sample_crop_window(width, height, rng, scale, ratio)
+    if img.mode != "YCbCr":
+        img = img.convert("YCbCr")
+    crop = img.crop((j, i, j + w, i + h))
+    ych, cbch, crch = crop.split()
+    half = size // 2
+    y = np.asarray(ych.resize((size, size), Image.BICUBIC))
+    cb = np.asarray(cbch.resize((half, half), Image.BICUBIC))
+    cr = np.asarray(crch.resize((half, half), Image.BICUBIC))
+    return y, np.stack([cb, cr], axis=-1), coord
+
+
+def rgb_to_yuv420(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """uint8 RGB (H, W, 3) → (Y (H, W) uint8, CbCr (H/2, W/2, 2) uint8).
+
+    JFIF/BT.601 full-range matrix — the SAME colorspace the JPEG stored,
+    with the SAME 4:2:0 chroma geometry libjpeg decoded from: shipping
+    YUV420 to the device sends ~half the bytes of RGB while discarding
+    (mostly) only chroma detail the JPEG never had. The device inverts it
+    (ops/device_aug.yuv420_to_rgb in the train step); reconstruction error vs the decoded RGB
+    is quantified in tests/test_yuv_transport.py. H and W must be even.
+    """
+    a = arr.astype(np.float32)
+    r, g, b = a[..., 0], a[..., 1], a[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    cbcr = np.stack([cb, cr], axis=-1)
+    h, w = cbcr.shape[:2]
+    # 2x2 box mean (the JPEG encoder's default subsampling filter)
+    sub = cbcr.reshape(h // 2, 2, w // 2, 2, 2).mean(axis=(1, 3))
+    return (np.clip(np.round(y), 0, 255).astype(np.uint8),
+            np.clip(np.round(sub), 0, 255).astype(np.uint8))
 
 
 def eval_transform(img: Image.Image, size: int = 224) -> np.ndarray:

@@ -67,3 +67,28 @@ def group_assign_work(n: int, g: int, l: int, d: int, dtype: torch.dtype,
     e = _size(dtype)
     nbytes = e * (2 * n * g * d + 2 * n * l * d) + 4 * n * g * l * (4 if training else 2)
     return nbytes, 4.0 * n * g * l * d
+
+
+def crop_resize_work(n_wide: int, n_tall: int, s: int, wmax: int,
+                     out: int) -> Tuple[float, float]:
+    """(bytes, flops) of ops/device_aug.crop_resize_batch over n_wide +
+    n_tall samples: the (S, Wmax, 3) uint8 canvases and int64 windows read,
+    the (out, out, 3) float32 images written; per sample the two float32
+    products of the pass order it needs (the function computes both and
+    keeps one): horizontal first for a wide canvas, 2·3·(S·Wmax·out +
+    out·S·out), vertical first for a transposed one, 2·3·(out·S·Wmax +
+    out·Wmax·out). The resampling weights are not counted."""
+    b = n_wide + n_tall
+    nbytes = b * (s * wmax * 3 + 4 * 8 + 1) + 4 * b * out * out * 3
+    flops = 6.0 * (n_wide * (s * wmax * out + out * s * out)
+                   + n_tall * (out * s * wmax + out * wmax * out))
+    return nbytes, flops
+
+
+def yuv420_to_rgb_work(b: int, h: int, w: int) -> Tuple[float, float]:
+    """(bytes, flops) of ops/device_aug.yuv420_to_rgb followed by the CLIP
+    normalisation (train/step.normalize_images): Y (B, H, W) and CbCr
+    (B, H/2, W/2, 2) uint8 read, (B, H, W, 3) float32 written; per pixel 14
+    for the bilinear chroma (4 products, 3 sums, two planes), 8 for the
+    colour matrix, 9 for the normalisation."""
+    return b * h * w * 1.5 + 4 * b * h * w * 3, 31.0 * b * h * w

@@ -14,10 +14,15 @@ and the others wait at a barrier; rank 0 runs the per-epoch eval and
 broadcasts its mIoU, and keep_best's running best, so that every rank takes
 the same branch. A warm-up collective runs before the first step.
 
-Not ported, and refused with a message rather than run otherwise: tensor
-parallelism, a `train.data_parallelism` other than -1 or the world size,
-and `train.epochs_per_run` (ROADMAP.md). `data.packed_transfer` has no
-meaning here (each field is copied through pinned memory) and is ignored.
+`train.epochs_per_run` = N > 0 trains at most N epochs per run and stops
+(a segment); `--do-resume` goes on from the last checkpoint, the schedule
+spanning all `train.epochs`, and best.json carries keep_best's running
+best across segments.
+
+Refused with a message rather than run otherwise: tensor parallelism
+(ROADMAP.md) and a `train.data_parallelism` other than -1 or the world
+size. `data.packed_transfer` has no meaning here (each field is copied
+through pinned memory) and is ignored.
 """
 from __future__ import annotations
 
@@ -46,15 +51,13 @@ def check_supported(cfg: Config) -> None:
     t = cfg.train
     if t.tensor_parallelism != 1:
         raise ValueError(f"train.tensor_parallelism={t.tensor_parallelism} is not "
-                         f"ported (ROADMAP.md, 'do not port')")
+                         f"ported yet (ROADMAP.md: it needs two or more cards with "
+                         f"NCCL)")
     world = dist.world_size()
     if t.data_parallelism not in (-1, world):
         raise ValueError(f"train.data_parallelism={t.data_parallelism} must be -1 or "
                          f"the world size, {world}: start that many processes with "
                          f"the --dist-* flags (README.md)")
-    if t.epochs_per_run > 0:
-        raise ValueError("train.epochs_per_run is not ported (ROADMAP.md, 'do not "
-                         "port'): resume with --do-resume instead")
 
 
 def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
@@ -122,23 +125,28 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
                 start_epoch = last_epoch + 1
                 logger.info("resumed from %s → epoch %d", path, start_epoch)
 
+        end_epoch = cfg.train.epochs
+        if cfg.train.epochs_per_run > 0:
+            end_epoch = min(end_epoch, start_epoch + cfg.train.epochs_per_run)
+
         dist.warmup()
         ckpts: list = []
-        final_loss = _run_epochs(cfg, range(start_epoch, cfg.train.epochs), loader,
+        final_loss = _run_epochs(cfg, range(start_epoch, end_epoch), loader,
                                  step_fn, state, model, optimizer, device,
                                  steps_per_epoch, eval_fn, logger, metrics_writer,
                                  ckpts, profile_dir)
     finally:
         # a step failure or KeyboardInterrupt must not leak decode workers
         loader.close()
-    return {"epochs_run": max(0, cfg.train.epochs - start_epoch),
+    return {"epochs_run": max(0, end_epoch - start_epoch),
             "final_loss": final_loss, "checkpoints": ckpts,
             "state": state, "model": model, "optimizer": optimizer}
 
 
 def _read_best(output_dir: str) -> dict:
     """{'miou': float, 'epoch': int} from <output_dir>/best.json, or the
-    sentinel — keep_best's running maximum persists across resumes."""
+    sentinel — keep_best's running maximum persists across resumes and
+    epochs_per_run segments."""
     path = os.path.join(output_dir, "best.json")
     if os.path.exists(path):
         with open(path) as f:
@@ -199,7 +207,8 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
         logger.info("Epoch %d done in %.1fs, last loss %f",
                     epoch + 1, time.time() - t_start, final_loss)
 
-        # every checkpoint_every epochs, and always after the last one
+        # every checkpoint_every epochs, and always after the last one of
+        # this run (the schedule's end, or a segment's), so a resume has one
         if (epoch + 1) % cfg.train.checkpoint_every == 0 or epoch == epochs[-1]:
             path = save(epoch)
             if lead:

@@ -2,7 +2,8 @@
 parallel across processes.
 
 One step, in the reference's order (main_task_align.py:292-359):
-  uint8 images → CLIP-normalised on the device → forward (the loss dict)
+  uint8 images (any of the pipeline's three transports) → RGB at the
+  model's resolution, CLIP-normalised on the device → forward (the loss dict)
   → backward, `grad_accum_steps` micro-batches averaged → global-norm clip
   → NaN-loss skip (the optimizer, its step counter and the parameters stay
   untouched; the state's step still advances) → AdaptAdamW → the clamp of
@@ -24,9 +25,6 @@ and the optimizer are updated in place; `TrainState` carries the step and
 the seed. Frozen parameters have requires_grad=False (param_groups.freeze),
 so they get no gradient and no share of the clip norm, as the JAX step's
 stop_gradient gives them none.
-
-The rgb transport only: the YUV transport and device-side augmentation of
-the JAX step are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -40,6 +38,7 @@ import torch
 from segclip_tpu_torch.config import Config
 from segclip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from segclip_tpu_torch.models.segclip import SegCLIP
+from segclip_tpu_torch.ops.device_aug import crop_resize_batch, yuv420_to_rgb
 from segclip_tpu_torch.parallel.collectives import mean_across_ranks_, rank_of
 from segclip_tpu_torch.parallel.dist import world_size
 from segclip_tpu_torch.train.optimizer import AdaptAdamW, global_norm_clip
@@ -67,15 +66,28 @@ def create_optimizer(model: SegCLIP, cfg: Config, t_total: int) -> AdaptAdamW:
                       moment_dtype=o.moment_dtype)
 
 
-def normalize_images(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """uint8 images (B, H, W, 3) → CLIP-normalised float32 on their device;
-    float images are taken as already normalised."""
-    image = batch["image"]
-    if image.dtype != torch.uint8:
+def normalize_images(batch: Dict[str, torch.Tensor], resolution: int
+                     ) -> Dict[str, torch.Tensor]:
+    """The batch with "image" as CLIP-normalised float32 (B, resolution,
+    resolution, 3) on its device, from whichever transport shipped it:
+    "image_y" + "image_cbcr" (yuv420: RGB rebuilt), "image" + "image_window"
+    + "image_transposed" (device_aug: the canvas crop-resized to
+    `resolution`), or a uint8 "image" (rgb). A float "image" is taken as
+    already normalised."""
+    batch = dict(batch)
+    if "image_y" in batch:
+        image = yuv420_to_rgb(batch.pop("image_y"), batch.pop("image_cbcr"))
+    elif "image_window" in batch:
+        image = crop_resize_batch(batch["image"], batch.pop("image_window"),
+                                  batch.pop("image_transposed"), resolution)
+    elif batch["image"].dtype == torch.uint8:
+        image = batch["image"].float()
+    else:
         return batch
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=image.device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=image.device)
-    return {**batch, "image": (image.float() / 255.0 - mean) / std}
+    batch["image"] = (image / 255.0 - mean) / std
+    return batch
 
 
 def step_generator(device: torch.device, seed: int, step: int,
@@ -103,6 +115,7 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
     ranks."""
     accum = cfg.train.grad_accum_steps
     max_norm = cfg.optim.max_grad_norm
+    resolution = cfg.model.image_resolution
     params = [p for p in model.parameters() if p.requires_grad]
     logit_scale = model.clip.logit_scale
     world, rank = world_size(), rank_of()
@@ -110,7 +123,8 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              noise: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:
-        batch = normalize_images({k: v for k, v in batch.items() if v is not None})
+        batch = normalize_images({k: v for k, v in batch.items() if v is not None},
+                                 resolution)
         b = batch["image"].shape[0]
         if accum < 1 or b % accum:
             raise ValueError(f"batch {b} does not split into {accum} micro-batches")

@@ -9,6 +9,7 @@ batches bit for bit. Tolerance everywhere: exact.
 import functools
 import io
 import json
+import logging
 import os
 import pickle
 import tarfile
@@ -291,6 +292,11 @@ def test_prepare_data_superpixels_writes_the_same_bytes(tmp_path):
 # the loader: the JAX package's batches, bit for bit
 # ---------------------------------------------------------------------------
 
+# The three transports, as the DataConfig settings that select them.
+TRANSPORTS = {"rgb": dict(transfer="rgb"), "yuv420": dict(transfer="yuv420"),
+              "device_aug": dict(transfer="rgb", device_aug=True)}
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = tmp_path_factory.mktemp("shapes")
@@ -298,13 +304,17 @@ def corpus(tmp_path_factory):
     return str(root)
 
 
-@pytest.mark.parametrize("datatype, workers", [
-    ("shapes", 0), ("shapes", 2), ("synthetic", 0), ("shapes,synthetic", 0)])
-def test_batch_loader_batches_equal_jax(corpus, datatype, workers):
-    """Two epochs of BatchLoader.epoch on the same corpus, seed and sampler:
-    the same batches, keys, dtypes and bits."""
-    kw = dict(datatype=datatype, data_dir=corpus, batch_size=4, transfer="rgb",
-              max_words=16)
+@pytest.mark.parametrize("datatype, workers, transport", [
+    ("shapes", 0, "rgb"), ("shapes", 2, "rgb"), ("synthetic", 0, "rgb"),
+    ("shapes,synthetic", 0, "rgb"), ("shapes", 0, "yuv420"), ("shapes", 2, "yuv420"),
+    ("shapes", 0, "device_aug"), ("shapes", 2, "device_aug")])
+def test_batch_loader_batches_equal_jax(corpus, datatype, workers, transport):
+    """Two epochs of BatchLoader.epoch on the same corpus, seed and sampler,
+    in each transport (rgb crops; yuv420's Y and CbCr planes; device_aug's
+    canvas, window and transposed flag): the same batches, keys, dtypes and
+    bits."""
+    kw = dict(datatype=datatype, data_dir=corpus, batch_size=4, max_words=16,
+              **TRANSPORTS[transport])
     factory_kw = dict(use_seg=True, normalize=False, vocab_size=49408, image_size=64,
                       patch_size=8, emit_class_ids=datatype == "shapes")
     batches = []
@@ -321,6 +331,8 @@ def test_batch_loader_batches_equal_jax(corpus, datatype, workers):
             loader.close()
     ref, out = batches
     assert len(out) == len(ref) == 2 * (len(dataset) // 4)
+    assert {"rgb": "image", "yuv420": "image_y", "device_aug": "image_window"}[transport] \
+        in out[0]
     for a, b in zip(ref, out):
         assert list(b) == list(a)
         for key in a:
@@ -352,15 +364,43 @@ def test_sampler_and_load_one_retries():
         np.testing.assert_array_equal(out["x"], [3, np.random.default_rng(0).integers(100)])
 
 
-@pytest.mark.parametrize("override", ["transfer=yuv420", "device_aug=true", "default"])
-def test_unported_transports_raise(corpus, override):
-    cfg = tconfig.DataConfig(datatype="shapes", data_dir=corpus, transfer="rgb")
-    if override == "default":
-        cfg = tconfig.DataConfig(datatype="shapes", data_dir=corpus)   # yuv420
-    else:
-        cfg = tconfig.apply_overrides(tconfig.Config(data=cfg), [f"data.{override}"]).data
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        tpipe.build_dataset(cfg, normalize=False)
+@pytest.mark.parametrize("overrides, normalize, transfer, warns", [
+    ([], False, "yuv420", False),                              # the default
+    ([], True, "rgb", False),                                  # yuv420 needs the uint8 schema
+    (["data.device_aug=true"], False, "rgb", True),            # device_aug ships a canvas
+    (["data.transfer=rgb", "data.device_aug=true"], False, "rgb", False)],
+    ids=["yuv420", "yuv420-normalize", "yuv420-device_aug", "rgb-device_aug"])
+def test_build_dataset_transport_fallback(corpus, overrides, normalize, transfer, warns):
+    """build_dataset's rule, as the JAX package's: yuv420 with normalize=True
+    or with device_aug falls back to rgb, with a warning for device_aug."""
+    class Messages(logging.Handler):
+        def emit(self, record):
+            self.seen = getattr(self, "seen", "") + record.getMessage()
+
+    got = []
+    for pipe, config, logger in ((jpipe, jconfig, logging.getLogger("segclip")),
+                                 (tpipe, tconfig, tlog.get_logger())):
+        cfg = config.apply_overrides(config.Config(data=config.DataConfig(
+            datatype="shapes", data_dir=corpus)), overrides).data
+        handler = Messages()
+        logger.addHandler(handler)
+        try:
+            ds = pipe.build_dataset(cfg, normalize=normalize)
+        finally:
+            logger.removeHandler(handler)
+        got.append((ds.transfer, ds.device_aug, ds.normalize,
+                    "overrides data.transfer='yuv420'" in getattr(handler, "seen", "")))
+    assert got[0] == got[1] == (transfer, "data.device_aug=true" in overrides, normalize,
+                                warns)
+
+
+def test_unknown_transport_raises(corpus):
+    for pipe in (jpipe, tpipe):
+        with pytest.raises(ValueError, match="rgb|yuv420"):
+            pipe.PairRecordDataset("shapes", corpus, normalize=False, transfer="yuv444")
+        with pytest.raises(ValueError, match="normalize=False"):
+            pipe.PairRecordDataset("shapes", corpus, normalize=False, transfer="yuv420",
+                                   device_aug=True)
 
 
 # ---------------------------------------------------------------------------

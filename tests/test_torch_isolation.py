@@ -3,10 +3,10 @@ entry points run on the card unless the CPU is named, and its kernel
 wrappers never leave the device they were given.
 
 A fresh interpreter imports only segclip_tpu_torch, runs a tiny
-encode_image, encode_text and predict, and one tiny training step, on the
-CPU, imports the loop, the train CLI and prepare_data and runs the native
-superpixels, loads a checkpoint through load_model and imports the demo,
-the process-group plumbing, the sharded evaluator, the four studies and
+encode_image, encode_text and predict, and a tiny training step on a batch
+of each transport, on the CPU, imports the loop, the train CLI and
+prepare_data and runs the native superpixels, loads a checkpoint through load_model and imports the demo,
+the process-group plumbing, the sharded evaluator, the five studies and
 the profiling helpers, and must end with no module of segclip_tpu, jax or
 flax in sys.modules. An AST scan holds every file of the port, and
 chip_smoke.py, to importing nothing of segclip_tpu, and the studies to
@@ -66,6 +66,13 @@ batch = {"input_ids": torch.from_numpy(ids), "attention_mask": torch.from_numpy(
          "image_seg": torch.from_numpy(rng.integers(0, 4, (2, 4, 4)))}
 metrics = step(TrainState(), batch)
 assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped_nan"]) == 0.0
+yuv = {**batch, "image_y": batch["image"][..., 0], "image_cbcr": batch["image"][:, ::2, ::2, :2]}
+del yuv["image"]
+aug = {**batch, "image": torch.zeros(2, 32, 64, 3, dtype=torch.uint8),
+       "image_window": torch.tensor([[3, 2, 40, 28], [1, 0, 20, 30]]),
+       "image_transposed": torch.tensor([0, 1], dtype=torch.uint8)}
+for b in (yuv, aug):
+    assert np.isfinite(float(step(TrainState(), b)["loss"]))
 
 import segclip_tpu_torch.cli.prepare_data, segclip_tpu_torch.cli.train
 import segclip_tpu_torch.train.loop
@@ -74,6 +81,7 @@ import segclip_tpu_torch.evalseg.visualize, segclip_tpu_torch.parallel.dist
 from segclip_tpu_torch.evalseg.inference import evaluate_dataset_sharded
 import segclip_tpu_torch.studies.classprobe, segclip_tpu_torch.studies.spatial_margin_probe
 import segclip_tpu_torch.studies.holdout_study, segclip_tpu_torch.studies.eval_ipd_study
+import segclip_tpu_torch.studies.host_stage_bench
 from segclip_tpu_torch.utils.profiling import StepTimer, step_annotation
 import os, tempfile
 from segclip_tpu_torch.cli.common import load_model

@@ -92,7 +92,8 @@ def test_train_cli_synthetic_writes_log_metrics_checkpoint_and_trace(tmp_path):
 
 
 def test_train_cli_preset_keeps_best_and_explicit_flags_win(tmp_path, corpus):
-    """--preset shapes-learnability: the preset's values land, explicit
+    """--preset shapes-learnability: the preset's values land (on the JAX
+    CLI's default transport, yuv420), explicit
     flags and --opts win over them, and the run trains, evaluates after
     each epoch on <data-dir>/eval, goes on training after the eval, and
     keeps the best."""
@@ -109,7 +110,7 @@ def test_train_cli_preset_keeps_best_and_explicit_flags_win(tmp_path, corpus):
     assert cfg["model"]["group_balance_weight"] == 1.0
     assert cfg["model"]["use_seglabel"] and cfg["model"]["use_vision_mae_recon"]
     assert cfg["train"]["keep_best"] and cfg["train"]["eval_each_epoch"]
-    assert cfg["eval"]["dataset"] == "shapes" and cfg["data"]["transfer"] == "rgb"
+    assert cfg["eval"]["dataset"] == "shapes" and cfg["data"]["transfer"] == "yuv420"
     assert cfg["data"]["batch_size"] == 8 and cfg["train"]["epochs"] == 2
     assert cfg["model"]["gumbel_tau"] == 2.0
     metrics = read_metrics(out)
@@ -214,6 +215,49 @@ def test_resume_is_bit_identical_to_a_straight_run(tmp_path, straight):
                 torch.equal(sa[i][m], sb[i][m]) for i in sa for m in sa[i])
     assert resumed["optimizer"].step_count == result["optimizer"].step_count == 8
     assert resumed["state"].step == result["state"].step == 8
+
+
+def test_epochs_per_run_segments_equal_a_straight_run(tmp_path, corpus):
+    """train.epochs_per_run=1 on the default transport (yuv420): a first run
+    trains epoch 0 and stops, a resumed one trains epoch 1, and together
+    they equal two epochs straight bit for bit (losses, checkpoints,
+    schedule). keep_best's best carries across the segments through
+    best.json: the eval scores 60 then 40, so epoch 0 stays the best."""
+    def scripted_eval():
+        scores = iter([60.0, 40.0])
+        return lambda model: next(scores)
+
+    def config(out, **kw):
+        cfg = tiny_config(corpus, str(out), epochs=2, keep_best=True,
+                          eval_each_epoch=True, **kw)
+        return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, transfer="yuv420"))
+
+    straight = tloop.train(config(tmp_path / "straight"), eval_fn=scripted_eval(),
+                           device="cpu")
+    seg_eval = scripted_eval()
+    runs = [tloop.train(config(tmp_path / "seg", epochs_per_run=1), resume=True,
+                        eval_fn=seg_eval, device="cpu") for _ in range(2)]
+    assert [r["epochs_run"] for r in runs] == [1, 1]
+    assert [r["state"].step for r in runs] == [4, 8] and straight["state"].step == 8
+    assert runs[1]["final_loss"] == straight["final_loss"]
+    strip = [[{k: v for k, v in m.items() if k != "time"} for m in read_metrics(tmp_path / d)]
+             for d in ("straight", "seg")]
+    assert strip[0] == strip[1] and [m["epoch"] for m in strip[1]] == [0] * 5 + [1] * 5
+    for d in ("straight", "seg"):
+        assert json.loads((tmp_path / d / "best.json").read_text()) == {"miou": 60.0,
+                                                                        "epoch": 0}
+    for ckpt in ("ckpt_epoch_0", "ckpt_epoch_1", "ckpt_best"):
+        for name in ("model.pt", "train_state.pt"):
+            a = torch.load(tmp_path / "straight" / ckpt / name, weights_only=True)
+            b = torch.load(tmp_path / "seg" / ckpt / name, weights_only=True)
+            if name == "model.pt":
+                assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            else:
+                assert {k: a[k] for k in a if k != "optimizer"} == \
+                    {k: b[k] for k in b if k != "optimizer"}, ckpt
+                sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+                assert sa.keys() == sb.keys() and all(
+                    torch.equal(sa[i][m], sb[i][m]) for i in sa for m in sa[i])
 
 
 def test_a_failed_eval_is_logged_and_training_goes_on(tmp_path, corpus):
@@ -374,15 +418,12 @@ def test_eval_under_compute_dtype_shares_the_training_parameters(tmp_path):
 @pytest.mark.parametrize("extra, match", [
     (["--opts", "train.tensor_parallelism=2"], "ROADMAP.md"),
     (["--opts", "train.data_parallelism=2"], "world size, 1"),
-    (["--opts", "train.epochs_per_run=1"], "ROADMAP.md"),
-    (["--opts", "data.transfer=yuv420"], "ROADMAP.md"),
-    (["--opts", "data.device_aug=true"], "ROADMAP.md"),
     (["--dist-coordinator", "localhost:1234"], "--dist-num-processes")],
-    ids=["tp", "dp", "epochs_per_run", "yuv420", "device_aug", "dist"])
+    ids=["tp", "dp", "dist"])
 def test_unported_settings_raise_naming_the_roadmap(tmp_path, extra, match):
-    """Unported settings name ROADMAP.md; a data parallelism other than the
-    world size, and an incomplete --dist-* triple, are refused before any
-    rendezvous."""
+    """Tensor parallelism, the one setting not ported, names ROADMAP.md; a
+    data parallelism other than the world size, and an incomplete --dist-*
+    triple, are refused before any rendezvous."""
     with pytest.raises(ValueError, match=match):
         train_cli.main(["--device", "cpu", "--datatype", "synthetic", "--batch-size", "4",
                         "--epochs", "1", "--output-dir", str(tmp_path)] + extra)
