@@ -1,8 +1,8 @@
 """Drive the PyTorch port's zero-shot segmentation path, its training step,
 pretraining through the CLI on its three input transports, checkpoint
-ingest, the demo, the sharded evaluator, data-parallel training, the
-studies that load a model and the device-side transforms on one CUDA card
-(an H100), and check them.
+ingest, the demo, the sharded evaluator, data- and tensor-parallel
+training, the studies that load a model and the device-side transforms on
+one CUDA card (an H100), and check them.
 
     python3 chip_smoke.py
 
@@ -60,14 +60,20 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      decode call against one at a time, float32 (≥ 99.9 % of pixels equal,
      mIoU within 0.01) and bf16 (flip share and img/s reported); the eval
      CLI in one process and, in phase 9's spawned ranks, in two;
-  9. data parallel, two spawned ranks (NCCL with a card each where there
-     are two cards, else gloo sharing the card): one float32 step of 2 × 4
-     against 1 × 8 with injected noise (loss within 1e-4, hard assignments
-     equal away from near ties), 1 + 5 bf16 steps of 2 × 48 (launches per
-     rank per step, warm step time beside phase 4's 1 × 96), then
-     `cli.train --dist-*` for one epoch of phase 6's corpus on the rgb
-     transport (`--opts data.transfer=rgb`), rank 0's model.pt evaluated
-     in one process;
+  9. data and tensor parallel, two spawned ranks (NCCL with a card each
+     where there are two cards, else gloo sharing the card): one float32
+     step of 2 × 4 against 1 × 8 with injected noise (loss within 1e-4,
+     hard assignments equal away from near ties), 1 + 5 bf16 steps of 2 ×
+     48 (launches per rank per step, warm step time beside phase 4's 1 ×
+     96); then the same ranks as one dp1 × tp2 grid (parallel/gspmd.py):
+     the float32 step at 1 × 8 on each rank against 1 × 8 (the same
+     tolerances, and every gathered parameter after the step within 1e-4),
+     1 + 5 bf16 steps at 48 on each rank (launches, the bytes all-reduced
+     over the model row per step, peak memory); then `cli.train --dist-*`
+     for one epoch of phase 6's corpus on the rgb transport (`--opts
+     data.transfer=rgb`), once at tensor parallelism 1 and once at 2, rank
+     0's model.pt of each evaluated in one process (the tp = 2 one in the
+     tp = 1 layout);
  10. the studies (segclip_tpu_torch/studies), each a subprocess on the card
      on phase 6's best checkpoint and a holdout corpus (16 eval images, 48
      pair images): classprobe at a batch of 16, the margin probe on 8
@@ -105,7 +111,8 @@ kernel's main shape, and the Gumbel grouping's at the MAE shape as
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
 "train_cli" (phase 6's run A), "train_cli_device_aug" (phase 6's run C,
 both segments), "demo" (phase 7), "eval_sharded" (phase 8,
-both ranks of its CLI run included), "train_dp" (phase 9, both ranks) and
+both ranks of its CLI run included), "train_dp" (phase 9, both ranks),
+"train_tp" (phase 9's dp1 × tp2 steps and CLI run, both ranks) and
 "studies" (phase 10, every study)), and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -189,6 +196,24 @@ TRAIN_DP_ATTN_CASES = (
     ("train DP MAE vision 48x48", 48, 48, 48, 12, None, "self"),
     ("train DP MAE cross 48x8x56", 48, 8, 56, 12, None, "cross"),
     ("train DP text 48x32 causal", 48, 32, 32, 8, "causal", "self"),
+)
+# Each rank's shapes in phase 9's dp1 × tp2 steps, each rank holding 6 of
+# the 12 vision and cross heads and 4 of the 8 text heads: the bf16 steps at
+# B = 48 (checked), and the train CLI at B = 96 on both ranks (checked and
+# profiled, beside the 12- and 8-head rows of TRAIN_ATTN_CASES).
+TRAIN_TP_ATTN_CASES = (
+    ("train TP vision 48x196 H6", 48, 196, 196, 6, None, "self"),
+    ("train TP cross 48x8x204 H6", 48, 8, 204, 6, None, "cross"),
+    ("train TP group stage 48x8x8 H6", 48, 8, 8, 6, None, "self"),
+    ("train TP MAE vision 48x48 H6", 48, 48, 48, 6, None, "self"),
+    ("train TP MAE cross 48x8x56 H6", 48, 8, 56, 6, None, "cross"),
+    ("train TP text 48x32 causal H4", 48, 32, 32, 4, "causal", "self"),
+    ("train TP vision 96x196 H6", 96, 196, 196, 6, None, "self"),
+    ("train TP cross 96x8x204 H6", 96, 8, 204, 6, None, "cross"),
+    ("train TP group stage 96x8x8 H6", 96, 8, 8, 6, None, "self"),
+    ("train TP MAE vision 96x48 H6", 96, 48, 48, 6, None, "self"),
+    ("train TP MAE cross 96x8x56 H6", 96, 8, 56, 6, None, "cross"),
+    ("train TP text 96x32 causal H4", 96, 32, 32, 4, "causal", "self"),
 )
 # Grouping shapes of the path: (name, N, G, L, D).
 GROUP_CASES = (
@@ -529,7 +554,7 @@ def training_kernels(dev, gen, summary, timings) -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
-        for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES:
+        for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES:
             q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
             out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
             ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
@@ -563,8 +588,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
                   f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
                   f"{note}  fwd {call_ms(fwd):.4f} / {call_ms(fwd_plain):.4f} ms, bwd "
                   f"{call_ms(bwd):.4f} / {call_ms(bwd_plain):.4f} ms")
-            if case in TRAIN_DP_ATTN_CASES:            # checked above; profiled at B = 96
-                continue
+            if case in TRAIN_DP_ATTN_CASES or (case in TRAIN_TP_ATTN_CASES
+                                               and case[1] != TRAIN_BATCH):
+                continue                               # checked above; profiled at B = 96
             _, b, lq, lk, h, bias, _ = case
             timings.append(dict(
                 name=f"attention fwd+P {case[0]} {dname}", kernel=fwd, plain=fwd_plain,
@@ -1312,6 +1338,26 @@ DP_WORLD = 2
 DP_F32_BATCH = 8
 DP_LOSS_RTOL = 1e-4
 DP_TIMEOUT_S = 480
+# Phase 9, tensor parallel (the same ranks as one dp1 × tp2 grid): the
+# float32 step at 1 × DP_F32_BATCH on each rank, against the 1-process step
+# (the Megatron partial sums add in another order):
+#  - the loss as the data-parallel step's; hard assignments equal on every
+#    patch, near ties included (a flipped patch would change the gradients
+#    the checks below hold);
+#  - the clip norm within TP_NORM_RTOL of itself (a replicated gradient
+#    counted tp times, or a sharded one left out, moves it by far more);
+#  - every gathered gradient (after the clip) within TP_GRAD_RTOL·max|g| of
+#    the reference's, per tensor: this is where the backward is checked;
+#  - every gathered parameter within TP_MOVE_RTOL·max|Δ| + one ulp of its
+#    largest value of the reference's, per tensor, Δ the reference's move in
+#    this step. AdamW's first step moves each element by about ±lr whatever
+#    the size of its gradient, and by lr·g/eps where |g| < eps = 1e-6, so
+#    roundoff in a gradient near zero moves its element by a share of lr:
+#    this check sees a tensor left unmoved (error 1·max|Δ|), moved the other
+#    way (2·max|Δ|) or put together wrongly, not the gradients' precision.
+TP_NORM_RTOL = 1e-5
+TP_GRAD_RTOL = 1e-4
+TP_MOVE_RTOL = 0.5
 
 
 def openai_layout(sd: dict, first_stage_layer: int) -> dict:
@@ -1593,12 +1639,17 @@ def phase_sharded_eval(dev, model, cfg, tmp: str, model_path: str) -> tuple:
     return counts, single, voc
 
 
-def dp_f32_step(dev, rank: int, world: int) -> tuple:
+def dp_f32_step(dev, rank: int, world: int, shard: bool = False) -> tuple:
     """One float32 training step at full width on this rank's share of a
-    DP_F32_BATCH batch with injected noise; the mean loss over the ranks and
-    the SemanticLearner's hard assignments and margins of this rank's rows."""
+    DP_F32_BATCH batch with injected noise; the mean loss over the ranks,
+    the clip norm, the SemanticLearner's hard assignments and margins of
+    this rank's rows, and the model after the step (its gradients, clipped,
+    kept). With `shard`, the model is split over the model row of the grid
+    already built (parallel/gspmd.shard_model_); `rank` and `world` are
+    then the data rank and size."""
     from segclip_tpu_torch.config import Config, ModelConfig
     from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.parallel import gspmd
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 
     mcfg = ModelConfig(compute_dtype="float32")
@@ -1612,66 +1663,114 @@ def dp_f32_step(dev, rank: int, world: int) -> tuple:
     noise = {k: torch.from_numpy(v[rows].astype(np.float32)).to(dev) for k, v in noise.items()}
     batch = {k: v[rows] for k, v in synthetic_batch(b, mcfg, 1, dev).items()}
     model = init_segclip(mcfg, seed=0, device=dev)
+    if shard:
+        gspmd.shard_model_(model)
     step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
     probe = GroupingProbe(model.clip.visual.transformer.semantic_layer2,
                           [noise["gumbel"], noise["gumbel_mae"]])
     metrics = step(TrainState(), batch, noise)
     probe.handle.remove()
-    return float(metrics["loss"]), probe.records
+    return float(metrics["loss"]), float(metrics["grad_norm"]), probe.records, model
 
 
-def dp_bf16_steps(dev, rank: int, world: int) -> dict:
-    """1 + TRAIN_STEPS bf16 steps at ViT-B/16 width on this rank's share of
-    phase 4's B = 96 batch: losses, launches per step, times."""
-    from segclip_tpu_torch.config import Config
-    from segclip_tpu_torch.models.segclip import init_segclip
-    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
-
-    cfg = Config()
-    b = TRAIN_BATCH // world
-    batch = {k: v[rank * b:(rank + 1) * b]
-             for k, v in synthetic_batch(TRAIN_BATCH, cfg.model, 0, dev).items()}
-    model = init_segclip(cfg.model, seed=0, device=dev)
-    step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
-    state = TrainState(step=0, seed=0)
-    out = {"loss": [], "skipped": [], "counts": [], "ms": []}
-    for _ in range(1 + TRAIN_STEPS):
-        reset_counters()
-        metrics, ms = timed(lambda: step(state, batch))
-        out["counts"].append(read_counters())
-        out["loss"].append(float(metrics["loss"]))
-        out["skipped"].append(float(metrics["skipped_nan"]))
-        out["ms"].append(ms)
-    out["checksum"] = float(sum(p.double().sum() for p in model.parameters()))
+def gathered_grads(model) -> dict:
+    """The full gradient of every parameter of a sharded model that has
+    one, on the CPU; a collective over the model row."""
+    from segclip_tpu_torch.parallel import dist, gspmd
+    out = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        g = p.grad.detach()
+        if hasattr(p, "model_shard"):
+            g = gspmd.assemble(dist.all_gather(g, dist.model_group()), p.model_shard)
+        out[name] = g.cpu()
     return out
 
 
-def train_dp_args(tmp: str) -> list:
+def dp_bf16_steps(dev, shard: bool = False) -> dict:
+    """1 + TRAIN_STEPS bf16 steps at ViT-B/16 width on this data rank's
+    TRAIN_BATCH // DP_WORLD rows of phase 4's B = 96 batch: losses, launches
+    per step, times, the bytes all-reduced over the model row per step, peak
+    memory and a checksum of the replicated parameters. With `shard`, the
+    model is split over the model row of the grid already built."""
+    from segclip_tpu_torch.config import Config
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.parallel import dist, gspmd
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    cfg = Config()
+    b, r = TRAIN_BATCH // DP_WORLD, dist.data_rank()
+    batch = {k: v[r * b:(r + 1) * b]
+             for k, v in synthetic_batch(TRAIN_BATCH, cfg.model, 0, dev).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_segclip(cfg.model, seed=0, device=dev)
+    if shard:
+        gspmd.shard_model_(model)
+    step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
+    state = TrainState(step=0, seed=0)
+    out = {"loss": [], "skipped": [], "counts": [], "ms": [], "bytes": []}
+    for _ in range(1 + TRAIN_STEPS):
+        reset_counters()
+        sent = gspmd.model_group_sum.bytes
+        metrics, ms = timed(lambda: step(state, batch))
+        out["counts"].append(read_counters())
+        out["bytes"].append(gspmd.model_group_sum.bytes - sent)
+        out["loss"].append(float(metrics["loss"]))
+        out["skipped"].append(float(metrics["skipped_nan"]))
+        out["ms"].append(ms)
+    out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    out["checksum"] = float(sum(p.double().sum() for p in model.parameters()
+                                if not hasattr(p, "model_shard")))
+    return out
+
+
+def train_dp_args(tmp: str, tp: int = 1) -> list:
     """Phase 9's train CLI: the phase-6 preset for one epoch on the rgb
-    transport, the one phase 6's runs (yuv420, device_aug) leave out."""
+    transport, the one phase 6's runs (yuv420, device_aug) leave out; at
+    `tp` > 1 with train.tensor_parallelism=tp (at dp1 × tp2 each rank
+    steps on the whole B = 96 batch with half the heads and MLP rows)."""
     return ["--preset", "shapes-learnability", "--data-dir", os.path.join(tmp, "shapes"),
             "--epochs", "1", "--num-workers", "0", "--n-display", "1",
-            "--output-dir", os.path.join(tmp, "dp_run"), "--opts", "data.transfer=rgb"]
+            "--output-dir", os.path.join(tmp, "tp_run" if tp > 1 else "dp_run"),
+            "--opts", "data.transfer=rgb", f"train.tensor_parallelism={tp}"]
 
 
 def dp_rank(rank: int, world: int, tmp: str, voc: str, model_path: str) -> dict:
     """Phases 8 and 9 on one of `world` ranks (a spawned process): the
-    float32 and bf16 data-parallel steps in one process group, then the
-    eval CLI and the train CLI, each starting its own group from --dist-*."""
+    float32 and bf16 data-parallel steps in one process group, then the same
+    steps on a dp1 × tp2 grid of that group; then the eval CLI, the train
+    CLI and the train CLI at train.tensor_parallelism=2, each starting its
+    own group from --dist-*."""
     from segclip_tpu_torch.cli import eval_zeroshot
     from segclip_tpu_torch.cli import train as train_cli
     from segclip_tpu_torch.kernels import build
-    from segclip_tpu_torch.parallel import dist
+    from segclip_tpu_torch.parallel import dist, gspmd
 
     build.load()
     dev = dist.init_distributed("cuda", f"file://{tmp}/rendezvous_steps", world, rank)
     out = {"device": str(dev), "backend": dist.backend(), "cards": torch.cuda.device_count()}
     try:
         dist.warmup()
-        out["f32_loss"], records = dp_f32_step(dev, rank, world)
+        out["f32_loss"], _, records, _ = dp_f32_step(dev, rank, world)
         torch.save(records, os.path.join(tmp, f"dp_f32_records_{rank}.pt"))
         torch.cuda.empty_cache()
-        out["bf16"] = dp_bf16_steps(dev, rank, world)
+        out["bf16"] = dp_bf16_steps(dev)
+        torch.cuda.empty_cache()
+        # the same ranks as one model row: dp1 × tp2
+        dist.init_grid(world)
+        dist.warmup()
+        out["tp_f32_loss"], out["tp_f32_grad_norm"], records, model = dp_f32_step(
+            dev, 0, 1, shard=True)
+        torch.save(records, os.path.join(tmp, f"tp_f32_records_{rank}.pt"))
+        full, _ = gspmd.gather_state_dict(model)
+        grads = gathered_grads(model)
+        if rank == 0:
+            torch.save({"params": {k: v.cpu() for k, v in full.items()}, "grads": grads},
+                       os.path.join(tmp, "tp_f32_step.pt"))
+        del model, full, grads
+        torch.cuda.empty_cache()
+        out["tp_bf16"] = dp_bf16_steps(dev, shard=True)
     finally:
         dist.shutdown()
     torch.cuda.empty_cache()
@@ -1689,6 +1788,17 @@ def dp_rank(rank: int, world: int, tmp: str, voc: str, model_path: str) -> dict:
         counts = read_counters()
     out["train_cli"] = {"steps": path.steps, "requests": path.requests, "counts": counts,
                         "final_loss": result["final_loss"]}
+    del result
+    torch.cuda.empty_cache()
+    with CountingPath() as path:
+        reset_counters()
+        t0 = time.perf_counter()
+        result = train_cli.main(train_dp_args(tmp, tp=world) + [
+            "--dist-coordinator", f"file://{tmp}/rendezvous_train_tp"] + flags)
+        seconds = time.perf_counter() - t0
+        counts = read_counters()
+    out["train_tp_cli"] = {"steps": path.steps, "requests": path.requests, "counts": counts,
+                           "final_loss": result["final_loss"], "seconds": seconds}
     return out
 
 
@@ -1748,9 +1858,15 @@ def phase_data_parallel(dev, tmp: str, smi: str, warm_step_ms: float, voc: str,
     training and of their sharded eval."""
     from segclip_tpu_torch.cli import eval_zeroshot
     from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.models.segclip import init_segclip
 
     cfg = ModelConfig()
-    ref_loss, ref_records = dp_f32_step(dev, 0, 1)
+    ref_loss, ref_norm, ref_records, ref_model = dp_f32_step(dev, 0, 1)
+    ref_step = {"params": {k: v.detach().cpu() for k, v in ref_model.state_dict().items()},
+                "grads": {n: p.grad.detach().cpu() for n, p in ref_model.named_parameters()
+                          if p.grad is not None},
+                "init": init_segclip(ModelConfig(compute_dtype="float32"), seed=0).state_dict()}
+    del ref_model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = run_ranks(DP_WORLD, (tmp, voc, model_path))
@@ -1850,7 +1966,135 @@ def phase_data_parallel(dev, tmp: str, smi: str, warm_step_ms: float, voc: str,
     train = {k: sum(sum(c[k] for c in r["bf16"]["counts"]) + r["train_cli"]["counts"][k]
                     for r in ranks) for k in expected}
     evals = {k: sum(r["eval_cli"]["counts"][k] for r in ranks) for k in expected}
-    return train, evals
+    tp = check_tensor_parallel(ranks, tmp, smi, warm_step_ms,
+                               (ref_loss, ref_norm, ref_records, ref_step),
+                               expected, expected_request)
+    return train, evals, tp
+
+
+def check_tensor_parallel(ranks, tmp: str, smi: str, warm_step_ms: float, ref,
+                          expected: dict, expected_request: dict) -> dict:
+    """Phase 9, tensor parallel: the ranks' dp1 × tp2 results against the
+    1-process float32 step `ref` (loss, clip norm, grouping records; the
+    parameters after the step, the gradients and the initial parameters),
+    the bf16 steps' launches, and the tp = 2 CLI run's checkpoint (the
+    tp = 1 layout) and eval. Returns the launch counts of the path."""
+    import math
+    from segclip_tpu_torch.cli import eval_zeroshot
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.models.segclip import SegCLIP
+
+    ref_loss, ref_norm, ref_records, ref_step = ref
+    losses = [r["tp_f32_loss"] for r in ranks]
+    norms = [r["tp_f32_grad_norm"] for r in ranks]
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    norm_rel = abs(norms[0] - ref_norm) / ref_norm
+    n_near = n_differ = 0
+    for r in range(DP_WORLD):
+        records = torch.load(os.path.join(tmp, f"tp_f32_records_{r}.pt"), weights_only=True)
+        for (hard, _), (hard_ref, margin) in zip(records, ref_records):
+            n_near += int((margin < NEAR_TIE).sum())
+            n_differ += int((hard != hard_ref).any(dim=1).sum())
+    got = torch.load(os.path.join(tmp, "tp_f32_step.pt"), weights_only=True)
+    params, grads = got["params"], got["grads"]
+    check(params.keys() == ref_step["params"].keys(),
+          "the gathered TP parameters' names differ")
+    check(grads.keys() == ref_step["grads"].keys(), "different parameters got gradients")
+    grad_worst = max(((grads[n] - g).abs().max().item() / g.abs().max().item()
+                      if g.abs().max().item() else (grads[n] - g).abs().max().item(), n)
+                     for n, g in ref_step["grads"].items())
+    move_worst, off = (0.0, ""), []
+    for n, p_ref in ref_step["params"].items():
+        move = (p_ref.double() - ref_step["init"][n].double()).abs().max().item()
+        ulp = 2.0 ** (math.frexp(p_ref.abs().max().item())[1] - 24)
+        err = (params[n].double() - p_ref.double()).abs().max().item()
+        if err > TP_MOVE_RTOL * move + ulp:
+            off.append(f"{n}: max |err| {err:.3e}, moved {move:.3e}, one ulp {ulp:.1e}")
+        if move:
+            move_worst = max(move_worst, (err / move, n))
+    print(f"  tensor parallel, dp1 × tp{DP_WORLD} on the same ranks ({smi}): float32 step "
+          f"at 1 × {DP_F32_BATCH} on each rank, injected noise: loss {losses[0]!r} (every "
+          f"rank: {losses[0] == losses[1]}) against {ref_loss!r}, rel {rel:.2e}; clip norm "
+          f"{norms[0]!r} against {ref_norm!r}, rel {norm_rel:.2e} (tol {TP_NORM_RTOL:g}); "
+          f"hard assignments differ on {n_differ} patches ({n_near} near-tie patches); "
+          f"gathered gradients on {len(grads)} tensors, worst {grad_worst[0]:.2e}·max|g| "
+          f"at {grad_worst[1]} (tol {TP_GRAD_RTOL:g}); gathered parameters on "
+          f"{len(params)} tensors, worst {move_worst[0]:.2e}·max|Δ| at {move_worst[1]} "
+          f"(tol {TP_MOVE_RTOL:g}·max|Δ| + 1 ulp)")
+    check(losses[0] == losses[1] and norms[0] == norms[1],
+          f"TP ranks report other losses {losses} or clip norms {norms}")
+    check(rel <= DP_LOSS_RTOL, f"float32 TP loss rel {rel}")
+    check(norm_rel <= TP_NORM_RTOL, f"float32 TP clip norm rel {norm_rel}")
+    check(n_differ == 0, f"TP hard assignments differ on {n_differ} patches")
+    check(grad_worst[0] <= TP_GRAD_RTOL,
+          f"TP gradient of {grad_worst[1]} off by {grad_worst[0]}·max|g|")
+    check(not off, f"TP parameters after the step off: {off[:5]}")
+
+    per_rank = TRAIN_BATCH // DP_WORLD
+    for r, res in enumerate(ranks):
+        tp, dp = res["tp_bf16"], res["bf16"]
+        check(all(c == expected for c in tp["counts"]),
+              f"rank {r}: TP launches per step {tp['counts']}, expected {expected}")
+        check(all(np.isfinite(tp["loss"])) and not any(tp["skipped"]),
+              f"rank {r}: TP losses {tp['loss']} skipped {tp['skipped']}")
+        warm = sorted(tp["ms"][1:])
+        print(f"  bf16, rank {r}: {1 + TRAIN_STEPS} dp1 × tp{DP_WORLD} steps at "
+              f"{per_rank} ({smi}): losses {' '.join(f'{v:.5f}' for v in tp['loss'])}; "
+              f"warm step median {statistics.median(warm):.2f} ms (min {warm[0]:.2f}, "
+              f"max {warm[-1]:.2f}); all-reduced over the model row per step "
+              f"{tp['bytes'][1] / 1e9:.4f} GB ({tp['bytes'][1]} bytes, through the host "
+              f"under gloo); peak memory {tp['peak_mib']:.0f} MiB (data parallel at "
+              f"{per_rank}: {statistics.median(sorted(dp['ms'][1:])):.2f} ms, "
+              f"{dp['peak_mib']:.0f} MiB; phase 4, one rank at {TRAIN_BATCH}: "
+              f"{warm_step_ms:.2f} ms); launches per step {tp['counts'][0]}")
+        check(len(set(tp["bytes"])) == 1, f"rank {r}: bytes per step {tp['bytes']}")
+    check(ranks[0]["tp_bf16"]["loss"] == ranks[1]["tp_bf16"]["loss"]
+          and ranks[0]["tp_bf16"]["checksum"] == ranks[1]["tp_bf16"]["checksum"],
+          "the TP ranks' losses or replicated parameters differ")
+
+    steps = len(ranks[0]["train_tp_cli"]["steps"])
+    for r, res in enumerate(ranks):
+        tc = res["train_tp_cli"]
+        check(all(c == expected for c in tc["steps"]) and len(tc["steps"]) == steps,
+              f"rank {r}: TP train CLI launches per step {tc['steps']}")
+        check(len(tc["requests"]) == (CORPUS_EVAL_N if r == 0 else 0)
+              and all(c == expected_request for c in tc["requests"]),
+              f"rank {r}: TP eval requests {tc['requests']}")
+    run = os.path.join(tmp, "tp_run")
+    logged = read_metrics(run)
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    step_times = [float(t) for t in re.findall(r"Time/step ([0-9.]+)", log)]
+    mious = [m["miou"] for m in logged if "miou" in m]
+    check(f"grid: dp 1 × tp {DP_WORLD}" in log, "the TP run logged no grid")
+    check(sorted(os.listdir(run)) == ["best.json", "ckpt_best", "ckpt_epoch_0", "log.txt",
+                                      "metrics.jsonl"], f"tp run wrote {os.listdir(run)}")
+    check(len([m for m in logged if "loss" in m]) == steps == 2 and len(mious) == 1,
+          f"tp run metrics {logged}")
+    model_pt = os.path.join(run, "ckpt_epoch_0", "model.pt")
+    saved = torch.load(model_pt, weights_only=True)
+    want = {k: tuple(v.shape) for k, v in SegCLIP(ModelConfig()).state_dict().items()}
+    check({k: tuple(v.shape) for k, v in saved.items()} == want,
+          "the TP run's model.pt is not in the tp = 1 layout")
+    del saved
+    single = eval_zeroshot.main(["--dataset", "shapes", "--data-root",
+                                 os.path.join(tmp, "shapes", "eval"), "--init-model",
+                                 model_pt, "--output-dir", os.path.join(tmp, "tp_eval")])
+    print(f"  cli.train --dist-* at train.tensor_parallelism={DP_WORLD} ({DP_WORLD} ranks, "
+          f"dp1 × tp{DP_WORLD}), 1 epoch of phase 6's corpus on rgb ({smi}): {steps} steps "
+          f"of 1 × {TRAIN_BATCH} on each rank, Time/step "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms, the run "
+          f"{ranks[0]['train_tp_cli']['seconds']:.1f} s; final loss "
+          f"{ranks[0]['train_tp_cli']['final_loss']:.5f} on every rank: "
+          f"{ranks[0]['train_tp_cli']['final_loss'] == ranks[1]['train_tp_cli']['final_loss']}"
+          f"; model.pt in the tp = 1 layout ({len(want)} tensors); rank 0's eval mIoU "
+          f"{mious[0]:.4f}; its model.pt in a one-process eval: mIoU {single['mIoU']:.4f}")
+    check(ranks[0]["train_tp_cli"]["final_loss"] == ranks[1]["train_tp_cli"]["final_loss"],
+          "the TP ranks' final losses differ")
+    check(abs(single["mIoU"] - mious[0]) <= SHARDED_MIOU_TOL,
+          f"the TP run's model.pt evaluates to {single['mIoU']}, the run logged {mious[0]}")
+    return {k: sum(sum(c[k] for c in r["tp_bf16"]["counts"]) + r["train_tp_cli"]["counts"][k]
+                   for r in ranks) for k in expected}
 
 
 # Phase 10: the studies (segclip_tpu_torch/studies), each a subprocess on the
@@ -2171,8 +2415,8 @@ def main() -> int:
         cli_counts, cli_c_counts, transport_batches = phase_train_cli(smi, warm_step_ms, tmp)
         demo_counts, model_path = phase_ingest_demo(dev, model, tmp)
         sharded_counts, eval_one, voc = phase_sharded_eval(dev, model, cfg, tmp, model_path)
-        dp_counts, dp_eval_counts = phase_data_parallel(dev, tmp, smi, warm_step_ms, voc,
-                                                        model_path, eval_one)
+        dp_counts, dp_eval_counts, tp_counts = phase_data_parallel(
+            dev, tmp, smi, warm_step_ms, voc, model_path, eval_one)
         studies_counts = phase_studies(smi, tmp)
     phase_transports(dev, smi, transport_batches)
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
@@ -2189,7 +2433,8 @@ def main() -> int:
                    "train_cli": cli_counts[counter],
                    "train_cli_device_aug": cli_c_counts[counter], "demo": demo_counts[counter],
                    "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
-                   "train_dp": dp_counts[counter], "studies": studies_counts[counter]}
+                   "train_dp": dp_counts[counter], "train_tp": tp_counts[counter],
+                   "studies": studies_counts[counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=per_step[counter],

@@ -12,12 +12,18 @@ shared step counter `step_count` (AdaptAdamW keeps it outside
 counters are stored apart because a NaN-skipped step advances the first
 and not the second. A directory is written whole under a temporary name and
 then renamed, so a crash leaves the previous checkpoint as it was.
+
+Under tensor parallelism the files hold the full model and full moments,
+the tp = 1 layout: the loop hands `save_checkpoint` the gathered state
+dicts (`state_dicts`, parallel/gspmd.gather_state_dict) and
+`restore_checkpoint` a function that slices them for this rank (`shard`,
+gspmd.shard_state_dict), so a checkpoint resumes at any tensor parallelism.
 """
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -34,20 +40,24 @@ def _abs(path: str) -> str:
 
 def save_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module,
                     optimizer: AdaptAdamW, state: TrainState,
-                    max_kept: int = -1, name: Optional[str] = None) -> str:
+                    max_kept: int = -1, name: Optional[str] = None,
+                    state_dicts: Optional[Tuple[dict, dict]] = None) -> str:
     """Save the training state under <output_dir>/<name or ckpt_epoch_<epoch>>.
 
     `name` overrides the directory name (e.g. "ckpt_best" for
     train.keep_best — kept outside the ckpt_epoch_* namespace so auto-resume
     and GC never touch it); the payload's epoch still records which epoch
-    produced it."""
+    produced it. `state_dicts` (model, optimizer) replaces the model's and
+    the optimizer's own (the gathered full state of a sharded model)."""
+    model_state, optimizer_state = state_dicts or (model.state_dict(),
+                                                   optimizer.state_dict())
     path = os.path.join(_abs(output_dir), name or f"ckpt_epoch_{epoch}")
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+    torch.save({k: v.detach().cpu() for k, v in model_state.items()},
                os.path.join(tmp, MODEL_FILE))
-    torch.save({"optimizer": optimizer.state_dict(),
+    torch.save({"optimizer": optimizer_state,
                 "optimizer_step_count": optimizer.step_count,
                 "step": state.step, "seed": state.seed, "epoch": epoch},
                os.path.join(tmp, TRAIN_STATE_FILE))
@@ -84,17 +94,24 @@ def auto_resume_path(output_dir: str) -> Optional[str]:
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module, optimizer: AdaptAdamW,
-                       state: TrainState) -> Tuple[TrainState, int]:
+                       state: TrainState,
+                       shard: Optional[Callable[[dict, dict], Tuple[dict, dict]]] = None
+                       ) -> Tuple[TrainState, int]:
     """Load a checkpoint into `model` and `optimizer` in place (each onto
     the device and dtype of its parameters and moments); returns the
-    restored TrainState and the epoch that wrote the checkpoint."""
+    restored TrainState and the epoch that wrote the checkpoint. `shard`
+    maps the saved (model, optimizer) state dicts to this rank's slices."""
     path = _abs(path)
     device = next(model.parameters()).device
-    model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE),
-                                     map_location=device, weights_only=True))
+    model_state = torch.load(os.path.join(path, MODEL_FILE), map_location=device,
+                             weights_only=True)
     saved = torch.load(os.path.join(path, TRAIN_STATE_FILE),
                        map_location=device, weights_only=True)
-    optimizer.load_state_dict(saved["optimizer"])
+    optimizer_state = saved["optimizer"]
+    if shard is not None:
+        model_state, optimizer_state = shard(model_state, optimizer_state)
+    model.load_state_dict(model_state)
+    optimizer.load_state_dict(optimizer_state)
     # Optimizer.load_state_dict casts the moments to the parameters' dtype;
     # AdaptAdamW stores them in its own moment_dtype.
     for moments in optimizer.state.values():

@@ -18,7 +18,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from segclip_tpu_torch.models.layers import LayerNormFP32, ResidualAttentionBlock
+from segclip_tpu_torch.models.layers import (LayerNormFP32, ResidualAttentionBlock,
+                                             VocabParallelEmbedding)
 from segclip_tpu_torch.models.seg_vit import SegViT
 from segclip_tpu_torch.ops.attention import causal_mask
 from segclip_tpu_torch.ops.masking import random_masking
@@ -136,7 +137,8 @@ class CLIPModule(nn.Module):
             cross_layer=cross_layer, tau=tau, compute_dtype=compute_dtype)
         self.transformer = TextTransformer(transformer_width, transformer_layers,
                                            compute_dtype)
-        self.token_embedding = nn.Embedding(vocab_size, transformer_width)
+        # split by vocabulary rows under tensor parallelism (parallel/gspmd.py)
+        self.token_embedding = VocabParallelEmbedding(vocab_size, transformer_width)
         self.positional_embedding = nn.Parameter(
             torch.empty(context_length, transformer_width))
         self.ln_final = LayerNormFP32(transformer_width)

@@ -4,6 +4,14 @@ Parameters are fp32 and named as in the reference torch state dict
 (`ln_1.weight`, `attn.in_proj_weight`, `mlp.c_fc.weight`, …). Activations
 and matmuls run in `compute_dtype`, cast explicitly where the JAX code casts;
 LayerNorm computes in fp32.
+
+Under tensor parallelism (parallel/gspmd.py) an attention, an MLP and the
+token embedding hold their slices of the sharded weights, and their
+`model_group` is the model row: the attention and the first MLP layer take
+their input through `copy_to_model_group`, the output projection and the
+second MLP layer sum their partial products with `reduce_from_model_group`
+before the replicated bias. With no group (tensor parallelism 1) they run
+as before, with no added op.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ import torch.nn.functional as F
 
 from segclip_tpu_torch.ops.attention import multi_head_attention
 from segclip_tpu_torch.ops.layers import layer_norm, quick_gelu
+from segclip_tpu_torch.parallel.gspmd import (copy_to_model_group,
+                                              reduce_from_model_group,
+                                              vocab_parallel_embedding)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -39,12 +50,14 @@ class LayerNormFP32(nn.Module):
 class MHAttention(nn.Module):
     """Packed-QKV multi-head attention (self or cross), torch
     nn.MultiheadAttention's parameter names. `route` is the attention
-    route of ops/attention.py: "kernel" (64-dim heads) or "plain"."""
+    route of ops/attention.py: "kernel" (64-dim heads) or "plain". `heads`
+    is this rank's head count (all of them unless sharded)."""
 
     def __init__(self, width: int, heads: int, compute_dtype=torch.bfloat16,
                  route: str = "kernel"):
         super().__init__()
         self.heads = heads
+        self.model_group = None
         self.compute_dtype = compute_dtype
         self.route = route
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
@@ -56,7 +69,8 @@ class MHAttention(nn.Module):
         return multi_head_attention(
             q_in, kv_in, self.in_proj_weight, self.in_proj_bias,
             self.out_proj.weight, self.out_proj.bias, self.heads, bias=bias,
-            compute_dtype=self.compute_dtype, route=self.route)
+            compute_dtype=self.compute_dtype, route=self.route,
+            model_group=self.model_group)
 
 
 class Mlp(nn.Module):
@@ -73,14 +87,38 @@ class Mlp(nn.Module):
         self.act = act
         self.compute_dtype = compute_dtype
         self.names = names
+        self.model_group = None
         self.add_module(names[0], nn.Linear(width, hidden))
         self.add_module(names[1], nn.Linear(hidden, width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc, proj = (getattr(self, n) for n in self.names)
-        x = linear(x, fc, self.compute_dtype)
+        cd = self.compute_dtype
+        if self.model_group is not None:
+            x = copy_to_model_group(x.to(cd), self.model_group)
+        x = linear(x, fc, cd)
         x = quick_gelu(x) if self.act == "quick_gelu" else F.gelu(x)
-        return linear(x, proj, self.compute_dtype)
+        if self.model_group is None:
+            return linear(x, proj, cd)
+        x = reduce_from_model_group(x.to(cd) @ proj.weight.to(cd).t(), self.model_group)
+        return x + proj.bias.to(cd)
+
+
+class VocabParallelEmbedding(nn.Embedding):
+    """nn.Embedding whose table may be split by rows over the model row:
+    then this rank holds rows [vocab_start, vocab_start + its rows) and the
+    lookup is gspmd.vocab_parallel_embedding."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int):
+        super().__init__(num_embeddings, embedding_dim)
+        self.model_group = None
+        self.vocab_start = 0
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.model_group is None:
+            return super().forward(ids)
+        return vocab_parallel_embedding(ids, self.weight, self.vocab_start,
+                                        self.model_group)
 
 
 class ResidualAttentionBlock(nn.Module):

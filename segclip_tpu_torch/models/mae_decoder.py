@@ -59,6 +59,7 @@ class TimmAttention(nn.Module):
         super().__init__()
         self.heads = heads
         self.compute_dtype = compute_dtype
+        self.model_group = None           # the model row when sharded (parallel/gspmd.py)
         self.qkv = nn.Linear(width, 3 * width)
         self.proj = nn.Linear(width, width)
 
@@ -67,7 +68,7 @@ class TimmAttention(nn.Module):
         return multi_head_attention(x, None, self.qkv.weight, self.qkv.bias,
                                     self.proj.weight, self.proj.bias, self.heads,
                                     bias=bias, compute_dtype=self.compute_dtype,
-                                    route="plain")
+                                    route="plain", model_group=self.model_group)
 
 
 class MAEBlock(nn.Module):

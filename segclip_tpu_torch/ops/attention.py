@@ -19,6 +19,12 @@ softmax(qkᵀ)v, chosen by the module that owns the attention:
     computes those in XLA outside its Pallas kernel
     (segclip_tpu/ops/attention.py:121-129). `plain_route.calls` counts its
     calls the way the kernels count their launches.
+
+Under tensor parallelism (`model_group`, parallel/gspmd.py) the weights are
+this rank's heads: the in-projection (3·d_local, d) holds q | k | v of those
+heads, so the split is by its rows, `num_heads` is the local count, the
+inputs come through `copy_to_model_group` and the output projection's
+partial products are summed by `reduce_from_model_group` before its bias.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from segclip_tpu_torch.ops.kernels.attention import (
     HEAD_DIM, merge_heads, split_heads, attention, sdpa)
+from segclip_tpu_torch.parallel.gspmd import copy_to_model_group, reduce_from_model_group
 
 ROUTES = ("kernel", "plain")
 
@@ -81,17 +88,22 @@ def multi_head_attention(q_in: torch.Tensor, kv_in: Optional[torch.Tensor],
                          out_proj_bias: torch.Tensor, num_heads: int,
                          bias: Optional[torch.Tensor] = None,
                          compute_dtype=torch.bfloat16,
-                         route: str = "kernel") -> torch.Tensor:
+                         route: str = "kernel", model_group=None) -> torch.Tensor:
     """Packed-projection MHA: self-attention when kv_in is None, else
     cross-attention with the packed weight split into Wq | Wk,v as torch's
     in_proj split. bias: None, (Lq, Lk), or (B, 1, 1, Lk). route: "kernel"
-    (64-dim heads) or "plain" (any head dim)."""
+    (64-dim heads) or "plain" (any head dim). model_group: the model row
+    when the weights are this rank's heads (module docstring)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-    d = q_in.shape[-1]
+    d = in_proj_weight.shape[0] // 3
     w = in_proj_weight.to(compute_dtype)
     bqkv = in_proj_bias.to(compute_dtype)
     q_in = q_in.to(compute_dtype)
+    if model_group is not None:
+        q_in = copy_to_model_group(q_in, model_group)
+        if kv_in is not None:
+            kv_in = copy_to_model_group(kv_in.to(compute_dtype), model_group)
     if kv_in is None:
         qkv = q_in @ w.t() + bqkv
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
@@ -102,5 +114,8 @@ def multi_head_attention(q_in: torch.Tensor, kv_in: Optional[torch.Tensor],
         k, v = kv[..., :d], kv[..., d:]
     attend = _attend if route == "kernel" else plain_route
     o = attend(q, k, v, num_heads, bias)
-    return o @ out_proj_weight.to(compute_dtype).t() + \
-        out_proj_bias.to(compute_dtype)
+    if model_group is None:
+        return o @ out_proj_weight.to(compute_dtype).t() + \
+            out_proj_bias.to(compute_dtype)
+    o = reduce_from_model_group(o @ out_proj_weight.to(compute_dtype).t(), model_group)
+    return o + out_proj_bias.to(compute_dtype)

@@ -21,6 +21,16 @@ backend is NCCL when every rank of a host has a card of its own, and gloo
 otherwise: on the CPU, or when ranks share a card (NCCL refuses two ranks on
 one device). Gloo's collectives here go through host copies of CUDA
 tensors (`all_reduce_`), so one code path serves both backends.
+
+The data × model rank grid of tensor parallelism (`init_grid`, the
+counterpart of segclip_tpu/parallel/gspmd.py's `make_dp_tp_mesh`): rank r
+sits at data index r // tp and model index r % tp, as the JAX mesh's
+reshape puts device r. A model row (the tp ranks of one data index) holds
+one replica of the model, sharded; a data column (the ranks of one model
+index) holds the same shard of every replica. `data_group()` and
+`model_group()` are the process groups of this rank's column and row, and
+`data_rank/_size`, `model_rank/_size` its place in them; with no grid the
+data group is the whole world and the model group this rank alone.
 """
 from __future__ import annotations
 
@@ -47,6 +57,63 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
+
+
+class _Grid:
+    """This rank's data column and model row: their groups, ranks, sizes."""
+
+    def __init__(self, tp: int):
+        world, me = world_size(), rank()
+        dp = world // tp
+        # every rank creates every group, in the same order (new_group is a
+        # collective over the whole world)
+        rows = [dist.new_group([d * tp + m for m in range(tp)]) for d in range(dp)]
+        cols = [dist.new_group([d * tp + m for d in range(dp)]) for m in range(tp)]
+        self.data_rank, self.model_rank = divmod(me, tp)
+        self.data_size, self.model_size = dp, tp
+        self.data_group, self.model_group = cols[self.model_rank], rows[self.data_rank]
+
+
+_grid: Optional[_Grid] = None
+
+
+def init_grid(tp: int) -> None:
+    """Split the world into world // tp data indices × tp model indices
+    (module docstring); tp = 1 leaves no grid. Raises when tp does not
+    divide the world size. Every rank must call it."""
+    global _grid
+    world = world_size()
+    if tp < 1 or world % tp:
+        raise ValueError(f"train.tensor_parallelism={tp} must divide the world size "
+                         f"({world})")
+    _grid = _Grid(tp) if tp > 1 else None
+
+
+def data_group():
+    """The process group of this rank's data column; None (the world) with no grid."""
+    return _grid.data_group if _grid else None
+
+
+def model_group():
+    """The process group of this rank's model row; None with no grid: then
+    there is no model row (None does not stand for the world here)."""
+    return _grid.model_group if _grid else None
+
+
+def data_rank() -> int:
+    return _grid.data_rank if _grid else rank()
+
+
+def data_size() -> int:
+    return _grid.data_size if _grid else world_size()
+
+
+def model_rank() -> int:
+    return _grid.model_rank if _grid else 0
+
+
+def model_size() -> int:
+    return _grid.model_size if _grid else 1
 
 
 def _init_method(coordinator: str) -> str:
@@ -113,7 +180,9 @@ def init_distributed(device: Optional[str] = None, coordinator: Optional[str] = 
 
 
 def shutdown() -> None:
-    """Destroy the process group, if one was started."""
+    """Destroy the process group and the grid, if they were started."""
+    global _grid
+    _grid = None
     if is_initialized():
         dist.destroy_process_group()
 
@@ -122,30 +191,45 @@ def backend() -> Optional[str]:
     return dist.get_backend() if is_initialized() else None
 
 
-def _wire() -> str:
+def wire_device() -> str:
     """The device type the backend's collectives take."""
     return "cuda" if backend() == "nccl" else "cpu"
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` across the ranks, in place, and return it. Under gloo a CUDA
-    tensor goes through a host copy; under NCCL a CPU tensor through a copy
-    on this rank's card."""
-    if world_size() == 1:
+def _size(group) -> int:
+    return world_size() if group is None else dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` across the ranks of `group` (None: the world), in place, and
+    return it. Under gloo a CUDA tensor goes through a host copy; under NCCL
+    a CPU tensor through a copy on this rank's card."""
+    if _size(group) == 1:
         return t
-    if t.device.type == _wire():
-        dist.all_reduce(t)
+    if t.device.type == wire_device():
+        dist.all_reduce(t, group=group)
         return t
-    buf = t.to(_wire())
-    dist.all_reduce(buf)
+    buf = t.to(wire_device())
+    dist.all_reduce(buf, group=group)
     return t.copy_(buf)
+
+
+def all_gather(t: torch.Tensor, group=None) -> list:
+    """`t` of every rank of `group` (None: the world), in group rank order,
+    on `t`'s device; every rank must give the same shape."""
+    if _size(group) == 1:
+        return [t]
+    buf = t.to(wire_device()).contiguous()
+    out = [torch.empty_like(buf) for _ in range(_size(group))]
+    dist.all_gather(out, buf, group=group)
+    return [o.to(t.device) for o in out]
 
 
 def broadcast_float(value: float, src: int = 0) -> float:
     """`value` on rank `src`, on every rank."""
     if world_size() == 1:
         return value
-    t = torch.tensor([value], dtype=torch.float64, device=_wire())
+    t = torch.tensor([value], dtype=torch.float64, device=wire_device())
     dist.broadcast(t, src=src)
     return float(t.item())
 
@@ -159,7 +243,11 @@ def warmup() -> None:
     """One small all-reduce and a barrier while every rank is at the same
     point: the first collective pays the communicators' set-up, and it must
     not be the first training step, behind each rank's worker spawn and
-    first-batch decode (segclip_tpu/train/loop.py:153-160)."""
+    first-batch decode (segclip_tpu/train/loop.py:153-160). With a grid,
+    one over each of this rank's groups too."""
     if world_size() > 1:
         all_reduce_(torch.zeros(1))
+        if _grid:
+            all_reduce_(torch.zeros(1), _grid.data_group)
+            all_reduce_(torch.zeros(1), _grid.model_group)
         barrier()

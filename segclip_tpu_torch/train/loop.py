@@ -19,10 +19,20 @@ the same branch. A warm-up collective runs before the first step.
 spanning all `train.epochs`, and best.json carries keep_best's running
 best across segments.
 
-Refused with a message rather than run otherwise: tensor parallelism
-(ROADMAP.md) and a `train.data_parallelism` other than -1 or the world
-size. `data.packed_transfer` has no meaning here (each field is copied
-through pinned memory) and is ignored.
+`train.tensor_parallelism` = T > 1 (segclip_tpu/train/loop.py:103-125,
+270-281): the world is split into world // T data indices × T model ranks
+(parallel/dist.init_grid), and after the init, `--init-model` or resume the
+model is sharded over its model row (parallel/gspmd.shard_model_). Each
+rank loads its data index's shard of every batch, so the ranks of a row
+step on the same rows. Before each checkpoint every rank gathers the full
+state and rank 0 writes it in the tp = 1 layout, so a checkpoint resumes
+at any tensor parallelism; before the per-epoch eval they gather the model
+and rank 0 evaluates a full copy of it.
+
+Refused with a message rather than run otherwise: a tensor parallelism
+that does not divide the world size, and a `train.data_parallelism` other
+than -1 or world // tensor parallelism. `data.packed_transfer` has no
+meaning here (each field is copied through pinned memory) and is ignored.
 """
 from __future__ import annotations
 
@@ -37,8 +47,8 @@ from segclip_tpu_torch.checkpoint.io import (auto_resume_path, restore_checkpoin
                                              save_checkpoint)
 from segclip_tpu_torch.config import Config
 from segclip_tpu_torch.data.pipeline import BatchLoader, ShardedEpochSampler, build_dataset
-from segclip_tpu_torch.models.segclip import init_segclip
-from segclip_tpu_torch.parallel import dist
+from segclip_tpu_torch.models.segclip import SegCLIP, init_segclip
+from segclip_tpu_torch.parallel import dist, gspmd
 from segclip_tpu_torch.parallel.prefetch import prefetch_to_device
 from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 from segclip_tpu_torch.utils.device import resolve_device
@@ -49,15 +59,14 @@ from segclip_tpu_torch.utils.profiling import trace_if
 def check_supported(cfg: Config) -> None:
     """Raise for the settings whose paths the port does not have."""
     t = cfg.train
-    if t.tensor_parallelism != 1:
-        raise ValueError(f"train.tensor_parallelism={t.tensor_parallelism} is not "
-                         f"ported yet (ROADMAP.md: it needs two or more cards with "
-                         f"NCCL)")
-    world = dist.world_size()
-    if t.data_parallelism not in (-1, world):
+    world, tp = dist.world_size(), t.tensor_parallelism
+    if tp < 1 or world % tp:
+        raise ValueError(f"train.tensor_parallelism={tp} must divide the world size "
+                         f"({world})")
+    if t.data_parallelism not in (-1, world // tp):
         raise ValueError(f"train.data_parallelism={t.data_parallelism} must be -1 or "
-                         f"the world size, {world}: start that many processes with "
-                         f"the --dist-* flags (README.md)")
+                         f"the world size, {world}, over train.tensor_parallelism={tp}: "
+                         f"start that many processes with the --dist-* flags (README.md)")
 
 
 def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
@@ -74,6 +83,8 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
     check_supported(cfg)
     device = resolve_device(device)
     rank, world = dist.rank(), dist.world_size()
+    tp = cfg.train.tensor_parallelism
+    dist.init_grid(tp)
     logger = get_logger(cfg.train.output_dir if rank == 0 else None)
     metrics_writer = MetricWriter(cfg.train.output_dir) if rank == 0 else None
     if cfg.data.packed_transfer:
@@ -87,8 +98,10 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
         patch_size=cfg.model.vision_patch_size,
         emit_class_ids=cfg.model.infonce_mask != "none")
     dataset = factory()
-    sampler = ShardedEpochSampler(len(dataset), cfg.data.batch_size, shard=rank,
-                                  num_shards=world, seed=cfg.train.seed)
+    # the ranks of a model row load the same shard
+    sampler = ShardedEpochSampler(len(dataset), cfg.data.batch_size,
+                                  shard=dist.data_rank(), num_shards=dist.data_size(),
+                                  seed=cfg.train.seed)
     num_workers = cfg.data.num_workers
     if num_workers < 0:
         num_workers = max(1, (os.cpu_count() or 1) - 1)
@@ -113,6 +126,13 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
             model = init_segclip(cfg.model, seed=cfg.train.seed, device=device)
         n_params = sum(p.numel() for p in model.parameters())
         logger.info("model parameters: %.1fM", n_params / 1e6)
+        shard = None
+        if tp > 1:
+            gspmd.shard_model_(model)
+            shard = functools.partial(gspmd.shard_state_dict, model)
+            logger.info("grid: dp %d × tp %d (backend %s), %.1fM parameters on this rank",
+                        dist.data_size(), tp, dist.backend(),
+                        sum(p.numel() for p in model.parameters()) / 1e6)
         optimizer = create_optimizer(model, cfg, t_total)
         step_fn = make_train_step(model, optimizer, cfg)
         state = TrainState(step=0, seed=cfg.train.seed)
@@ -121,7 +141,8 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
         if resume:
             path = cfg.train.resume or auto_resume_path(cfg.train.output_dir)
             if path:
-                state, last_epoch = restore_checkpoint(path, model, optimizer, state)
+                state, last_epoch = restore_checkpoint(path, model, optimizer, state,
+                                                       shard=shard)
                 start_epoch = last_epoch + 1
                 logger.info("resumed from %s → epoch %d", path, start_epoch)
 
@@ -173,13 +194,33 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
         best = dist.broadcast_float(
             float(_read_best(cfg.train.output_dir)["miou"]) if lead else -1.0)
 
+    sharded = cfg.train.tensor_parallelism > 1
+
     def save(epoch, name=None):
         path = None
+        # a collective under tensor parallelism: every rank gathers
+        full = gspmd.gather_state_dict(model, optimizer.state_dict()) if sharded else None
         if lead:
             path = save_checkpoint(cfg.train.output_dir, epoch, model, optimizer, state,
-                                   name=name)
+                                   name=name, state_dicts=full)
         dist.barrier()
         return path
+
+    full_copy = []
+
+    def eval_model():
+        """The model to evaluate on rank 0: under tensor parallelism one full
+        copy, loaded each epoch from the gathered state (every rank
+        gathers), else the model."""
+        if not sharded:
+            return model
+        full, _ = gspmd.gather_state_dict(model)
+        if not lead:
+            return None
+        if not full_copy:
+            full_copy.append(SegCLIP(cfg.model).to(device).eval())
+        full_copy[0].load_state_dict(full)
+        return full_copy[0]
 
     for epoch in epochs:
         t_start = time.time()
@@ -218,9 +259,10 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
         if eval_fn is not None and cfg.train.eval_each_epoch:
             # rank 0 evaluates; the others wait at the broadcast
             miou = float("nan")
+            evaluated = eval_model()
             if lead:
                 try:
-                    miou = float(eval_fn(model))
+                    miou = float(eval_fn(evaluated))
                 except Exception as e:           # eval must not kill training
                     logger.warning("per-epoch eval failed: %s: %s", type(e).__name__, e,
                                    exc_info=True)

@@ -21,6 +21,8 @@ from typing import Callable, Dict, Iterable
 
 import torch
 
+from segclip_tpu_torch.parallel.dist import all_reduce_
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -108,14 +110,29 @@ class AdaptAdamW(torch.optim.Optimizer):
 
 
 def global_norm_clip(params: Iterable[torch.nn.Parameter],
-                     max_norm: float) -> torch.Tensor:
+                     max_norm: float, model_group=None) -> torch.Tensor:
     """clip_grad_norm_ with the reference's formula: every gradient times
     min(1, max_norm / (‖g‖ + 1e-6)), ‖g‖ the fp32 global norm. Returns ‖g‖
-    (a 0-d tensor on the gradients' device)."""
-    grads = [p.grad for p in params if p.grad is not None]
+    (a 0-d tensor on the gradients' device).
+
+    Under tensor parallelism (`model_group`, the model row; None without
+    one, parallel/dist.model_group()) the squares of
+    the sharded gradients (parameters with `model_shard`,
+    parallel/gspmd.py) are summed over the row once, and the replicated
+    ones, equal on every rank, count once: the norm of the full gradient,
+    as JAX's global norm of the sharded tree."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
     if not grads:
         return torch.zeros(())
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    if model_group is None:
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    else:
+        sums = [torch.zeros((), device=grads[0].device) for _ in range(2)]
+        for p in params:
+            sums[hasattr(p, "model_shard")] += p.grad.float().square().sum()
+        replicated, sharded = sums
+        norm = torch.sqrt(all_reduce_(sharded, model_group) + replicated)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))

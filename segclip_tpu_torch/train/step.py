@@ -16,11 +16,18 @@ gradients and the losses are averaged across ranks (its `pmean`) in one
 flat all-reduce each, before the clip and before the NaN check, so that
 every rank takes the same branch and the replicas stay equal.
 
+Tensor parallel (train.tensor_parallelism > 1, parallel/gspmd.py), as the
+JAX GSPMD step: each model row runs one data shard with the model's
+Megatron-sharded layers; the gradients and the losses are averaged over the
+data column, the clip norm sums the sharded gradients' squares over the
+model row once, and every rank of a row sees the same loss, so all take the
+same NaN branch.
+
 The Gumbel and masking noise comes from a torch.Generator on the device,
-seeded by (seed, step, rank) (the JAX step folds in the axis index), so a
-step is reproducible; at rank 0 the seed is (seed, step) alone, as at world
-size 1. It is not the JAX package's stream (tests inject the same noise
-into both). The model
+seeded by (seed, step, data rank) (the JAX step folds in the axis index),
+so a step is reproducible and the ranks of a model row draw the same noise;
+at data rank 0 the seed is (seed, step) alone, as at world size 1. It is
+not the JAX package's stream (tests inject the same noise into both). The model
 and the optimizer are updated in place; `TrainState` carries the step and
 the seed. Frozen parameters have requires_grad=False (param_groups.freeze),
 so they get no gradient and no share of the clip norm, as the JAX step's
@@ -40,7 +47,7 @@ from segclip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from segclip_tpu_torch.models.segclip import SegCLIP
 from segclip_tpu_torch.ops.device_aug import crop_resize_batch, yuv420_to_rgb
 from segclip_tpu_torch.parallel.collectives import mean_across_ranks_, rank_of
-from segclip_tpu_torch.parallel.dist import world_size
+from segclip_tpu_torch.parallel.dist import data_size, model_group
 from segclip_tpu_torch.train.optimizer import AdaptAdamW, global_norm_clip
 from segclip_tpu_torch.train.param_groups import freeze, param_groups
 
@@ -111,14 +118,15 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
     Updates the model, the optimizer and state.step in place. `noise` (the
     keys of models.segclip.NOISE_KEYS, at micro-batch size) replaces the
     draws in every micro-batch; it is for tests. In a process group the
-    batch is this rank's shard, and the metrics are the means over the
-    ranks."""
+    batch is this rank's data shard, and the metrics are the means over the
+    data ranks."""
     accum = cfg.train.grad_accum_steps
     max_norm = cfg.optim.max_grad_norm
     resolution = cfg.model.image_resolution
     params = [p for p in model.parameters() if p.requires_grad]
     logit_scale = model.clip.logit_scale
-    world, rank = world_size(), rank_of()
+    world, rank = data_size(), rank_of()
+    row = model_group()
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              noise: Optional[Dict[str, torch.Tensor]] = None
@@ -158,7 +166,7 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
             mean_across_ranks_([values])
             metrics = dict(zip(keys, values.unbind()))
 
-        metrics["grad_norm"] = global_norm_clip(params, max_norm)
+        metrics["grad_norm"] = global_norm_clip(params, max_norm, row)
         skipped = bool(torch.isnan(metrics["loss"]))
         if not skipped:
             optimizer.step()

@@ -6,7 +6,7 @@ A fresh interpreter imports only segclip_tpu_torch, runs a tiny
 encode_image, encode_text and predict, and a tiny training step on a batch
 of each transport, on the CPU, imports the loop, the train CLI and
 prepare_data and runs the native superpixels, loads a checkpoint through load_model and imports the demo,
-the process-group plumbing, the sharded evaluator, the five studies and
+the process-group plumbing and tensor parallelism, the sharded evaluator, the five studies and
 the profiling helpers, and must end with no module of segclip_tpu, jax or
 flax in sys.modules. An AST scan holds every file of the port, and
 chip_smoke.py, to importing nothing of segclip_tpu, and the studies to
@@ -78,6 +78,7 @@ import segclip_tpu_torch.cli.prepare_data, segclip_tpu_torch.cli.train
 import segclip_tpu_torch.train.loop
 import segclip_tpu_torch.cli.demo, segclip_tpu_torch.cli.eval_zeroshot
 import segclip_tpu_torch.evalseg.visualize, segclip_tpu_torch.parallel.dist
+import segclip_tpu_torch.parallel.gspmd
 from segclip_tpu_torch.evalseg.inference import evaluate_dataset_sharded
 import segclip_tpu_torch.studies.classprobe, segclip_tpu_torch.studies.spatial_margin_probe
 import segclip_tpu_torch.studies.holdout_study, segclip_tpu_torch.studies.eval_ipd_study

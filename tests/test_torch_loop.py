@@ -416,14 +416,14 @@ def test_eval_under_compute_dtype_shares_the_training_parameters(tmp_path):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--opts", "train.tensor_parallelism=2"], "ROADMAP.md"),
+    (["--opts", "train.tensor_parallelism=2"], r"must divide the world size \(1\)"),
     (["--opts", "train.data_parallelism=2"], "world size, 1"),
     (["--dist-coordinator", "localhost:1234"], "--dist-num-processes")],
     ids=["tp", "dp", "dist"])
 def test_unported_settings_raise_naming_the_roadmap(tmp_path, extra, match):
-    """Tensor parallelism, the one setting not ported, names ROADMAP.md; a
-    data parallelism other than the world size, and an incomplete --dist-*
-    triple, are refused before any rendezvous."""
+    """A tensor parallelism that does not divide the world size, a data
+    parallelism other than world // tensor parallelism, and an incomplete
+    --dist-* triple are refused before any step or rendezvous."""
     with pytest.raises(ValueError, match=match):
         train_cli.main(["--device", "cpu", "--datatype", "synthetic", "--batch-size", "4",
                         "--epochs", "1", "--output-dir", str(tmp_path)] + extra)

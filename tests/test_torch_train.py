@@ -434,7 +434,7 @@ def test_collectives_are_the_identity_at_world_size_one(monkeypatch):
     rank's rows in a (world·B, …) buffer and its backward keeps them."""
     x = torch.arange(6.0).reshape(3, 2)
     assert collectives.global_gather(x) is x and collectives.rank_of() == 0
-    monkeypatch.setattr(collectives, "world_size", lambda: 2)
+    monkeypatch.setattr(collectives, "data_size", lambda: 2)
     leaf = x.clone().requires_grad_()
     gathered = collectives.global_gather(leaf)
     assert gathered.shape == (6, 2) and torch.equal(gathered[:3], x)
