@@ -1,15 +1,17 @@
 """Drive the PyTorch port's zero-shot segmentation path, its training step,
 pretraining through the CLI on its three input transports, checkpoint
 ingest, the demo, the sharded evaluator, data- and tensor-parallel
-training, the studies that load a model and the device-side transforms on
-one CUDA card (an H100), and check them.
+training, the studies that load a model, the device-side transforms and
+block rematerialisation with the JAX package's memory-bound training
+configurations on one CUDA card (an H100), and check them.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
 
   1. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, at every shape of both paths, in float32 (TF32 off) and bfloat16,
+     card, at every shape of both paths (phase 12's configurations
+     included), in float32 (TF32 off) and bfloat16,
      with the tolerance stated beside each, and the time per call by CUDA
      events: the attention forward (eval shapes, and training shapes with P
      saved), the attention backward, the eval grouping and the Gumbel
@@ -89,13 +91,29 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      scale) and `crop_resize_batch` over wide and transposed samples (card
      vs CPU within one uint8 level, at most a 1e-3 share of values apart),
      each with its device ms per call by CUDA events beside its bound;
+ 12. remat (ModelConfig.remat) and the large configurations, bf16 from
+     seeded inits on phase 4's synthetic batch at each size: ViT-B/16 at
+     B = 96 with and without remat (losses and the first step's gradients
+     before the optimizer within phase 6's resume tolerances, bit for bit
+     expected and printed; warm step time, peak memory, launches per step
+     equal to the path's count with the recompute), and the float32 B = 2
+     step with remat on the card against phase 5's CPU step; B = 256 both
+     ways and B = 512 with remat (under the card's memory; B = 512 without
+     remat estimated, not run); ViT-L/14 at B = 32 both ways and ViT-B/16
+     at 448 px, B = 24 (finite losses that fall); each step's kernel shapes
+     among phase 1's; run M's recipe (scripts/runM_batch192.sh, B = 192,
+     remat) through cli.train in two --do-resume calls of one epoch on a
+     192-scene corpus (launches, model.pt in the tp = 1 layout evaluating
+     to the logged mIoU); and, in phase 9's ranks, the dp1 × tp2 bf16 steps
+     again with remat (losses against those without, bytes all-reduced per
+     step);
 then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
 kernel names), at the phase-1 shapes, each beside its bound
-(segclip_tpu_torch/ops/kernels/bounds.py); a profile of three warm requests
-and of one training step. The build prints each kernel's registers and
-spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
+(segclip_tpu_torch/ops/kernels/bounds.py); a profile of three warm requests,
+of one training step and of one B = 512 step with remat. The build prints
+each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
 instructions (HMMA) in each kernel; the bf16 attention kernels and the
 bf16 grouping kernel must have some. The profiles list the port's own
 kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
@@ -112,8 +130,10 @@ and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
 "train_cli" (phase 6's run A), "train_cli_device_aug" (phase 6's run C,
 both segments), "demo" (phase 7), "eval_sharded" (phase 8,
 both ranks of its CLI run included), "train_dp" (phase 9, both ranks),
-"train_tp" (phase 9's dp1 × tp2 steps and CLI run, both ranks) and
-"studies" (phase 10, every study)), and as its last line
+"train_tp" (phase 9's dp1 × tp2 steps, with and without remat, and CLI
+run, both ranks), "studies" (phase 10, every study), "train_remat" (phase
+12's B = 96 and 256 runs, both ways), "train_b512", "train_l14",
+"train_448" and "train_cli_runM" (phase 12)), and as its last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -231,6 +251,32 @@ GROUP_ST_CASES = (
 )
 TRAIN_BATCH = 96            # the JAX bench's per-chip batch
 TRAIN_STEPS = 5             # timed, after one cold step
+# Phase 12: the JAX package's training configurations that need memory
+# (scripts/grouping_ab.py:13-18, "b256", "l14" and "res448";
+# scripts/runM_batch192.sh, run M) and its largest recorded batch, each
+# from a seeded init on phase 4's synthetic batch at its size, bf16:
+# name → (CLIP arch, ModelConfig overrides, batch). Phase 1 checks each
+# one's training shapes (`step_shapes`) and profiles LARGE_PROFILED's.
+LARGE_CONFIGS = {
+    "b512": ("ViT-B/16", {}, 512),
+    "b256": ("ViT-B/16", {}, 256),
+    "runM": ("ViT-B/16", {}, 192),
+    "l14": ("ViT-L/14", {}, 32),
+    "448": ("ViT-B/16", {"image_resolution": 448}, 24),
+}
+LARGE_PROFILED = ("b512", "l14", "448")
+LARGE_STEPS = 3             # timed, after one cold step
+LARGE_REPS = 10             # CUDA-event calls per phase-1 time at these shapes
+# Remat against no remat at B = 96: bit for bit is expected (the same ops
+# on the same inputs; no port kernel has float atomics). Held to phase 6's
+# resume tolerances: each loss within RESUME_LOSS_RTOL of itself, and the
+# first step's gradients before the optimizer, per tensor, within
+# REMAT_GRAD_RTOL·max|g| (an order of fp32 rounding).
+REMAT_GRAD_RTOL = 1e-6
+# Run M through cli.train: scripts/runM_batch192.sh's options at B = 192,
+# its corpus cut to RUNM_TRAIN_N scenes (two captions each: two steps per
+# epoch) and its 6 epochs to RUNM_EPOCHS, one per call.
+RUNM_TRAIN_N, RUNM_EPOCHS = 192, 2
 # Tolerances, kernel against plain on the same inputs (bf16 distances in
 # ulps of the plain value, as segclip_tpu_torch/ops/kernels/checks.py
 # defines them and explains the attention bound):
@@ -552,9 +598,16 @@ def training_kernels(dev, gen, summary, timings) -> None:
     from segclip_tpu_torch.ops.kernels.grouping import (group_assign_fwd,
                                                         group_assign_st_plain)
 
+    large_attn, large_gumbel, profiled = (), (), set()
+    for name, (_, _, b) in LARGE_CONFIGS.items():
+        attn, gumbel = step_shapes(name, large_config(name, True), b)
+        large_attn, large_gumbel = large_attn + attn, large_gumbel + gumbel
+        if name in LARGE_PROFILED:                  # the vision and cross blocks, both paths
+            profiled.update(c[0] for c in attn[:2] + gumbel)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
-        for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES:
+        for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES + large_attn:
+            reps = LARGE_REPS if case in large_attn else 50
             q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
             out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
             ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
@@ -584,13 +637,16 @@ def training_kernels(dev, gen, summary, timings) -> None:
             fwd_plain = functools.partial(attention_fwd_plain, q, k, v, b2, bb)
             bwd = functools.partial(attention_bwd, p, do, q, k, v)
             bwd_plain = functools.partial(attention_bwd_plain, p, do, q, k, v)
+            times = [call_ms(f, reps=reps) for f in (fwd, fwd_plain, bwd, bwd_plain)]
             print(f"  attention {case[0]:34s} {dname:8s} fwd err {out_err:.3e}, P err "
                   f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
-                  f"{note}  fwd {call_ms(fwd):.4f} / {call_ms(fwd_plain):.4f} ms, bwd "
-                  f"{call_ms(bwd):.4f} / {call_ms(bwd_plain):.4f} ms")
+                  f"{note}  fwd {times[0]:.4f} / {times[1]:.4f} ms, bwd "
+                  f"{times[2]:.4f} / {times[3]:.4f} ms")
             if case in TRAIN_DP_ATTN_CASES or (case in TRAIN_TP_ATTN_CASES
-                                               and case[1] != TRAIN_BATCH):
-                continue                               # checked above; profiled at B = 96
+                                               and case[1] != TRAIN_BATCH) or (
+                    case in large_attn and not (case[0] in profiled
+                                                and dtype == torch.bfloat16)):
+                continue               # checked above; profiled at B = 96 and LARGE_PROFILED
             _, b, lq, lk, h, bias, _ = case
             timings.append(dict(
                 name=f"attention fwd+P {case[0]} {dname}", kernel=fwd, plain=fwd_plain,
@@ -611,7 +667,8 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                     for g, r in zip(grads, grads_ref)),
                     timing=len(timings) - 1)
 
-        for name, n, g, l, d in GROUP_ST_CASES:
+        for name, n, g, l, d in GROUP_ST_CASES + large_gumbel:
+            reps = LARGE_REPS if name in {c[0] for c in large_gumbel} else 50
             q = torch.randn(n, g, d, generator=gen, device=dev).to(dtype)
             k = torch.randn(n, l, d, generator=gen, device=dev).to(dtype)
             v = torch.randn(n, l, d, generator=gen, device=dev).to(dtype)
@@ -643,20 +700,22 @@ def training_kernels(dev, gen, summary, timings) -> None:
             print(f"  gumbel grouping {name:28s} {dname:8s} soft err {soft_err:.3e} y_soft "
                   f"err {y_err:.3e} out err {out_err:.3e}{out_note}; hard differs on "
                   f"{int(differ.sum())} patches, {n_near} near-tie patches; run twice "
-                  f"bit-identical: {same}  {call_ms(kernel):.4f} / {call_ms(plain):.4f} ms")
+                  f"bit-identical: {same}  {call_ms(kernel, reps=reps):.4f} / "
+                  f"{call_ms(plain, reps=reps):.4f} ms")
             check(same, f"gumbel grouping {name} {dtype}: a second call gave other bits")
             check(n_bad == 0, f"gumbel grouping {name}: hard differs on {n_bad} clear patches")
             check(soft_err <= SOFT_TOL, f"gumbel grouping {name}: soft err {soft_err}")
             check(y_err <= YSOFT_TOL, f"gumbel grouping {name}: y_soft err {y_err}")
             check(out_ok, f"gumbel grouping {name} {dtype}: out err {out_err}{out_note}")
             check(int(hard.sum()) == n * l, f"gumbel grouping {name}: hard is not one-hot")
-            if "DP" in name:                           # checked above; profiled at N = 96
-                continue
+            if "DP" in name or (reps == LARGE_REPS and not (name in profiled
+                                                            and dtype == torch.bfloat16)):
+                continue               # checked above; profiled at N = 96 and LARGE_PROFILED
             timings.append(dict(name=f"gumbel grouping {name} {dname}", kernel=kernel,
                                 plain=plain, library=None,
                                 work=(*bounds.group_assign_work(n, g, l, d, dtype, True),
                                       dtype)))
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and name in (GROUP_ST_CASES[0][0], GROUP_ST_CASES[1][0]):
                 key = "grouping_st" if name == GROUP_ST_CASES[0][0] else "grouping_st_mae"
                 summary[key] = dict(max_abs_err=out_err, timing=len(timings) - 1)
 
@@ -778,19 +837,52 @@ def train_path_counts(cfg) -> dict:
     stage) and, with vision MAE, the masked vision forward (layers0, cross
     blocks, layers_mae2) run the attention kernels forward and backward;
     each SemanticLearner runs the Gumbel grouping once; the MAE decoders'
-    blocks take the plain route."""
-    vision = cfg.vision_layers + cfg.cross_layer          # layers0 + cross + second stage
-    attn = cfg.transformer_layers + vision
+    blocks take the plain route. With remat, the backward recomputes every
+    block of the rematerialised stacks (layers0, layers2, layers_mae2, the
+    text blocks, the decoders' blocks; not the cross blocks), which runs
+    its attention forward once more."""
+    stacks = cfg.transformer_layers + cfg.vision_layers   # layers0 + second stage, text
+    attn = stacks + cfg.cross_layer
     plain = 0
     if cfg.use_vision_mae_recon:
-        attn += vision
+        attn += cfg.vision_layers + cfg.cross_layer
+        stacks += cfg.vision_layers
         plain += cfg.mae_decoder_depth
     if cfg.use_text_mae_recon:
         attn += cfg.transformer_layers
+        stacks += cfg.transformer_layers
         plain += cfg.mae_decoder_depth
     st = 1 + int(cfg.use_vision_mae_recon)
-    return {"attention_fwd": attn, "attention_bwd": attn, "group_assign": 0,
-            "group_assign_st": st, "plain_route": plain}
+    again = int(cfg.remat)
+    return {"attention_fwd": attn + again * stacks, "attention_bwd": attn,
+            "group_assign": 0, "group_assign_st": st, "plain_route": (1 + again) * plain}
+
+
+def large_config(name: str, remat: bool):
+    """The ModelConfig of LARGE_CONFIGS[name], with or without remat."""
+    from segclip_tpu_torch.config import model_config_for
+    arch, overrides, _ = LARGE_CONFIGS[name]
+    return model_config_for(arch, remat=remat, **overrides)
+
+
+def step_shapes(name: str, cfg, b: int) -> tuple:
+    """The kernels' shapes in one training step of `cfg` at batch b:
+    attention cases (phase 1's form) of the grouping path's vision blocks,
+    cross blocks (G centres over G + L) and group stage, the masked
+    forward's kept patches (layers0, layers_mae2) and cross blocks, and the
+    text blocks; the Gumbel grouping's (N, G, L, D) of both paths."""
+    l, g, h, d = cfg.num_patches, cfg.group_num, cfg.vision_heads, cfg.vision_width
+    kept = int((l + 1) * (1 - cfg.mae_vis_mask_ratio)) - 1
+    t, th = cfg.max_words, cfg.transformer_heads
+    attn = ((f"{name} vision {b}x{l} H{h}", b, l, l, h, None, "self"),
+            (f"{name} cross {b}x{g}x{g + l} H{h}", b, g, g + l, h, None, "cross"),
+            (f"{name} group stage {b}x{g}x{g} H{h}", b, g, g, h, None, "self"),
+            (f"{name} MAE vision {b}x{kept} H{h}", b, kept, kept, h, None, "self"),
+            (f"{name} MAE cross {b}x{g}x{g + kept} H{h}", b, g, g + kept, h, None, "cross"),
+            (f"{name} text {b}x{t} causal H{th}", b, t, t, th, "causal", "self"))
+    gumbel = ((f"{name} {b}x{g}x{l}x{d}", b, g, l, d),
+              (f"{name} MAE {b}x{g}x{kept}x{d}", b, g, kept, d))
+    return attn, gumbel
 
 
 def synthetic_batch(b: int, cfg, seed: int, device) -> dict:
@@ -881,13 +973,13 @@ class GroupingProbe:
 
 def phase_train_plain_self(dev, model) -> None:
     """Phase 5: one float32 training step at full width, B = 2, with the
-    same injected noise on the card and on the CPU."""
+    same injected noise on the card and on the CPU; and (phase 12) the
+    card's step with remat against the same CPU step."""
     from segclip_tpu_torch.config import Config, ModelConfig
     from segclip_tpu_torch.models.segclip import SegCLIP
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 
     mcfg = ModelConfig(compute_dtype="float32")
-    cfg = Config(model=mcfg)
     b, g, l = 2, mcfg.group_num, mcfg.num_patches
     kept = int((l + 1) * (1 - mcfg.mae_vis_mask_ratio)) - 1
     rng = np.random.default_rng(5)
@@ -896,8 +988,9 @@ def phase_train_plain_self(dev, model) -> None:
     noise = {k: torch.from_numpy(v.astype(np.float32)) for k, v in noise.items()}
     batch = synthetic_batch(b, mcfg, 1, "cpu")
     runs = []
-    for device in (dev, torch.device("cpu")):
-        m = SegCLIP(mcfg)
+    for device, remat in ((dev, False), (dev, True), (torch.device("cpu"), False)):
+        cfg = Config(model=dataclasses.replace(mcfg, remat=remat))
+        m = SegCLIP(cfg.model)
         m.load_state_dict(model.state_dict())
         m = m.to(device)
         step = make_train_step(m, create_optimizer(m, cfg, t_total=100), cfg)
@@ -914,28 +1007,30 @@ def phase_train_plain_self(dev, model) -> None:
         runs.append((float(metrics["loss"]), probe.records,
                      {n: p.grad.detach().cpu() for n, p in m.named_parameters()
                       if p.grad is not None}))
-    (loss_gpu, rec_gpu, grads_gpu), (loss_cpu, rec_cpu, grads_cpu) = runs
-    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    n_near = n_bad = 0
-    for (hard_gpu, _), (hard_cpu, margin) in zip(rec_gpu, rec_cpu):
-        near = margin < NEAR_TIE
-        differ = (hard_gpu != hard_cpu).any(dim=1)
-        n_near += int(near.sum())
-        n_bad += int((differ & ~near).sum())
-    print(f"phase 5: float32 training step, B=2, card vs CPU: loss {loss_gpu:.7f} / "
-          f"{loss_cpu:.7f} (rel {rel:.2e}); hard assignments differ on {n_bad} clear "
-          f"patches, {n_near} near-tie patches (margin < {NEAR_TIE:g})")
-    check(np.isfinite(loss_gpu) and rel <= TRAIN_LOSS_RTOL, f"loss rel err {rel}")
-    check(n_bad == 0, f"hard assignments differ on {n_bad} clear patches")
-    check(grads_gpu.keys() == grads_cpu.keys(), "different parameters got gradients")
-    if n_near:
-        print(f"  near-tie patches present: gradients not compared")
-        return
-    worst = max(((grads_gpu[n] - grads_cpu[n]).abs().max().item()
-                 / (1 + grads_cpu[n].abs().max().item()), n) for n in grads_cpu)
-    print(f"  no near-tie patch: gradients compared on {len(grads_cpu)} tensors, worst "
-          f"{worst[0]:.2e}·(1 + max|g|) at {worst[1]} (tol {TRAIN_GRAD_TOL:g})")
-    check(worst[0] <= TRAIN_GRAD_TOL, f"gradient of {worst[1]} off by {worst[0]}")
+    loss_cpu, rec_cpu, grads_cpu = runs[-1]
+    for (loss_gpu, rec_gpu, grads_gpu), what in zip(runs, ("card", "card with remat")):
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        n_near = n_bad = 0
+        for (hard_gpu, _), (hard_cpu, margin) in zip(rec_gpu, rec_cpu):
+            near = margin < NEAR_TIE
+            differ = (hard_gpu != hard_cpu).any(dim=1)
+            n_near += int(near.sum())
+            n_bad += int((differ & ~near).sum())
+        print(f"phase {5 if what == 'card' else 12}: float32 training step, B=2, {what} vs "
+              f"CPU: loss {loss_gpu:.7f} / {loss_cpu:.7f} (rel {rel:.2e}); hard assignments "
+              f"differ on {n_bad} clear patches, {n_near} near-tie patches (margin < "
+              f"{NEAR_TIE:g})")
+        check(np.isfinite(loss_gpu) and rel <= TRAIN_LOSS_RTOL, f"{what}: loss rel err {rel}")
+        check(n_bad == 0, f"{what}: hard assignments differ on {n_bad} clear patches")
+        check(grads_gpu.keys() == grads_cpu.keys(), "different parameters got gradients")
+        if n_near:
+            print(f"  near-tie patches present: gradients not compared")
+            continue
+        worst = max(((grads_gpu[n] - grads_cpu[n]).abs().max().item()
+                     / (1 + grads_cpu[n].abs().max().item()), n) for n in grads_cpu)
+        print(f"  no near-tie patch: gradients compared on {len(grads_cpu)} tensors, worst "
+              f"{worst[0]:.2e}·(1 + max|g|) at {worst[1]} (tol {TRAIN_GRAD_TOL:g})")
+        check(worst[0] <= TRAIN_GRAD_TOL, f"{what}: gradient of {worst[1]} off by {worst[0]}")
 
 
 def counter_delta(before: dict) -> dict:
@@ -1017,6 +1112,31 @@ def log_step_times(out: str) -> list:
         return [float(t) for t in re.findall(r"Time/step ([0-9.]+)", f.read())]
 
 
+def eval_request_counts(cfg) -> dict:
+    """Launches of one zero-shot eval request of one crop: the vision and
+    cross blocks' attention forward, one eval grouping."""
+    return {"attention_fwd": cfg.vision_layers + cfg.cross_layer, "attention_bwd": 0,
+            "group_assign": 1, "group_assign_st": 0, "plain_route": 0}
+
+
+def check_cli_launches(name: str, cfg, path, counts: dict, evals: int) -> None:
+    """A `cli.train` run's launches: each step's equal to the path's count,
+    each eval request's, and outside them the `evals` text banks'
+    attention only."""
+    expected_step, expected_request = train_path_counts(cfg), eval_request_counts(cfg)
+    check(all(c == expected_step for c in path.steps),
+          f"{name}: launches per step {path.steps}, expected {expected_step}")
+    check(len(path.requests) == evals * CORPUS_EVAL_N
+          and all(c == expected_request for c in path.requests),
+          f"{name}: launches per eval request {path.requests}, expected {expected_request}")
+    text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
+                  for k in counts}
+    check(text_banks == {**{k: 0 for k in counts},
+                         "attention_fwd": evals * cfg.transformer_layers},
+          f"{name}: launches outside the steps and requests {text_banks}: expected the "
+          f"{evals} text banks' attention only")
+
+
 def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
     """Phase 6: pretraining through the CLI from SGR records made on the
     machine (into <tmp>/shapes, kept for phases 7-10), at ViT-B/16 width in
@@ -1030,10 +1150,6 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
     from segclip_tpu_torch.config import ModelConfig
 
     cfg = ModelConfig()
-    expected_step = train_path_counts(cfg)
-    expected_request = {"attention_fwd": cfg.vision_layers + cfg.cross_layer,
-                        "attention_bwd": 0, "group_assign": 1, "group_assign_st": 0,
-                        "plain_route": 0}
     t_phase = time.perf_counter()
     data, run_a, run_b, run_c = (os.path.join(tmp, d) for d in ("shapes", "a", "b", "c"))
     print(f"phase 6: pretraining through the CLI from SGR records ({smi}); "
@@ -1044,19 +1160,6 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
     prep_s = time.perf_counter() - t0
     argv = ["--preset", "shapes-learnability", "--data-dir", data, "--epochs", "2",
             "--num-workers", str(LOADER_WORKERS), "--n-display", "1"]
-
-    def check_launches(name, path, counts, evals):
-        check(all(c == expected_step for c in path.steps),
-              f"{name}: launches per step {path.steps}, expected {expected_step}")
-        check(len(path.requests) == evals * CORPUS_EVAL_N
-              and all(c == expected_request for c in path.requests),
-              f"{name}: launches per eval request {path.requests}, expected {expected_request}")
-        text_banks = {k: counts[k] - sum(c[k] for c in path.steps + path.requests)
-                      for k in counts}
-        check(text_banks == {**{k: 0 for k in counts},
-                             "attention_fwd": evals * cfg.transformer_layers},
-              f"{name}: launches outside the steps and requests {text_banks}: expected the "
-              f"{evals} text banks' attention only")
 
     with CountingPath() as path:
         reset_counters()
@@ -1078,7 +1181,7 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
     for name in ("ckpt_epoch_0", "ckpt_epoch_1", "ckpt_best", "best.json"):
         check(os.path.exists(os.path.join(run_a, name)), f"run A wrote no {name}")
     check(len(path.steps) == 4, f"run A ran {len(path.steps)} steps")
-    check_launches("run A", path, counts, 2)
+    check_cli_launches("run A", cfg, path, counts, 2)
 
     # The resumed run decodes in the loop's own thread (--num-workers 0):
     # the pipeline's batches are the same bits for any worker count, and
@@ -1140,7 +1243,7 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
           and all(np.isfinite(losses_c)), f"run C trained {metrics_c}")
     check([m["epoch"] for m in metrics_c if "miou" in m] == [0, 1], f"run C evals {metrics_c}")
     check(len(path_c.steps) == 4, f"run C ran {len(path_c.steps)} steps")
-    check_launches("run C", path_c, counts_c, 2)
+    check_cli_launches("run C", cfg, path_c, counts_c, 2)
     shutil.rmtree(run_c)
     torch.cuda.empty_cache()
 
@@ -1180,7 +1283,7 @@ def print_profile(name: str, fn) -> None:
               for name, e in sorted(ours, key=lambda x: -x[1].self_device_time_total)))
 
 
-def phase_device_time(seg, requests, timings, train_step) -> list:
+def phase_device_time(seg, requests, timings, train_step, large_step) -> list:
     """Device time from torch.profiler, last: profiling slows the launches
     that follow it, so nothing is timed by the host clock after this. For
     each timing: the kernel's and the plain version's ms per call, the
@@ -1211,6 +1314,7 @@ def phase_device_time(seg, requests, timings, train_step) -> list:
     for name, fn, _, _ in requests[:3]:
         print_profile(name, fn)
     print_profile(f"training step B={TRAIN_BATCH}", train_step)
+    print_profile("training step B=512 with remat (phase 12)", large_step)
     return rows
 
 
@@ -1358,6 +1462,10 @@ DP_TIMEOUT_S = 480
 TP_NORM_RTOL = 1e-5
 TP_GRAD_RTOL = 1e-4
 TP_MOVE_RTOL = 0.5
+# Phase 12 in phase 9's ranks: the dp1 × tp2 bf16 steps again with remat,
+# 1 + TP_REMAT_STEPS of them, each loss within RESUME_LOSS_RTOL of the
+# non-remat step's (bit for bit expected: gloo sums in a fixed order).
+TP_REMAT_STEPS = 2
 
 
 def openai_layout(sd: dict, first_stage_layer: int) -> dict:
@@ -1688,18 +1796,20 @@ def gathered_grads(model) -> dict:
     return out
 
 
-def dp_bf16_steps(dev, shard: bool = False) -> dict:
-    """1 + TRAIN_STEPS bf16 steps at ViT-B/16 width on this data rank's
+def dp_bf16_steps(dev, shard: bool = False, remat: bool = False,
+                  steps: int = TRAIN_STEPS) -> dict:
+    """1 + `steps` bf16 steps at ViT-B/16 width on this data rank's
     TRAIN_BATCH // DP_WORLD rows of phase 4's B = 96 batch: losses, launches
     per step, times, the bytes all-reduced over the model row per step, peak
     memory and a checksum of the replicated parameters. With `shard`, the
-    model is split over the model row of the grid already built."""
-    from segclip_tpu_torch.config import Config
+    model is split over the model row of the grid already built; with
+    `remat`, ModelConfig.remat is on."""
+    from segclip_tpu_torch.config import Config, ModelConfig
     from segclip_tpu_torch.models.segclip import init_segclip
     from segclip_tpu_torch.parallel import dist, gspmd
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 
-    cfg = Config()
+    cfg = Config(model=ModelConfig(remat=remat))
     b, r = TRAIN_BATCH // DP_WORLD, dist.data_rank()
     batch = {k: v[r * b:(r + 1) * b]
              for k, v in synthetic_batch(TRAIN_BATCH, cfg.model, 0, dev).items()}
@@ -1710,7 +1820,7 @@ def dp_bf16_steps(dev, shard: bool = False) -> dict:
     step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
     state = TrainState(step=0, seed=0)
     out = {"loss": [], "skipped": [], "counts": [], "ms": [], "bytes": []}
-    for _ in range(1 + TRAIN_STEPS):
+    for _ in range(1 + steps):
         reset_counters()
         sent = gspmd.model_group_sum.bytes
         metrics, ms = timed(lambda: step(state, batch))
@@ -1771,6 +1881,8 @@ def dp_rank(rank: int, world: int, tmp: str, voc: str, model_path: str) -> dict:
         del model, full, grads
         torch.cuda.empty_cache()
         out["tp_bf16"] = dp_bf16_steps(dev, shard=True)
+        torch.cuda.empty_cache()
+        out["tp_bf16_remat"] = dp_bf16_steps(dev, shard=True, remat=True, steps=TP_REMAT_STEPS)
     finally:
         dist.shutdown()
     torch.cuda.empty_cache()
@@ -1928,9 +2040,7 @@ def phase_data_parallel(dev, tmp: str, smi: str, warm_step_ms: float, voc: str,
           f"{[r['eval_cli']['counts'] for r in ranks]}")
     check(all(m == want for m in metrics), "the ranks' eval metrics differ from one process")
 
-    expected_request = {"attention_fwd": cfg.vision_layers + cfg.cross_layer,
-                        "attention_bwd": 0, "group_assign": 1, "group_assign_st": 0,
-                        "plain_route": 0}
+    expected_request = eval_request_counts(cfg)
     steps = len(ranks[0]["train_cli"]["steps"])
     for r, res in enumerate(ranks):
         tc = res["train_cli"]
@@ -1977,8 +2087,9 @@ def check_tensor_parallel(ranks, tmp: str, smi: str, warm_step_ms: float, ref,
     """Phase 9, tensor parallel: the ranks' dp1 × tp2 results against the
     1-process float32 step `ref` (loss, clip norm, grouping records; the
     parameters after the step, the gradients and the initial parameters),
-    the bf16 steps' launches, and the tp = 2 CLI run's checkpoint (the
-    tp = 1 layout) and eval. Returns the launch counts of the path."""
+    the bf16 steps' launches, those steps again with remat (phase 12), and
+    the tp = 2 CLI run's checkpoint (the tp = 1 layout) and eval. Returns
+    the launch counts of the path."""
     import math
     from segclip_tpu_torch.cli import eval_zeroshot
     from segclip_tpu_torch.config import ModelConfig
@@ -2051,6 +2162,30 @@ def check_tensor_parallel(ranks, tmp: str, smi: str, warm_step_ms: float, ref,
     check(ranks[0]["tp_bf16"]["loss"] == ranks[1]["tp_bf16"]["loss"]
           and ranks[0]["tp_bf16"]["checksum"] == ranks[1]["tp_bf16"]["checksum"],
           "the TP ranks' losses or replicated parameters differ")
+    expected_remat = train_path_counts(ModelConfig(remat=True))
+    for r, res in enumerate(ranks):
+        rm, tp = res["tp_bf16_remat"], res["tp_bf16"]
+        ref_loss = tp["loss"][:len(rm["loss"])]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(rm["loss"], ref_loss))
+        warm = sorted(rm["ms"][1:])
+        print(f"  phase 12, rank {r}: {len(rm['loss'])} dp1 × tp{DP_WORLD} bf16 steps at "
+              f"{per_rank} with remat ({smi}): losses "
+              f"{' '.join(f'{v:.5f}' for v in rm['loss'])} against the steps without it "
+              f"{' '.join(f'{v:.5f}' for v in ref_loss)} (bit for bit: {rm['loss'] == ref_loss}"
+              f", worst rel {worst:.2e}, tol {RESUME_LOSS_RTOL:g}); warm step median "
+              f"{statistics.median(warm):.2f} ms; all-reduced over the model row per step "
+              f"{rm['bytes'][1]} bytes (without remat {tp['bytes'][1]}); peak memory "
+              f"{rm['peak_mib']:.0f} MiB (without {tp['peak_mib']:.0f}); launches per step "
+              f"{rm['counts'][0]}")
+        check(all(c == expected_remat for c in rm["counts"]),
+              f"rank {r}: TP remat launches per step {rm['counts']}, expected {expected_remat}")
+        check(all(np.isfinite(rm["loss"])) and not any(rm["skipped"]),
+              f"rank {r}: TP remat losses {rm['loss']} skipped {rm['skipped']}")
+        check(worst <= RESUME_LOSS_RTOL, f"rank {r}: TP remat losses off by {worst}")
+        check(len(set(rm["bytes"])) == 1 and rm["bytes"][0] > tp["bytes"][0],
+              f"rank {r}: TP remat bytes per step {rm['bytes']} (without {tp['bytes'][0]})")
+    check(ranks[0]["tp_bf16_remat"]["loss"] == ranks[1]["tp_bf16_remat"]["loss"],
+          "the TP remat ranks' losses differ")
 
     steps = len(ranks[0]["train_tp_cli"]["steps"])
     for r, res in enumerate(ranks):
@@ -2093,8 +2228,8 @@ def check_tensor_parallel(ranks, tmp: str, smi: str, warm_step_ms: float, ref,
           "the TP ranks' final losses differ")
     check(abs(single["mIoU"] - mious[0]) <= SHARDED_MIOU_TOL,
           f"the TP run's model.pt evaluates to {single['mIoU']}, the run logged {mious[0]}")
-    return {k: sum(sum(c[k] for c in r["tp_bf16"]["counts"]) + r["train_tp_cli"]["counts"][k]
-                   for r in ranks) for k in expected}
+    return {k: sum(sum(c[k] for c in r["tp_bf16"]["counts"] + r["tp_bf16_remat"]["counts"])
+                   + r["train_tp_cli"]["counts"][k] for r in ranks) for k in expected}
 
 
 # Phase 10: the studies (segclip_tpu_torch/studies), each a subprocess on the
@@ -2374,6 +2509,261 @@ def phase_transports(dev, smi: str, batches: dict) -> None:
           f"crop_resize_batch card vs CPU: {diff.max().item()} levels on {share} of values")
 
 
+class ShapeProbe:
+    """Records the shapes each kernel wrapper is called at, for the length
+    of a `with` block: attention (B, Lq, Lk, heads) and the Gumbel grouping
+    (N, G, L, D)."""
+
+    def __enter__(self):
+        from segclip_tpu_torch.ops.kernels import attention, grouping
+        self.attn, self.gumbel = set(), set()
+        self.saved = attention.attention_fwd, grouping.group_assign_fwd
+        fwd, group = self.saved
+        probe = self
+
+        def attention_fwd(q, k, v, *args, **kw):
+            probe.attn.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2] // 64))
+            return fwd(q, k, v, *args, **kw)
+
+        def group_assign_fwd(q, k, v, noise=None, tau=1.0):
+            if noise is not None:
+                probe.gumbel.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
+            return group(q, k, v, noise, tau)
+
+        attention.attention_fwd, grouping.group_assign_fwd = attention_fwd, group_assign_fwd
+        return self
+
+    def __exit__(self, *exc):
+        from segclip_tpu_torch.ops.kernels import attention, grouping
+        attention.attention_fwd, grouping.group_assign_fwd = self.saved
+
+
+def train_run(dev, name: str, mcfg, b: int, steps: int, keep: bool = False) -> dict:
+    """1 + `steps` bf16 steps of `make_train_step` (phase 4's optimizer
+    settings) at `mcfg` on phase 4's synthetic batch at size b: the losses,
+    each step's launches and time, the peak memory (and what earlier phases
+    hold), the first step's gradients before the optimizer, and, with
+    `keep`, the step itself for the profile. The first step's kernel shapes
+    must be among phase 1's."""
+    from segclip_tpu_torch.config import Config
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 2 ** 20
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = Config(model=mcfg)
+    model = init_segclip(mcfg, seed=0, device=dev)
+    step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
+    state = TrainState(step=0, seed=0)
+    batch = synthetic_batch(b, mcfg, 0, dev)
+    out = {"loss": [], "skipped": [], "counts": [], "ms": []}
+    for i in range(1 + steps):
+        reset_counters()
+        with ShapeProbe() as shapes:
+            metrics, ms = timed(lambda: step(state, batch))
+        out["counts"].append(read_counters())
+        out["loss"].append(float(metrics["loss"]))
+        out["skipped"].append(float(metrics["skipped_nan"]))
+        out["ms"].append(ms)
+        if i == 0:
+            out["grads"] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                            if p.grad is not None}
+            attn, gumbel = step_shapes(name, mcfg, b)
+            want_attn = {(c[1], c[2], c[3], c[4]) for c in attn}
+            want_gumbel = {c[1:] for c in gumbel}
+            check(shapes.attn == want_attn and shapes.gumbel == want_gumbel,
+                  f"{name}: the step ran attention at {sorted(shapes.attn)} and the Gumbel "
+                  f"grouping at {sorted(shapes.gumbel)}; phase 1 checked {sorted(want_attn)}, "
+                  f"{sorted(want_gumbel)}")
+    out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    out["held_mib"] = held
+    expected = train_path_counts(mcfg)
+    check(all(c == expected for c in out["counts"]),
+          f"{name}: launches per step {out['counts']}, expected {expected}")
+    check(all(np.isfinite(out["loss"])) and not any(out["skipped"]),
+          f"{name}: losses {out['loss']}, skipped {out['skipped']}")
+    if keep:
+        out["step"] = lambda: step(state, batch)
+    return out
+
+
+def report_run(name: str, b: int, remat: bool, run: dict) -> None:
+    warm = sorted(run["ms"][1:])
+    med = statistics.median(warm)
+    print(f"  {name} B={b} {'with' if remat else 'without'} remat: losses "
+          f"{' '.join(f'{v:.5f}' for v in run['loss'])}; warm step median {med:.2f} ms "
+          f"(min {warm[0]:.2f}, max {warm[-1]:.2f}, {len(warm)} steps), "
+          f"{b * 1e3 / med:.1f} img/s; peak {run['peak_mib']:.0f} MiB ({run['held_mib']:.0f} "
+          f"of it held by earlier phases); launches per step {run['counts'][0]}")
+
+
+def phase_remat(dev, smi: str) -> tuple:
+    """Phase 12: ModelConfig.remat and the JAX package's memory-bound training
+    configurations, bf16 from seeded inits (the remat runs of phase 5 and of
+    phase 9's ranks print under this phase's name): ViT-B/16 at B = 96 with
+    and without remat (gradients before the optimizer compared), at B = 256
+    both ways, ViT-L/14 at B = 32 both ways, ViT-B/16 at 448 px, B = 24,
+    and B = 512 with remat, kept for the profile. Returns the launch counts
+    by path and the B = 512 step."""
+    from segclip_tpu_torch.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 20
+    print(f"phase 12: remat and the large training configurations ({smi}; "
+          f"{total:.0f} MiB on the card)")
+    counts = {}
+
+    def add(path, run):
+        for c in run["counts"]:
+            for k, n in c.items():
+                counts.setdefault(path, {}).setdefault(k, 0)
+                counts[path][k] += n
+
+    runs = {}
+    for remat in (False, True):
+        runs[remat] = train_run(dev, "b96", ModelConfig(remat=remat), TRAIN_BATCH, TRAIN_STEPS)
+        report_run("ViT-B/16", TRAIN_BATCH, remat, runs[remat])
+        add("train_remat", runs[remat])
+    plain, remat = runs[False], runs[True]
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(remat["loss"], plain["loss"]))
+    same = plain["grads"].keys() == remat["grads"].keys()
+    bitwise = same and all(torch.equal(g, remat["grads"][n]) for n, g in plain["grads"].items())
+    worst_grad = max(((remat["grads"][n] - g).float().abs().max().item()
+                      / max(g.float().abs().max().item(), 1e-30), n)
+                     for n, g in plain["grads"].items()) if same else (float("inf"), "keys")
+    print(f"  B={TRAIN_BATCH}, remat against none: losses bit for bit "
+          f"{remat['loss'] == plain['loss']} (worst rel {worst_loss:.2e}, tol "
+          f"{RESUME_LOSS_RTOL:g}); the first step's gradients before the optimizer bit for bit "
+          f"{bitwise} on {len(plain['grads'])} tensors (worst {worst_grad[0]:.2e}·max|g| at "
+          f"{worst_grad[1]}, tol {REMAT_GRAD_RTOL:g}); peak {plain['peak_mib']:.0f} → "
+          f"{remat['peak_mib']:.0f} MiB, warm median {statistics.median(plain['ms'][1:]):.2f} → "
+          f"{statistics.median(remat['ms'][1:]):.2f} ms")
+    check(worst_loss <= RESUME_LOSS_RTOL, f"remat moves the losses by {worst_loss}")
+    check(worst_grad[0] <= REMAT_GRAD_RTOL, f"remat moves the gradient of {worst_grad[1]} "
+                                            f"by {worst_grad[0]}·max|g|")
+    check(remat["peak_mib"] < plain["peak_mib"], "remat does not lower the peak")
+    own = {TRAIN_BATCH: plain["peak_mib"] - plain["held_mib"]}
+    del runs, plain, remat
+
+    large = {}
+    for name, remats in (("b256", (False, True)), ("l14", (False, True)), ("448", (False,)),
+                         ("b512", (True,))):
+        arch, overrides, b = LARGE_CONFIGS[name]
+        for remat in remats:
+            run = train_run(dev, name, large_config(name, remat), b, LARGE_STEPS,
+                            keep=name == "b512")
+            report_run(f"{arch}{' 448 px' if overrides else ''}", b, remat, run)
+            add({"b256": "train_remat", "b512": "train_b512", "l14": "train_l14",
+                 "448": "train_448"}[name], run)
+            if name in ("l14", "448"):
+                check(run["loss"][-1] < run["loss"][0],
+                      f"{name}: the loss does not fall over the steps: {run['loss']}")
+            run.pop("grads")
+            large[(name, remat)] = run
+    for name in ("b256", "l14"):
+        a, r = large[(name, False)], large[(name, True)]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(r["loss"], a["loss"]))
+        saved = 1 - (r["peak_mib"] - r["held_mib"]) / (a["peak_mib"] - a["held_mib"])
+        print(f"  {name}, remat against none: losses bit for bit {r['loss'] == a['loss']} "
+              f"(worst rel {worst:.2e}); peak {a['peak_mib']:.0f} → {r['peak_mib']:.0f} MiB "
+              f"({saved:.1%} of the run's own memory saved); warm median "
+              f"{statistics.median(a['ms'][1:]):.2f} → {statistics.median(r['ms'][1:]):.2f} ms")
+        check(worst <= RESUME_LOSS_RTOL, f"{name}: remat moves the losses by {worst}")
+        check(r["peak_mib"] < a["peak_mib"], f"{name}: remat does not lower the peak")
+    b256 = large[("b256", False)]
+    own[256] = b256["peak_mib"] - b256["held_mib"]
+    b512 = large[("b512", True)]
+    estimate = own[TRAIN_BATCH] + (own[256] - own[TRAIN_BATCH]) * (512 - TRAIN_BATCH) / (
+        256 - TRAIN_BATCH)
+    print(f"  B=512 with remat: peak {b512['peak_mib']:.0f} MiB of the card's {total:.0f}; "
+          f"without remat it would need about {estimate:.0f} MiB of its own (linear in B "
+          f"through the runs without remat at {TRAIN_BATCH} and 256: {own[TRAIN_BATCH]:.0f}, "
+          f"{own[256]:.0f}), not run")
+    check(b512["peak_mib"] < total, f"B=512 peaks at {b512['peak_mib']} MiB of {total}")
+    print(f"  phase 12's steps took {time.perf_counter() - t_phase:.1f} s")
+    return counts, b512.pop("step")
+
+
+def runm_args(data: str, out: str) -> list:
+    """scripts/runM_batch192.sh's command line for the port, at RUNM_EPOCHS
+    epochs (one per call) and a log line per step."""
+    return ["--datatype", "shapes", "--data-dir", data, "--batch-size", "192",
+            "--epochs", str(RUNM_EPOCHS), "--lr", "4e-4", "--lower-lr", "4e-4",
+            "--warmup-proportion", "0.1", "--use-seglabel", "--use-vision-mae-recon",
+            "--eval-each-epoch", "--eval-data-root", os.path.join(data, "eval"),
+            "--num-workers", "0", "--output-dir", out, "--do-resume", "--n-display", "1",
+            "--opts", "eval.dataset=shapes", "model.gumbel_tau=3.0",
+            "model.group_balance_weight=1.0", "model.remat=true", "train.keep_best=true",
+            "train.epochs_per_run=1", "train.checkpoint_every=2"]
+
+
+def phase_runm(smi: str) -> dict:
+    """Phase 12, the end: run M's recipe through cli.train, as
+    scripts/runM_batch192.sh runs it (B = 192, remat, one epoch per call,
+    --do-resume), on a shapes corpus of RUNM_TRAIN_N scenes (two steps per
+    epoch) made here, for RUNM_EPOCHS calls: finite losses, every step's
+    and eval request's launches, model.pt in the tp = 1 layout evaluating
+    to the logged mIoU. Returns the launch counts of the run."""
+    from segclip_tpu_torch.cli import eval_zeroshot, prepare_data
+    from segclip_tpu_torch.cli import train as train_cli
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.models.segclip import SegCLIP
+
+    cfg = ModelConfig(remat=True, gumbel_tau=3.0, group_balance_weight=1.0)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runm_") as tmp:
+        data, out = os.path.join(tmp, "shapes"), os.path.join(tmp, "runM")
+        prepare_data.main(["shapes", "--out-dir", data, "--train-n", str(RUNM_TRAIN_N),
+                           "--eval-n", str(CORPUS_EVAL_N)])
+        segments = []
+        with CountingPath() as path:
+            reset_counters()
+            for _ in range(RUNM_EPOCHS):
+                t0 = time.perf_counter()
+                result = train_cli.main(runm_args(data, out))
+                segments.append((result["epochs_run"], round(time.perf_counter() - t0, 1),
+                                 sorted(d for d in os.listdir(out) if d != "log.txt")))
+                del result
+                torch.cuda.empty_cache()
+            counts = read_counters()
+        logged = read_metrics(out)
+        losses = [m["loss"] for m in logged if "loss" in m]
+        mious = [m["miou"] for m in logged if "miou" in m]
+        step_times = log_step_times(out)
+        model_pt = os.path.join(out, f"ckpt_epoch_{RUNM_EPOCHS - 1}", "model.pt")
+        saved = torch.load(model_pt, weights_only=True)
+        want = {k: tuple(v.shape) for k, v in SegCLIP(ModelConfig()).state_dict().items()}
+        layout = {k: tuple(v.shape) for k, v in saved.items()} == want
+        del saved
+        single = eval_zeroshot.main(["--dataset", "shapes", "--data-root",
+                                     os.path.join(data, "eval"), "--init-model", model_pt,
+                                     "--output-dir", os.path.join(tmp, "runM_eval")])
+    print(f"  run M through cli.train ({smi}): {' '.join(runm_args('D', 'O'))}, on "
+          f"prepare_data shapes --train-n {RUNM_TRAIN_N} --eval-n {CORPUS_EVAL_N} "
+          f"({2 * RUNM_TRAIN_N} samples), {RUNM_EPOCHS} calls: (epochs, s, what each left) "
+          f"{segments}; losses {' '.join(f'{v:.5f}' for v in losses)}; Time/step "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in step_times)} ms; mIoU per epoch "
+          f"{' '.join(f'{v:.4f}' for v in mious)}; model.pt in the tp = 1 layout: {layout}; "
+          f"its one-process eval mIoU {single['mIoU']:.4f}; launches per step "
+          f"{path.steps[0] if path.steps else None}; the run M part took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    steps = RUNM_EPOCHS * 2 * RUNM_TRAIN_N // 192
+    check([n for n, _, _ in segments] == [1] * RUNM_EPOCHS, f"run M segments {segments}")
+    check(segments[-1][2] == ["best.json", "ckpt_best"] + [
+        f"ckpt_epoch_{e}" for e in range(RUNM_EPOCHS)] + ["metrics.jsonl"],
+        f"run M wrote {segments[-1][2]}")
+    check(len(losses) == steps == len(path.steps) and all(np.isfinite(losses)),
+          f"run M losses {losses}, {len(path.steps)} steps")
+    check(len(mious) == RUNM_EPOCHS and all(np.isfinite(mious)), f"run M mIoU lines {mious}")
+    check(layout, "run M's model.pt is not in the tp = 1 layout")
+    check(abs(single["mIoU"] - mious[-1]) <= SHARDED_MIOU_TOL,
+          f"run M's model.pt evaluates to {single['mIoU']}, the run logged {mious[-1]}")
+    check_cli_launches("run M", cfg, path, counts, RUNM_EPOCHS)
+    return counts
+
+
 def main() -> int:
     if sys.argv[1:2] == ["study"]:                   # phase 10's subprocesses
         return study_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
@@ -2419,7 +2809,9 @@ def main() -> int:
             dev, tmp, smi, warm_step_ms, voc, model_path, eval_one)
         studies_counts = phase_studies(smi, tmp)
     phase_transports(dev, smi, transport_batches)
-    rows = phase_device_time(seg, requests, timings, lambda: step(state, batch))
+    remat_counts, b512_step = phase_remat(dev, smi)
+    runm_counts = phase_runm(smi)
+    rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step)
 
     kernels = []
     for name, src, tpu, key, counter in (
@@ -2434,7 +2826,9 @@ def main() -> int:
                    "train_cli_device_aug": cli_c_counts[counter], "demo": demo_counts[counter],
                    "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
                    "train_dp": dp_counts[counter], "train_tp": tp_counts[counter],
-                   "studies": studies_counts[counter]}
+                   "studies": studies_counts[counter],
+                   **{path: c[counter] for path, c in remat_counts.items()},
+                   "train_cli_runM": runm_counts[counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=per_step[counter],

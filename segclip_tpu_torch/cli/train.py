@@ -16,13 +16,28 @@ per rank, gloo otherwise):
     python -m segclip_tpu_torch.cli.train --dist-coordinator localhost:29500 \
         --dist-num-processes 2 --dist-process-id {0,1} ...
 
+Tensor parallelism: `--opts train.tensor_parallelism=T` splits the world
+into world // T data ranks × T model ranks (parallel/gspmd.py).
+
+Block rematerialisation: `--opts model.remat=true` recomputes the towers'
+and the MAE decoders' block activations in the backward instead of keeping
+them (models/layers.run_blocks), for batches whose activations do not fit;
+the values are those of the run without it. The JAX package's run M recipe
+(scripts/runM_batch192.sh), one segment per call:
+    python -m segclip_tpu_torch.cli.train --datatype shapes --data-dir D \
+        --batch-size 192 --epochs 6 --lr 4e-4 --lower-lr 4e-4 \
+        --warmup-proportion 0.1 --use-seglabel --use-vision-mae-recon \
+        --eval-each-epoch --eval-data-root D/eval --num-workers 0 \
+        --output-dir O --do-resume --opts eval.dataset=shapes \
+        model.gumbel_tau=3.0 model.group_balance_weight=1.0 model.remat=true \
+        train.keep_best=true train.epochs_per_run=1 train.checkpoint_every=2
+
 Runs on the CUDA card (`--device cuda`, the default) and raises when there
 is none; `--device cpu` runs on the CPU with the kernels' plain versions.
 It takes the JAX package's training settings, with its defaults: the
 yuv420 transport (`data.transfer=rgb` and `data.device_aug=true` select
 the other two), and `train.epochs_per_run=N` trains N epochs per run (go on
-with `--do-resume`). Tensor parallelism is not ported and raises
-(ROADMAP.md).
+with `--do-resume`).
 """
 from __future__ import annotations
 

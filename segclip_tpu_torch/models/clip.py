@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from segclip_tpu_torch.models.layers import (LayerNormFP32, ResidualAttentionBlock,
-                                             VocabParallelEmbedding)
+                                             VocabParallelEmbedding, run_blocks)
 from segclip_tpu_torch.models.seg_vit import SegViT
 from segclip_tpu_torch.ops.attention import causal_mask
 from segclip_tpu_torch.ops.masking import random_masking
@@ -48,7 +48,7 @@ class VisualTower(nn.Module):
     def __init__(self, width: int, patch_size: int, input_resolution: int,
                  layers: int, output_dim: int, first_stage_layer: int = 10,
                  group_num: int = 8, cross_layer: int = 2, tau: float = 0.9,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         self.width = width
         self.patch_size = patch_size
@@ -62,7 +62,7 @@ class VisualTower(nn.Module):
         self.transformer = SegViT(width, layers=layers,
                                   first_stage_layer=first_stage_layer,
                                   group_num=group_num, cross_layer=cross_layer,
-                                  tau=tau, compute_dtype=compute_dtype)
+                                  tau=tau, compute_dtype=compute_dtype, remat=remat)
         self.ln_post = LayerNormFP32(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 
@@ -106,37 +106,42 @@ class VisualTower(nn.Module):
 
 
 class TextTransformer(nn.Module):
-    def __init__(self, width: int, layers: int, compute_dtype=torch.bfloat16):
+    """The text tower's `resblocks`, each under activation checkpointing
+    with `remat` while gradients are recorded (JAX clip.py:147)."""
+
+    def __init__(self, width: int, layers: int, compute_dtype=torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, width // 64, compute_dtype)
             for _ in range(layers))
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for blk in self.resblocks:
-            x = blk(x, bias=bias)
-        return x
+        return run_blocks(self.resblocks, x, self.remat, bias=bias)
 
 
 class CLIPModule(nn.Module):
     """Dual-encoder CLIP with the grouping visual tower; parameter names are
-    the reference state dict's under `clip.`."""
+    the reference state dict's under `clip.`. `remat` goes to both towers
+    (JAX clip.py:196-201)."""
 
     def __init__(self, embed_dim: int, image_resolution: int, vision_layers: int,
                  vision_width: int, vision_patch_size: int, context_length: int,
                  vocab_size: int, transformer_width: int, transformer_layers: int,
                  first_stage_layer: int = 10, group_num: int = 8,
                  cross_layer: int = 2, tau: float = 0.9,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.visual = VisualTower(
             vision_width, vision_patch_size, image_resolution, vision_layers,
             embed_dim, first_stage_layer=first_stage_layer, group_num=group_num,
-            cross_layer=cross_layer, tau=tau, compute_dtype=compute_dtype)
+            cross_layer=cross_layer, tau=tau, compute_dtype=compute_dtype,
+            remat=remat)
         self.transformer = TextTransformer(transformer_width, transformer_layers,
-                                           compute_dtype)
+                                           compute_dtype, remat=remat)
         # split by vocabulary rows under tensor parallelism (parallel/gspmd.py)
         self.token_embedding = VocabParallelEmbedding(vocab_size, transformer_width)
         self.positional_embedding = nn.Parameter(

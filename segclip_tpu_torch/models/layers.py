@@ -12,6 +12,10 @@ their input through `copy_to_model_group`, the output projection and the
 second MLP layer sum their partial products with `reduce_from_model_group`
 before the replicated bias. With no group (tensor parallelism 1) they run
 as before, with no added op.
+
+`run_blocks` runs a stack of blocks, each under activation checkpointing
+when the model's `remat` is on (ModelConfig.remat, JAX's `nn.remat` around
+the block class): the stacks that call it are the ones JAX wraps.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from segclip_tpu_torch.ops.attention import multi_head_attention
 from segclip_tpu_torch.ops.layers import layer_norm, quick_gelu
@@ -135,6 +140,29 @@ class ResidualAttentionBlock(nn.Module):
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), bias=bias)
         return x + self.mlp(self.ln_2(x))
+
+
+def run_blocks(blocks, x: torch.Tensor, remat: bool = False, **kw) -> torch.Tensor:
+    """x through each block in turn, `blk(x, **kw)`. With `remat`, while
+    gradients are recorded, each block runs under non-reentrant
+    `torch.utils.checkpoint`: the forward keeps the block's input only and
+    the backward recomputes the rest, the same ops on the same inputs, so
+    no value changes (JAX's `nn.remat`). Under `no_grad` (eval, the text
+    bank, the studies) the blocks run as they are.
+
+    The reentrant form would drop the `bias=` keyword and inputs that need
+    no grad. No block draws random numbers (the masking and Gumbel noise
+    are drawn outside the stacks), so the RNG state is not saved for the
+    recompute. The recompute stops once the last saved tensor is back
+    (non-reentrant early stop): it runs the attention again, the kernel
+    forward with P and, under tensor parallelism, the out-projection's
+    model-row all-reduce, and stops at the second MLP layer's product,
+    before that layer's all-reduce."""
+    recompute = remat and torch.is_grad_enabled()
+    for blk in blocks:
+        x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False, **kw)
+             if recompute else blk(x, **kw))
+    return x
 
 
 class GroupedLinear(nn.Module):

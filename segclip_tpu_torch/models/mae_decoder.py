@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from segclip_tpu_torch.models.layers import LayerNormFP32, MHAttention, Mlp, linear
+from segclip_tpu_torch.models.layers import (LayerNormFP32, MHAttention, Mlp, linear,
+                                             run_blocks)
 from segclip_tpu_torch.ops.attention import multi_head_attention, padding_bias
 from segclip_tpu_torch.ops.pos_embed import sincos_2d, sinusoid_table
 
@@ -91,13 +92,16 @@ class MAEBlock(nn.Module):
 
 class _DecoderCore(nn.Module):
     """Embed / mask-token / unshuffle front end, the blocks and the final
-    norm, shared by both decoders."""
+    norm, shared by both decoders. With `remat`, the blocks run under
+    activation checkpointing while gradients are recorded, the embed, the
+    norm and the prediction head do not (JAX mae_decoder.py:99)."""
 
     def __init__(self, in_dim: int, dec_dim: int, depth: int, heads: int,
                  ln_eps: float, timm: bool, pos_table,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.decoder_embed = nn.Linear(in_dim, dec_dim)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dec_dim))
         self.decoder_blocks = nn.ModuleList(
@@ -120,18 +124,16 @@ class _DecoderCore(nn.Module):
 
     def blocks_and_norm(self, x: torch.Tensor,
                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for blk in self.decoder_blocks:
-            x = blk(x, bias=bias)
-        return self.decoder_norm(x)
+        return self.decoder_norm(run_blocks(self.decoder_blocks, x, self.remat, bias=bias))
 
 
 class VisionMAEDecoder(_DecoderCore):
     def __init__(self, in_dim: int, dec_dim: int, image_resolution: int,
                  patch_size: int, depth: int = 3, heads: int = 8,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, remat: bool = False):
         grid = image_resolution // patch_size
         super().__init__(in_dim, dec_dim, depth, heads, 1e-6, True,
-                         sincos_2d(dec_dim, grid, cls_token=True), compute_dtype)
+                         sincos_2d(dec_dim, grid, cls_token=True), compute_dtype, remat)
         self.patch_size = patch_size
         self.decoder_pred = nn.Linear(dec_dim, patch_size ** 2 * 3)
 
@@ -151,9 +153,10 @@ class VisionMAEDecoder(_DecoderCore):
 
 class TextMAEDecoder(_DecoderCore):
     def __init__(self, in_dim: int, dec_dim: int, seq_len: int, vocab_size: int,
-                 depth: int = 3, heads: int = 8, compute_dtype=torch.bfloat16):
+                 depth: int = 3, heads: int = 8, compute_dtype=torch.bfloat16,
+                 remat: bool = False):
         super().__init__(in_dim, dec_dim, depth, heads, 1e-5, False,
-                         sinusoid_table(seq_len, dec_dim), compute_dtype)
+                         sinusoid_table(seq_len, dec_dim), compute_dtype, remat)
         self.vocab_size = vocab_size
         self.decoder_pred = nn.Linear(dec_dim, vocab_size)
 

@@ -21,7 +21,8 @@ from torch import nn
 
 from segclip_tpu_torch.models.layers import (GroupedLinear, LayerNormFP32,
                                              MHAttention, Mlp,
-                                             ResidualAttentionBlock, linear)
+                                             ResidualAttentionBlock, linear,
+                                             run_blocks)
 from segclip_tpu_torch.ops.grouping import draw_gumbel
 from segclip_tpu_torch.ops.kernels.grouping import group_assign, group_assign_st
 from segclip_tpu_torch.ops.layers import quick_gelu
@@ -133,12 +134,17 @@ class ReconstructLayer(nn.Module):
 
 
 class SegViT(nn.Module):
-    """Two-stage ViT over a (B, 1+L, D) token sequence (CLS first)."""
+    """Two-stage ViT over a (B, 1+L, D) token sequence (CLS first). With
+    `remat`, `layers0`, `layers2` and `layers_mae2` run each block under
+    activation checkpointing while gradients are recorded (models/layers.
+    run_blocks); the SemanticLearner and the ReconstructLayer do not, as
+    in JAX (seg_vit.py:190-221), so the Gumbel noise is drawn once."""
 
     def __init__(self, width: int, layers: int = 12, first_stage_layer: int = 10,
                  group_num: int = 8, cross_layer: int = 2, tau: float = 0.9,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
+        self.remat = remat
         heads = width // 64
         second = layers - first_stage_layer
 
@@ -162,21 +168,17 @@ class SegViT(nn.Module):
         (grouping path: after layers0; MAE path: after layers_mae2),
         "hard_attn", "soft_attn": (B, G, L) on the grouping path, None on
         the MAE path}. `noise` is the SemanticLearner's Gumbel noise."""
-        x_ = x[:, 1:]
-        for blk in self.layers0:
-            x_ = blk(x_)
+        x_ = run_blocks(self.layers0, x[:, 1:], self.remat)
         mid = {"hidden": x_, "hard_attn": None, "soft_attn": None}
         if mae_path:
             sx, hard, _, _ = self.semantic_layer2(x_, training, noise, generator)
-            x_ = self.reconstruct_layer2(sx, hard)
-            for blk in self.layers_mae2:
-                x_ = blk(x_)
+            x_ = run_blocks(self.layers_mae2, self.reconstruct_layer2(sx, hard),
+                            self.remat)
             mid["hidden"] = x_
             cls = x_.mean(dim=1, keepdim=True)
             return torch.cat([cls, x_], dim=1), mid
         gx, hard, soft, _ = self.semantic_layer2(x_, training, noise, generator)
-        for blk in self.layers2:
-            gx = blk(gx)
+        gx = run_blocks(self.layers2, gx, self.remat)
         cls = gx.amax(dim=1, keepdim=True)
         mid["hard_attn"], mid["soft_attn"] = hard, soft
         return torch.cat([cls, gx], dim=1), mid

@@ -12,7 +12,10 @@ seeded random init.
 The random draws (two Gumbel noises, two masking noises) come from a
 torch.Generator, or are injected through `noise` (tests hand both
 frameworks the same numbers). The state dict is the reference's layout:
-`clip.*`, `vis_mae_decoder.*`, `seq_mae_decoder.*`.
+`clip.*`, `vis_mae_decoder.*`, `seq_mae_decoder.*`. `ModelConfig.remat`
+puts the towers' and the decoders' block stacks under activation
+checkpointing while gradients are recorded (models/layers.run_blocks), as
+the JAX model puts them under `nn.remat` (segclip.py:134-148).
 """
 from __future__ import annotations
 
@@ -141,17 +144,18 @@ class SegCLIP(nn.Module):
             transformer_width=cfg.transformer_width,
             transformer_layers=cfg.transformer_layers,
             first_stage_layer=cfg.first_stage_layer, group_num=cfg.group_num,
-            cross_layer=cfg.cross_layer, tau=cfg.gumbel_tau, compute_dtype=dtype)
+            cross_layer=cfg.cross_layer, tau=cfg.gumbel_tau, compute_dtype=dtype,
+            remat=cfg.remat)
         if cfg.use_vision_mae_recon:
             self.vis_mae_decoder = VisionMAEDecoder(
                 cfg.vision_width, cfg.vision_width // 2, cfg.image_resolution,
                 cfg.vision_patch_size, depth=cfg.mae_decoder_depth,
-                heads=cfg.mae_decoder_num_heads, compute_dtype=dtype)
+                heads=cfg.mae_decoder_num_heads, compute_dtype=dtype, remat=cfg.remat)
         if cfg.use_text_mae_recon:
             self.seq_mae_decoder = TextMAEDecoder(
                 cfg.embed_dim, cfg.embed_dim // 2, cfg.max_words, cfg.vocab_size,
                 depth=cfg.mae_decoder_depth, heads=cfg.mae_decoder_num_heads,
-                compute_dtype=dtype)
+                compute_dtype=dtype, remat=cfg.remat)
 
     def encode_image(self, image: torch.Tensor, **kw):
         return self.clip.encode_image(image, **kw)

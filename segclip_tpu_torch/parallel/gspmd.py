@@ -204,7 +204,9 @@ def shard_state_dict(model: nn.Module, model_state: dict,
 
 def model_group_sum(t: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: `t` summed over the model row. Counts the bytes it
-    all-reduces in `model_group_sum.bytes`."""
+    all-reduces in `model_group_sum.bytes`, the recompute's under remat
+    too (models/layers.run_blocks: each block's attention all-reduce runs
+    again in the backward, its MLP's does not)."""
     model_group_sum.bytes += t.numel() * t.element_size()
     out = t.to(dist.wire_device(), copy=True).contiguous()
     torch.distributed.all_reduce(out, group=group)

@@ -21,8 +21,11 @@ side. So this module imports JAX inside the tests, never at its top.
   - the loop's per-rank batches are the JAX pipeline's for that shard, bit
     for bit, and in rank order they are the 1-rank batch's samples;
   - the train CLI at 2 ranks: only rank 0 writes, and a resume reproduces
-    the straight run bit for bit.
+    the straight run bit for bit;
+  - remat (ModelConfig.remat) at 2 ranks with two micro-batches per rank
+    and a NaN step changes no metric and no parameter, bit for bit.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -82,16 +85,23 @@ def _rank_infonce(rank, workdir):
 
 
 def _rank_step(rank, workdir):
+    """make_train_step over step_in.npz's batches on this rank's rows, with
+    its injected noise where it has some (else the step's own draws), and
+    its "remat" and "accum" (grad_accum_steps) where it has them."""
     from segclip_tpu_torch.checkpoint.convert import load_into
     from segclip_tpu_torch.models.segclip import SegCLIP
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+    inp = np.load(os.path.join(workdir, "step_in.npz"))
     cfg = _port_train_config()
+    if "remat" in inp.files:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, remat=bool(inp["remat"])),
+            train=dataclasses.replace(cfg.train, grad_accum_steps=int(inp["accum"])))
     model = SegCLIP(cfg.model)
     load_into(model, torch.load(os.path.join(workdir, "init.pt"), weights_only=True))
     optimizer = create_optimizer(model, cfg, t_total=T_TOTAL)
     step = make_train_step(model, optimizer, cfg)
     state = TrainState(step=0, seed=STEP_SEED)
-    inp = np.load(os.path.join(workdir, "step_in.npz"))
     rows = slice(rank * B_LOCAL, (rank + 1) * B_LOCAL)
     metrics = []
     for i in range(int(inp["steps"])):
@@ -99,8 +109,10 @@ def _rank_step(rank, workdir):
                  ("input_ids", "attention_mask", "image", "image_seg")}
         for k in ("input_ids", "attention_mask", "image_seg"):
             batch[k] = batch[k].long()
-        noise = {k: torch.from_numpy(inp[f"noise/{k}"][rows])
-                 for k in ("gumbel", "gumbel_mae", "mask_vis")}
+        noise = None
+        if "noise/gumbel" in inp.files:
+            noise = {k: torch.from_numpy(inp[f"noise/{k}"][rows])
+                     for k in ("gumbel", "gumbel_mae", "mask_vis")}
         metrics.append({k: float(v) for k, v in step(state, batch, noise).items()})
     torch.save({"metrics": metrics, "model": model.state_dict(),
                 "step_count": optimizer.step_count, "step": state.step},
@@ -349,6 +361,35 @@ def test_a_nan_half_batch_skips_on_both_ranks(tmp_path):
         assert [m["skipped_nan"] for m in res["metrics"]] == [0.0, 1.0]
         assert res["step_count"] == 1 and res["step"] == 2
     assert all(torch.equal(p, ranks[1]["model"][k]) for k, p in ranks[0]["model"].items())
+
+
+def test_remat_composes_with_data_parallel_accumulation_and_the_nan_skip(tmp_path):
+    """Two ranks, two micro-batches per rank, the step's own noise and rank
+    1's NaN half of the second step: with ModelConfig.remat every metric of
+    every step and both replicas' parameters equal the run without it, bit
+    for bit, and both runs skip the NaN step."""
+    from segclip_tpu_torch.models.segclip import init_segclip
+
+    base = {k: v for k, v in _step_inputs().items() if not k.startswith("noise/")}
+    init = init_segclip(tconfig.ModelConfig(**TINY_KW), seed=INIT_SEED).state_dict()
+    runs = []
+    for remat in (0, 1):
+        workdir = tmp_path / f"remat{remat}"
+        workdir.mkdir()
+        torch.save(init, workdir / "init.pt")
+        np.savez(workdir / "step_in.npz", **base, remat=np.asarray(remat), accum=np.asarray(2))
+        run_scenario("step", workdir)
+        runs.append([torch.load(workdir / f"step_{r}.pt", weights_only=True)
+                     for r in range(WORLD)])
+    for plain, remat in zip(*runs):
+        assert [m["skipped_nan"] for m in plain["metrics"]] == [0.0, 1.0, 0.0]
+        assert [list(m) for m in plain["metrics"]] == [list(m) for m in remat["metrics"]]
+        np.testing.assert_array_equal([list(m.values()) for m in plain["metrics"]],
+                                      [list(m.values()) for m in remat["metrics"]])
+        assert plain["step_count"] == remat["step_count"] == 2
+        for name, p in plain["model"].items():
+            assert torch.equal(p, remat["model"][name]), name
+    assert all(torch.equal(p, runs[1][1]["model"][k]) for k, p in runs[1][0]["model"].items())
 
 
 def test_loop_batches_per_rank_are_the_jax_shards(tmp_path):

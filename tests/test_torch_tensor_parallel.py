@@ -13,8 +13,11 @@ the port only; the JAX side runs in the test process.
   - three float32 steps at dp1 × tp2 (2 ranks) and dp2 × tp2 (4 ranks) equal
     `make_gspmd_train_step` with the same noise injected: losses rtol 1e-5,
     every gathered parameter within 1e-5, the model peers' replicated
-    parameters bit-identical; and at dp1 × tp2 with a 1-head visual tower,
-    whose attention stays replicated here (JAX splits it by width);
+    parameters bit-identical, the bytes all-reduced over the model row the
+    same each step; at dp1 × tp2 with a 1-head visual tower, whose
+    attention stays replicated here (JAX splits it by width); and at dp1 ×
+    tp2 with `remat` on both sides (the recompute runs the attention's
+    all-reduce again, in the same order on both ranks);
   - the train CLI at tp = 2 on 2 ranks is deterministic across runs, writes
     the tp = 1 layout, evaluates a full copy each epoch, resumes at tp = 2
     bit for bit, and its checkpoint resumes at tp = 1.
@@ -54,6 +57,7 @@ STEP_CASES = {
     "dp1_tp2": (1, 2, TP_KW),
     "dp2_tp2": (2, 2, {**TP_KW, "use_text_mae_recon": False}),
     "dp1_tp2_one_head": (1, 2, {**TP_KW, "vision_width": 64}),
+    "dp1_tp2_remat": (1, 2, {**TP_KW, "remat": True}),
 }
 B = 4
 T_TOTAL = 100
@@ -113,6 +117,7 @@ def _rank_roundtrip(rank, workdir, case):
 
 
 def _rank_step(rank, workdir, case):
+    from segclip_tpu_torch.models import layers
     from segclip_tpu_torch.parallel import gspmd
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
     cfg = _train_config(STEP_CASES[case][2])
@@ -126,15 +131,20 @@ def _rank_step(rank, workdir, case):
     rows = slice(dist.data_rank() * b, (dist.data_rank() + 1) * b)
     noise = {k: torch.from_numpy(inp[f"noise/{k}"][rows]) for k in
              ("gumbel", "gumbel_mae", "mask_vis", "mask_txt")}
-    metrics = []
+    metrics, sent, checkpointed = [], [], 0
     for i in range(int(inp["steps"])):
         batch = {k: torch.from_numpy(inp[f"{i}/{k}"][rows]) for k in
                  ("input_ids", "attention_mask", "image", "image_seg")}
         for k in ("input_ids", "attention_mask", "image_seg"):
             batch[k] = batch[k].long()
-        metrics.append({k: float(v) for k, v in step(state, batch, noise).items()})
+        before = gspmd.model_group_sum.bytes
+        with mock.patch.object(layers, "checkpoint", wraps=layers.checkpoint) as ckpt:
+            metrics.append({k: float(v) for k, v in step(state, batch, noise).items()})
+        sent.append(gspmd.model_group_sum.bytes - before)
+        checkpointed += ckpt.call_count
     full, _ = gspmd.gather_state_dict(model)
-    torch.save({"metrics": metrics, "full": full, "local": model.state_dict(),
+    torch.save({"metrics": metrics, "bytes": sent, "checkpointed": checkpointed,
+                "full": full, "local": model.state_dict(),
                 "sharded": sorted(n for n, s in specs.items() if s is not None),
                 "grid": (dist.data_rank(), dist.model_rank())},
                os.path.join(workdir, f"step_{rank}.pt"))
@@ -365,6 +375,9 @@ def test_steps_equal_the_jax_gspmd_step(tmp_path, case):
             np.testing.assert_allclose(tm[key], jm[key], rtol=LOSS_RTOL,
                                        err_msg=f"step {i} {key}")
     assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    # every all-reduce counted, the recompute's too: the same bytes each step
+    assert all(len(set(r["bytes"])) == 1 and r["bytes"][0] > 0 for r in ranks)
+    assert all((r["checkpointed"] > 0) == kw.get("remat", False) for r in ranks)
     ref = state_dict_from_jax(jfinal, kw["vision_patch_size"])
     for name, p in ranks[0]["full"].items():
         np.testing.assert_allclose(p.numpy(), ref[name].numpy(), atol=PARAM_TOL, rtol=0,
