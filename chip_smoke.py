@@ -1,16 +1,18 @@
 """Drive the PyTorch port's zero-shot segmentation path, its training step,
 pretraining through the CLI on its three input transports, checkpoint
 ingest, the demo, the sharded evaluator, data- and tensor-parallel
-training, the studies that load a model, the device-side transforms and
+training, the studies that load a model, the device-side transforms,
 block rematerialisation with the JAX package's memory-bound training
-configurations on one CUDA card (an H100), and check them.
+configurations, ViT-B/32 and the JAX package's 12-step training trajectory
+on one CUDA card (an H100), and check them.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
 
   1. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, at every shape of both paths (phase 12's configurations
+     card, at every shape of both paths (phase 12's configurations, phase
+     13's ViT-B/32 eval and training shapes and phase 14's tiny ones
      included), in float32 (TF32 off) and bfloat16,
      with the tolerance stated beside each, and the time per call by CUDA
      events: the attention forward (eval shapes, and training shapes with P
@@ -107,12 +109,33 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      to the logged mIoU); and, in phase 9's ranks, the dp1 × tp2 bf16 steps
      again with remat (losses against those without, bytes all-reduced per
      step);
+ 13. ViT-B/32 (CLIP_ARCH_PRESETS, patch 32: 7 × 7 patches at 224 px), bf16
+     from a seeded init: phase 2's requests (224×224 whole, 224×448 slide,
+     a group map) with each request's launches equal to the path's count
+     and its attention shapes among phase 1's; phase 5's float32 B = 2
+     step on the card against the CPU; 1 + 5 steps of `make_train_step` at
+     B = 96 (finite losses, launches per step, the first step's kernel
+     shapes among phase 1's, warm step time, img/s and own peak memory
+     beside phase 4's ViT-B/16); `cli.train --preset shapes-learnability
+     --clip-arch ViT-B/32 --epochs 1` on phase 6's corpus and default
+     transport (yuv420) with per-epoch eval on the card (launches per step,
+     per eval request and outside them; model.pt of ViT-B/32's shapes
+     evaluating to the logged mIoU);
+ 14. the drift trajectory: tests/test_training_drift.py's 12 float32 steps
+     (its tiny config, batch and schedule) from tests/fixtures/torch_drift.npz
+     (JAX's init, batch and each step's Gumbel and masking draws, recorded
+     by tests/test_torch_drift.py), TF32 off, every step's loss within rtol
+     5e-4 of JAX's (the JAX test's own bound; the worst gap per step
+     printed), launches per step equal to the path's count;
+every earlier phase runs as before and holds every kernel against its
+plain version as before;
 then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
 kernel names), at the phase-1 shapes, each beside its bound
 (segclip_tpu_torch/ops/kernels/bounds.py); a profile of three warm requests,
-of one training step and of one B = 512 step with remat. The build prints
+of one training step, of one B = 512 step with remat and of one ViT-B/32
+step at B = 96. The build prints
 each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
 instructions (HMMA) in each kernel; the bf16 attention kernels and the
 bf16 grouping kernel must have some. The profiles list the port's own
@@ -133,8 +156,10 @@ both ranks of its CLI run included), "train_dp" (phase 9, both ranks),
 "train_tp" (phase 9's dp1 × tp2 steps, with and without remat, and CLI
 run, both ranks), "studies" (phase 10, every study), "train_remat" (phase
 12's B = 96 and 256 runs, both ways), "train_b512", "train_l14",
-"train_448" and "train_cli_runM" (phase 12)), and as its last line
-{"ok": true, "device": {...}}.
+"train_448" and "train_cli_runM" (phase 12), "eval_b32", "train_b32" and
+"train_cli_b32" (phase 13), "drift" (phase 14)), each kernel's figures at
+its ViT-B/32 training (or slide eval) shape as "b32_*", and as its last
+line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -195,6 +220,12 @@ ATTN_CASES = (
     ("studies group stage 16x8x8 (classprobe)", 16, 8, 8, 12, None, "self"),
     ("studies text 6x77 causal (shape bank)", 6, 77, 77, 8, "causal", "self"),
     ("studies text 48x77 causal (composed bank)", 48, 77, 77, 8, "causal", "self"),
+    # phase 13's ViT-B/32 requests: 7 × 7 patches per 224-px window
+    ("b32 vision 1x49 (whole 224x224)", 1, 49, 49, 12, None, "self"),
+    ("b32 vision 2x49 (slide, 2 windows)", 2, 49, 49, 12, None, "self"),
+    ("b32 cross 1x8x57", 1, 8, 57, 12, None, "cross"),
+    ("b32 cross 2x8x57", 2, 8, 57, 12, None, "cross"),
+    ("group stage 1x8x8 (whole)", 1, 8, 8, 12, None, "self"),
 )
 # Attention shapes of the training step at B = 96: forward with P saved
 # and backward. The grouping path's vision blocks, cross blocks and group
@@ -242,6 +273,8 @@ GROUP_CASES = (
     ("eval 1x8x294x768 (whole 224x336)", 1, 8, 294, 768),
     ("sharded eval 11x8x196x768", SHARDED_MAX_WINDOWS, 8, 196, 768),
     ("studies 16x8x196x768 (classprobe)", 16, 8, 196, 768),
+    ("b32 eval 2x8x49x768 (slide)", 2, 8, 49, 768),
+    ("b32 eval 1x8x49x768 (whole 224x224)", 1, 8, 49, 768),
 )
 GROUP_ST_CASES = (
     ("train 96x8x196x768", 96, 8, 196, 768),
@@ -265,6 +298,18 @@ LARGE_CONFIGS = {
     "448": ("ViT-B/16", {"image_resolution": 448}, 24),
 }
 LARGE_PROFILED = ("b512", "l14", "448")
+# Phase 13: ViT-B/32 (CLIP_ARCH_PRESETS: patch 32, a 7 × 7 grid at 224 px),
+# what `cli.train --clip-arch ViT-B/32` trains, from a seeded init at
+# TRAIN_BATCH; phase 1 checks its training shapes and profiles those of its
+# vision and cross blocks and of its Gumbel grouping.
+B32_ARCH = "ViT-B/32"
+# Phase 14: the JAX package's 12-step float32 trajectory
+# (tests/test_training_drift.py), its init, batch and every step's random
+# draws recorded from JAX's own run by tests/test_torch_drift.py; each
+# step's loss must stay within that test's bound of JAX's.
+DRIFT_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                             "fixtures", "torch_drift.npz")
+DRIFT_RTOL = 5e-4
 LARGE_STEPS = 3             # timed, after one cold step
 LARGE_REPS = 10             # CUDA-event calls per phase-1 time at these shapes
 # Remat against no remat at B = 96: bit for bit is expected (the same ops
@@ -575,8 +620,10 @@ def phase_kernels(dev) -> tuple:
                                 plain=plain, library=None,
                                 work=(*bounds.group_assign_work(n, g, l, d, dtype, False),
                                       dtype)))
-            if name == GROUP_CASES[0][0] and dtype == torch.bfloat16:
-                summary["grouping"] = dict(max_abs_err=out_err, timing=len(timings) - 1)
+            if name in (GROUP_CASES[0][0], "b32 eval 2x8x49x768 (slide)") \
+                    and dtype == torch.bfloat16:
+                summary["grouping" if name == GROUP_CASES[0][0] else "b32_grouping"] = dict(
+                    max_abs_err=out_err, timing=len(timings) - 1)
     training_kernels(dev, gen, summary, timings)
     repaired_fault(dev)
     return summary, timings
@@ -599,11 +646,16 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                                         group_assign_st_plain)
 
     large_attn, large_gumbel, profiled = (), (), set()
-    for name, (_, _, b) in LARGE_CONFIGS.items():
-        attn, gumbel = step_shapes(name, large_config(name, True), b)
+    drift = drift_fixture()
+    configs = [(name, large_config(name, True), b) for name, (_, _, b) in LARGE_CONFIGS.items()]
+    configs += [("b32", b32_config(), TRAIN_BATCH),
+                ("drift", drift["cfg"].model, drift["batch"]["image"].shape[0])]
+    shapes = {name: step_shapes(name, cfg, b) for name, cfg, b in configs}
+    for name, (attn, gumbel) in shapes.items():
         large_attn, large_gumbel = large_attn + attn, large_gumbel + gumbel
-        if name in LARGE_PROFILED:                  # the vision and cross blocks, both paths
+        if name in LARGE_PROFILED + ("b32",):       # the vision and cross blocks, both paths
             profiled.update(c[0] for c in attn[:2] + gumbel)
+    b32_attn, b32_gumbel = shapes["b32"]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
         for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES + large_attn:
@@ -657,15 +709,19 @@ def training_kernels(dev, gen, summary, timings) -> None:
             if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention_fwd_train"] = dict(max_abs_err=out_err,
                                                       timing=len(timings) - 1)
+            if case == b32_attn[0] and dtype == torch.bfloat16:
+                summary["b32_attention_fwd"] = dict(max_abs_err=out_err,
+                                                    timing=len(timings) - 1)
             timings.append(dict(
                 name=f"attention bwd {case[0]} {dname}", kernel=bwd, plain=bwd_plain,
                 work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
                 library=sdpa_library(q, k, v, b2, bb, do), pair=len(timings) - 1))
-            if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
-                summary["attention_bwd"] = dict(
-                    max_abs_err=max((g.float() - r.float()).abs().max().item()
-                                    for g, r in zip(grads, grads_ref)),
-                    timing=len(timings) - 1)
+            if (case is TRAIN_ATTN_CASES[0] or case == b32_attn[0]) \
+                    and dtype == torch.bfloat16:
+                summary["attention_bwd" if case is TRAIN_ATTN_CASES[0] else "b32_attention_bwd"] \
+                    = dict(max_abs_err=max((g.float() - r.float()).abs().max().item()
+                                           for g, r in zip(grads, grads_ref)),
+                           timing=len(timings) - 1)
 
         for name, n, g, l, d in GROUP_ST_CASES + large_gumbel:
             reps = LARGE_REPS if name in {c[0] for c in large_gumbel} else 50
@@ -715,9 +771,10 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                 plain=plain, library=None,
                                 work=(*bounds.group_assign_work(n, g, l, d, dtype, True),
                                       dtype)))
-            if dtype == torch.bfloat16 and name in (GROUP_ST_CASES[0][0], GROUP_ST_CASES[1][0]):
-                key = "grouping_st" if name == GROUP_ST_CASES[0][0] else "grouping_st_mae"
-                summary[key] = dict(max_abs_err=out_err, timing=len(timings) - 1)
+            keys = {GROUP_ST_CASES[0][0]: "grouping_st", GROUP_ST_CASES[1][0]: "grouping_st_mae",
+                    b32_gumbel[0][0]: "b32_grouping_st"}
+            if dtype == torch.bfloat16 and name in keys:
+                summary[keys[name]] = dict(max_abs_err=out_err, timing=len(timings) - 1)
 
 
 def repaired_fault(dev) -> None:
@@ -865,12 +922,71 @@ def large_config(name: str, remat: bool):
     return model_config_for(arch, remat=remat, **overrides)
 
 
+def b32_config():
+    """The ViT-B/32 preset's ModelConfig."""
+    from segclip_tpu_torch.config import model_config_for
+    return model_config_for(B32_ARCH)
+
+
+def drift_fixture(path: str = DRIFT_FIXTURE) -> dict:
+    """The recorded trajectory: "cfg" (the port's Config of the JAX run),
+    "t_total", "seed", "sd" (the JAX init in the reference layout), "batch",
+    "noise" (each of NOISE_KEYS stacked over the steps) and "losses" (JAX's,
+    one per step), as CPU tensors."""
+    from segclip_tpu_torch.config import Config, ModelConfig, OptimConfig
+
+    with np.load(path) as f:
+        data = {k: f[k] for k in f.files}
+    meta = json.loads(str(data.pop("config")))
+    out = {"cfg": Config(model=ModelConfig(**meta["model"]),
+                         optim=OptimConfig(**meta["optim"])),
+           "t_total": meta["t_total"], "seed": meta["seed"],
+           "losses": [float(x) for x in data.pop("losses")]}
+    for group in ("sd", "batch", "noise"):
+        out[group] = {k.split("/", 1)[1]: torch.from_numpy(v) for k, v in data.items()
+                      if k.startswith(group + "/")}
+    out["batch"] = {k: v if v.is_floating_point() else v.long()
+                    for k, v in out["batch"].items()}
+    return out
+
+
+def drift_replay(dev, fixture: dict) -> dict:
+    """The fixture's steps of make_train_step on `dev` from its init, on its
+    batch, with its draws injected: each step's loss, skip flag and
+    launches, and the first step's kernel shapes."""
+    from segclip_tpu_torch.checkpoint.convert import load_into
+    from segclip_tpu_torch.models.segclip import SegCLIP
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    cfg = fixture["cfg"]
+    model = SegCLIP(cfg.model)
+    check(load_into(model, fixture["sd"]) == [], "the fixture's state dict does not fit")
+    model = model.to(dev)
+    step = make_train_step(model, create_optimizer(model, cfg, t_total=fixture["t_total"]),
+                           cfg)
+    state = TrainState(step=0, seed=fixture["seed"])
+    batch = {k: v.to(dev) for k, v in fixture["batch"].items()}
+    out = {"loss": [], "skipped": [], "counts": []}
+    for i in range(len(fixture["losses"])):
+        noise = {k: v[i].to(dev) for k, v in fixture["noise"].items()}
+        reset_counters()
+        with ShapeProbe() as shapes:
+            metrics = step(state, batch, noise)
+        out["counts"].append(read_counters())
+        out["loss"].append(float(metrics["loss"]))
+        out["skipped"].append(float(metrics["skipped_nan"]))
+        if i == 0:
+            out["shapes"] = (shapes.attn, shapes.gumbel)
+    return out
+
+
 def step_shapes(name: str, cfg, b: int) -> tuple:
     """The kernels' shapes in one training step of `cfg` at batch b:
     attention cases (phase 1's form) of the grouping path's vision blocks,
     cross blocks (G centres over G + L) and group stage, the masked
-    forward's kept patches (layers0, layers_mae2) and cross blocks, and the
-    text blocks; the Gumbel grouping's (N, G, L, D) of both paths."""
+    forward's kept patches (layers0, layers_mae2) and cross blocks, the
+    text blocks and, with text MAE, the masked text forward's kept tokens;
+    the Gumbel grouping's (N, G, L, D) of both paths."""
     l, g, h, d = cfg.num_patches, cfg.group_num, cfg.vision_heads, cfg.vision_width
     kept = int((l + 1) * (1 - cfg.mae_vis_mask_ratio)) - 1
     t, th = cfg.max_words, cfg.transformer_heads
@@ -880,6 +996,9 @@ def step_shapes(name: str, cfg, b: int) -> tuple:
             (f"{name} MAE vision {b}x{kept} H{h}", b, kept, kept, h, None, "self"),
             (f"{name} MAE cross {b}x{g}x{g + kept} H{h}", b, g, g + kept, h, None, "cross"),
             (f"{name} text {b}x{t} causal H{th}", b, t, t, th, "causal", "self"))
+    if cfg.use_text_mae_recon:
+        kt = int(t * (1 - cfg.mae_seq_mask_ratio))
+        attn += ((f"{name} text MAE {b}x{kt} causal H{th}", b, kt, kt, th, "causal", "self"),)
     gumbel = ((f"{name} {b}x{g}x{l}x{d}", b, g, l, d),
               (f"{name} MAE {b}x{g}x{kept}x{d}", b, g, kept, d))
     return attn, gumbel
@@ -950,7 +1069,7 @@ def phase_train(dev) -> tuple:
           f"steps: state {state.step}, optimizer {optimizer.step_count}")
     print(f"  {len(frozen)} frozen tensors bit-identical, every trainable tensor moved; "
           f"launches over {1 + TRAIN_STEPS} steps {totals}")
-    return model, step, state, batch, totals, statistics.median(warm)
+    return model, step, state, batch, totals, statistics.median(warm), peak
 
 
 class GroupingProbe:
@@ -971,15 +1090,16 @@ class GroupingProbe:
         self.records.append((output[1].detach().cpu(), (top2[:, 0] - top2[:, 1]).cpu()))
 
 
-def phase_train_plain_self(dev, model) -> None:
+def phase_train_plain_self(dev, model, mcfg=None, phase: int = 5, remat: bool = True) -> None:
     """Phase 5: one float32 training step at full width, B = 2, with the
     same injected noise on the card and on the CPU; and (phase 12) the
-    card's step with remat against the same CPU step."""
+    card's step with remat against the same CPU step. Phase 13 runs it at
+    ViT-B/32 (`mcfg`, `model` of that config) without the remat step."""
     from segclip_tpu_torch.config import Config, ModelConfig
     from segclip_tpu_torch.models.segclip import SegCLIP
     from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 
-    mcfg = ModelConfig(compute_dtype="float32")
+    mcfg = dataclasses.replace(mcfg or ModelConfig(), compute_dtype="float32")
     b, g, l = 2, mcfg.group_num, mcfg.num_patches
     kept = int((l + 1) * (1 - mcfg.mae_vis_mask_ratio)) - 1
     rng = np.random.default_rng(5)
@@ -988,7 +1108,8 @@ def phase_train_plain_self(dev, model) -> None:
     noise = {k: torch.from_numpy(v.astype(np.float32)) for k, v in noise.items()}
     batch = synthetic_batch(b, mcfg, 1, "cpu")
     runs = []
-    for device, remat in ((dev, False), (dev, True), (torch.device("cpu"), False)):
+    variants = ((dev, False), (dev, True)) if remat else ((dev, False),)
+    for device, remat in variants + ((torch.device("cpu"), False),):
         cfg = Config(model=dataclasses.replace(mcfg, remat=remat))
         m = SegCLIP(cfg.model)
         m.load_state_dict(model.state_dict())
@@ -1008,7 +1129,7 @@ def phase_train_plain_self(dev, model) -> None:
                      {n: p.grad.detach().cpu() for n, p in m.named_parameters()
                       if p.grad is not None}))
     loss_cpu, rec_cpu, grads_cpu = runs[-1]
-    for (loss_gpu, rec_gpu, grads_gpu), what in zip(runs, ("card", "card with remat")):
+    for (loss_gpu, rec_gpu, grads_gpu), what in zip(runs[:-1], ("card", "card with remat")):
         rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
         n_near = n_bad = 0
         for (hard_gpu, _), (hard_cpu, margin) in zip(rec_gpu, rec_cpu):
@@ -1016,7 +1137,7 @@ def phase_train_plain_self(dev, model) -> None:
             differ = (hard_gpu != hard_cpu).any(dim=1)
             n_near += int(near.sum())
             n_bad += int((differ & ~near).sum())
-        print(f"phase {5 if what == 'card' else 12}: float32 training step, B=2, {what} vs "
+        print(f"phase {phase if what == 'card' else 12}: float32 training step, B=2, {what} vs "
               f"CPU: loss {loss_gpu:.7f} / {loss_cpu:.7f} (rel {rel:.2e}); hard assignments "
               f"differ on {n_bad} clear patches, {n_near} near-tie patches (margin < "
               f"{NEAR_TIE:g})")
@@ -1283,7 +1404,7 @@ def print_profile(name: str, fn) -> None:
               for name, e in sorted(ours, key=lambda x: -x[1].self_device_time_total)))
 
 
-def phase_device_time(seg, requests, timings, train_step, large_step) -> list:
+def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) -> list:
     """Device time from torch.profiler, last: profiling slows the launches
     that follow it, so nothing is timed by the host clock after this. For
     each timing: the kernel's and the plain version's ms per call, the
@@ -1315,6 +1436,7 @@ def phase_device_time(seg, requests, timings, train_step, large_step) -> list:
         print_profile(name, fn)
     print_profile(f"training step B={TRAIN_BATCH}", train_step)
     print_profile("training step B=512 with remat (phase 12)", large_step)
+    print_profile(f"training step ViT-B/32 B={TRAIN_BATCH} (phase 13)", b32_step)
     return rows
 
 
@@ -2764,6 +2886,149 @@ def phase_runm(smi: str) -> dict:
     return counts
 
 
+def phase_b32(dev, smi: str, tmp: str, b16: dict) -> tuple:
+    """Phase 13: ViT-B/32 (the preset `--clip-arch ViT-B/32` selects) from a
+    seeded init, bf16: phase 2's eval requests (224×224 whole, 224×448 slide,
+    a group map) with their launches and kernel shapes; phase 5's float32
+    B = 2 step on the card against the CPU; 1 + TRAIN_STEPS steps at
+    TRAIN_BATCH beside phase 4's ViT-B/16 (`b16`: its warm ms and peak);
+    `cli.train --preset shapes-learnability --clip-arch ViT-B/32` for one
+    epoch of phase 6's corpus (<tmp>/shapes) on the CLI's default transport
+    with per-epoch eval on the card, its model.pt evaluating to the logged
+    mIoU. Returns the launch counts by path and the B = 96 step."""
+    from segclip_tpu_torch.cli import eval_zeroshot
+    from segclip_tpu_torch.cli import train as train_cli
+    from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
+    from segclip_tpu_torch.evalseg.text_bank import build_text_bank
+    from segclip_tpu_torch.models.segclip import SegCLIP, init_segclip
+
+    cfg = b32_config()
+    t_phase = time.perf_counter()
+    print(f"phase 13: ViT-B/32 ({smi}; patch {cfg.vision_patch_size}, "
+          f"{cfg.grid_size}x{cfg.grid_size} patches at {cfg.image_resolution} px)")
+    counts = {}
+    model = init_segclip(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(13)
+    img_224 = rng.standard_normal((224, 224, 3), dtype=np.float32)
+    img_224x448 = rng.standard_normal((224, 448, 3), dtype=np.float32)
+    reset_counters()
+    bank = build_text_bank(model, VOC_CLASSES, "simple", cfg.context_length)
+    seg = ZeroShotSegmenter(model, bank, with_bg=True, bg_thresh=VOC_BG_THRESH,
+                            patch_size=cfg.vision_patch_size)
+    requests = (
+        ("224x224 whole", lambda: seg.predict(img_224, (224, 224), "whole"), (224, 224),
+         len(VOC_CLASSES) + 1),
+        ("224x448 slide (2 windows)", lambda: seg.predict(img_224x448, (224, 448), "slide"),
+         (224, 448), len(VOC_CLASSES) + 1),
+        ("224x224 group_map", lambda: seg.group_map(img_224), (224, 224), cfg.group_num))
+    expected = eval_request_counts(cfg)
+    checked = {(c[1], c[2], c[3], c[4]) for c in ATTN_CASES}
+    for name, fn, shape, upper in requests:
+        before = read_counters()
+        with ShapeProbe() as shapes:
+            pred, cold_ms = timed(fn)
+        per_request = counter_delta(before)
+        print(f"  eval {name}: cold {cold_ms:.1f} ms, labels {np.unique(pred).size} distinct; "
+              f"launches {per_request}; attention shapes {sorted(shapes.attn)}")
+        check(pred.shape == shape and pred.dtype == np.int32 and pred.min() >= 0
+              and pred.max() < upper, f"ViT-B/32 {name}: {pred.shape} {pred.dtype}")
+        check(per_request == expected, f"ViT-B/32 {name}: launches {per_request}, "
+                                       f"expected {expected}")
+        check(shapes.attn <= checked, f"ViT-B/32 {name}: attention at {shapes.attn - checked}, "
+                                      "shapes phase 1 did not check")
+    counts["eval_b32"] = read_counters()
+    want = {k: 3 * n for k, n in expected.items()}
+    want["attention_fwd"] += cfg.transformer_layers            # the text bank
+    check(counts["eval_b32"] == want, f"ViT-B/32 eval path launches {counts['eval_b32']}, "
+                                      f"expected {want}")
+    for name, fn, _, _ in requests:                           # warm latency, uncounted
+        warm = sorted(timed(fn)[1] for _ in range(5))
+        print(f"  eval {name}: warm median {warm[2]:.2f} ms (min {warm[0]:.2f}, max "
+              f"{warm[-1]:.2f}, 5 runs)")
+    check(np.isfinite(seg.whole(img_224)).all(), "ViT-B/32: non-finite logits")
+
+    phase_train_plain_self(dev, model, cfg, phase=13, remat=False)
+    del model, seg, bank
+
+    run = train_run(dev, "b32", cfg, TRAIN_BATCH, TRAIN_STEPS, keep=True)
+    report_run(B32_ARCH, TRAIN_BATCH, False, run)
+    med = statistics.median(run["ms"][1:])
+    print(f"  beside phase 4's ViT-B/16 at B={TRAIN_BATCH}: {med:.2f} against "
+          f"{b16['warm_ms']:.2f} ms per step, {TRAIN_BATCH * 1e3 / med:.1f} against "
+          f"{TRAIN_BATCH * 1e3 / b16['warm_ms']:.1f} img/s; own peak "
+          f"{run['peak_mib'] - run['held_mib']:.0f} MiB (ViT-B/16's peak {b16['peak_mib']:.0f})")
+    counts["train_b32"] = {k: sum(c[k] for c in run["counts"]) for k in run["counts"][0]}
+    b32_step = run.pop("step")
+    del run
+
+    data, out = os.path.join(tmp, "shapes"), os.path.join(tmp, "b32")
+    argv = ["--preset", "shapes-learnability", "--clip-arch", B32_ARCH, "--data-dir", data,
+            "--epochs", "1", "--num-workers", "0", "--n-display", "1", "--output-dir", out]
+    with CountingPath() as path:
+        reset_counters()
+        t0 = time.perf_counter()
+        result = train_cli.main(argv)
+        run_s = time.perf_counter() - t0
+        counts["train_cli_b32"] = read_counters()
+    del result
+    torch.cuda.empty_cache()
+    logged = read_metrics(out)
+    losses = [m["loss"] for m in logged if "loss" in m]
+    mious = [m["miou"] for m in logged if "miou" in m]
+    model_pt = os.path.join(out, "ckpt_epoch_0", "model.pt")
+    saved = torch.load(model_pt, weights_only=True)
+    want = {k: tuple(v.shape) for k, v in SegCLIP(cfg).state_dict().items()}
+    layout = {k: tuple(v.shape) for k, v in saved.items()} == want
+    del saved
+    single = eval_zeroshot.main(["--dataset", "shapes", "--data-root",
+                                 os.path.join(data, "eval"), "--init-model", model_pt,
+                                 "--output-dir", os.path.join(tmp, "b32_eval")])
+    print(f"  cli.train {' '.join(argv[:6])} --epochs 1 (yuv420, the CLI's default): "
+          f"{run_s:.1f} s; losses {' '.join(f'{v:.5f}' for v in losses)}; Time/step "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in log_step_times(out))} ms; mIoU "
+          f"{' '.join(f'{v:.4f}' for v in mious)}; model.pt of ViT-B/32's shapes: {layout}; "
+          f"its one-process eval mIoU {single['mIoU']:.4f}; launches per step "
+          f"{path.steps[0] if path.steps else None}")
+    check(len(losses) == 2 == len(path.steps) and all(np.isfinite(losses)),
+          f"ViT-B/32 CLI losses {losses}, {len(path.steps)} steps")
+    check(len(mious) == 1 and np.isfinite(mious[0]), f"ViT-B/32 CLI mIoU lines {mious}")
+    check(layout, "the ViT-B/32 run's model.pt is not of ViT-B/32's shapes")
+    check(abs(single["mIoU"] - mious[-1]) <= SHARDED_MIOU_TOL,
+          f"the ViT-B/32 model.pt evaluates to {single['mIoU']}, the run logged {mious[-1]}")
+    check_cli_launches("ViT-B/32 run", cfg, path, counts["train_cli_b32"], 1)
+    shutil.rmtree(out)
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return counts, b32_step
+
+
+def phase_drift(dev, smi: str) -> dict:
+    """Phase 14: the JAX package's 12-step float32 trajectory replayed on the
+    card from tests/fixtures/torch_drift.npz, TF32 off: every step's loss
+    within DRIFT_RTOL of JAX's, its launches equal to the path's count and
+    its kernel shapes among phase 1's. Returns the launches of the run."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    fixture = drift_fixture()
+    cfg, ref = fixture["cfg"], fixture["losses"]
+    run = drift_replay(dev, fixture)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(run["loss"], ref)]
+    expected = train_path_counts(cfg.model)
+    attn, gumbel = step_shapes("drift", cfg.model, fixture["batch"]["image"].shape[0])
+    print(f"phase 14: the JAX package's 12-step trajectory on the card ({smi}; float32, TF32 "
+          f"off, JAX's draws): losses {' '.join(f'{v:.6f}' for v in run['loss'])}; relative "
+          f"gap to JAX's per step {' '.join(f'{g:.2e}' for g in gaps)} (worst {max(gaps):.2e}, "
+          f"bound {DRIFT_RTOL:g}); launches per step {run['counts'][0]}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(len(run["loss"]) == len(ref) and max(gaps) <= DRIFT_RTOL,
+          f"drift: the losses leave JAX's trajectory: gaps {gaps}")
+    check(not any(run["skipped"]), f"drift: skipped steps {run['skipped']}")
+    check(all(c == expected for c in run["counts"]),
+          f"drift: launches per step {run['counts']}, expected {expected}")
+    check(run["shapes"] == ({(c[1], c[2], c[3], c[4]) for c in attn}, {c[1:] for c in gumbel}),
+          f"drift: kernel shapes {run['shapes']}, phase 1 checked {attn}, {gumbel}")
+    return {"drift": {k: sum(c[k] for c in run["counts"]) for k in expected}}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["study"]:                   # phase 10's subprocesses
         return study_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
@@ -2798,7 +3063,7 @@ def main() -> int:
     cfg = ModelConfig()
     model, seg, requests, eval_counts, per_request = phase_slice(dev, cfg)
     phase_plain_self(dev, model, cfg)
-    train_model, step, state, batch, train_counts, warm_step_ms = phase_train(dev)
+    train_model, step, state, batch, train_counts, warm_step_ms, train_peak = phase_train(dev)
     per_step = train_path_counts(cfg)
     phase_train_plain_self(dev, train_model)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2808,10 +3073,14 @@ def main() -> int:
         dp_counts, dp_eval_counts, tp_counts = phase_data_parallel(
             dev, tmp, smi, warm_step_ms, voc, model_path, eval_one)
         studies_counts = phase_studies(smi, tmp)
+        b32_counts, b32_step = phase_b32(dev, smi, tmp, {"warm_ms": warm_step_ms,
+                                                         "peak_mib": train_peak})
     phase_transports(dev, smi, transport_batches)
     remat_counts, b512_step = phase_remat(dev, smi)
     runm_counts = phase_runm(smi)
-    rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step)
+    drift_counts = phase_drift(dev, smi)
+    rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
+                             b32_step)
 
     kernels = []
     for name, src, tpu, key, counter in (
@@ -2819,6 +3088,10 @@ def main() -> int:
             ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd", "attention_bwd"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
+        b32 = summary[{"attention_fwd_train": "b32_attention_fwd",
+                       "attention_bwd": "b32_attention_bwd", "grouping": "b32_grouping",
+                       "grouping_st": "b32_grouping_st"}[key]]
+        b32_row = rows[b32["timing"]]
         t = timings[summary[key]["timing"]]
         row = rows[summary[key]["timing"]]
         by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
@@ -2828,7 +3101,9 @@ def main() -> int:
                    "train_dp": dp_counts[counter], "train_tp": tp_counts[counter],
                    "studies": studies_counts[counter],
                    **{path: c[counter] for path, c in remat_counts.items()},
-                   "train_cli_runM": runm_counts[counter]}
+                   "train_cli_runM": runm_counts[counter],
+                   **{path: c[counter] for path, c in b32_counts.items()},
+                   "drift": drift_counts["drift"][counter]}
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=per_step[counter],
@@ -2851,6 +3126,12 @@ def main() -> int:
                                      f"under autograd ({row['library_backend']}); "
                                      "compare with pair_ms")
             entry["pair_ms"] = row["pair_ms"]
+        entry.update(b32_shape=timings[b32["timing"]]["name"], b32_max_abs_err=b32["max_abs_err"],
+                     b32_ms=b32_row["ms"], b32_plain_ms=b32_row["plain_ms"],
+                     b32_library_ms=b32_row["library_ms"], b32_bound_ms=b32_row["bound_ms"],
+                     b32_bound_by=b32_row["bound_by"])
+        if name == "attention_bwd":
+            entry["b32_pair_ms"] = b32_row["pair_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

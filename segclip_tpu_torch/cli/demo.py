@@ -28,6 +28,7 @@ from segclip_tpu_torch.evalseg.datasets import (DATASET_SPECS, PIXEL_MEAN, PIXEL
                                                 SegEvalDataset, keep_ratio_resize,
                                                 normalize_pixels)
 from segclip_tpu_torch.evalseg.visualize import save_visualization
+from segclip_tpu_torch.models.segclip import check_kernel_fields
 from segclip_tpu_torch.utils.device import resolve_device
 from segclip_tpu_torch.utils.logging import get_logger
 
@@ -81,6 +82,7 @@ def main(argv=None):
     for item in args.opts:
         cfg = apply_overrides(cfg, [item])
 
+    check_kernel_fields(cfg, logger.info)
     model, cfg = load_model(args.init_model, cfg, device)
     spec = DATASET_SPECS[args.dataset]
     segmenter = build_segmenter(model, cfg, spec)

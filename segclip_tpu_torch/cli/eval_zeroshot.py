@@ -26,6 +26,7 @@ from segclip_tpu_torch.cli.common import load_model
 from segclip_tpu_torch.evalseg.inference import (ZeroShotSegmenter, evaluate_dataset,
                                                  evaluate_dataset_sharded)
 from segclip_tpu_torch.evalseg.text_bank import build_text_bank
+from segclip_tpu_torch.models.segclip import check_kernel_fields
 from segclip_tpu_torch.parallel import dist
 from segclip_tpu_torch.utils.logging import get_logger
 
@@ -107,6 +108,7 @@ def _evaluate(args, device):
     if args.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
 
+    check_kernel_fields(cfg, logger.info)
     model, cfg = load_model(args.init_model, cfg, device)
     spec = DATASET_SPECS[args.dataset]
     world = dist.world_size()

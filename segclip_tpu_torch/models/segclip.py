@@ -38,6 +38,35 @@ MAX_MASK_CLASS = 31
 # the MAE path's Gumbel noise (B, G, L) and (B, G, L_kept), and the masking
 # noise of the vision (B, 1+L) and text (B, L) MAE forwards.
 NOISE_KEYS = ("gumbel", "gumbel_mae", "mask_vis", "mask_txt")
+# The attention routes the JAX package's ModelConfig.attention_impl names
+# (segclip_tpu/ops/attention.py:63-66, 102-103). The port accepts the same
+# values and, like grouping_impl, routes by the tensors' device instead: its
+# kernels on CUDA tensors, their plain versions on the CPU.
+ATTENTION_IMPLS = ("xla", "pallas_vmem")
+KERNEL_FIELDS = ("attention_impl", "grouping_impl")
+
+
+def check_attention_impl(cfg: ModelConfig) -> None:
+    """Raise, with the JAX package's message, for an attention_impl it
+    refuses."""
+    if cfg.attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"attention impl {cfg.attention_impl!r} removed — XLA wins at SegCLIP's "
+            f"sequence lengths (docs/PERF.md, 'Attention kernel selection')")
+
+
+def check_kernel_fields(cfg: ModelConfig, log_fn) -> None:
+    """What an entry point does with KERNEL_FIELDS: raise for an
+    attention_impl the JAX package refuses, and log one line for each field
+    set away from its default, since the route does not follow it."""
+    check_attention_impl(cfg)
+    default = ModelConfig()
+    for name in KERNEL_FIELDS:
+        value = getattr(cfg, name)
+        if value != getattr(default, name):
+            log_fn(f"model.{name}={value} is ignored: the port launches its kernels on "
+                   f"CUDA tensors and their plain versions on the CPU, whatever the "
+                   f"field says")
 
 
 def info_nce_pair(text_feat: torch.Tensor, vis_feat: torch.Tensor,
@@ -134,6 +163,7 @@ class SegCLIP(nn.Module):
         if cfg.compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
+        check_attention_impl(cfg)
         self.cfg = cfg
         dtype = DTYPES[cfg.compute_dtype]
         self.clip = CLIPModule(

@@ -10,8 +10,9 @@ import torch
 
 from segclip_tpu_torch.cli.common import load_model
 from segclip_tpu_torch.config import ModelConfig, apply_overrides
-from segclip_tpu_torch.models.segclip import SegCLIP
+from segclip_tpu_torch.models.segclip import SegCLIP, check_kernel_fields
 from segclip_tpu_torch.utils.device import resolve_device
+from segclip_tpu_torch.utils.logging import get_logger
 
 # The from-scratch shapes recipe's switches, every study's starting point
 # before the checkpoint's shapes and the --opts overrides.
@@ -31,6 +32,7 @@ def load_study_model(ckpt: Optional[str], device_name: str, opts: Sequence[str] 
     None: the seeded random init) on it, in eval mode."""
     device = resolve_device(device_name)
     cfg = apply_overrides(ModelConfig(**STUDY_MODEL, **fields), list(opts))
+    check_kernel_fields(cfg, get_logger().info)
     t0 = time.perf_counter()
     model, cfg = load_model(ckpt, cfg, device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"

@@ -32,7 +32,9 @@ and rank 0 evaluates a full copy of it.
 Refused with a message rather than run otherwise: a tensor parallelism
 that does not divide the world size, and a `train.data_parallelism` other
 than -1 or world // tensor parallelism. `data.packed_transfer` has no
-meaning here (each field is copied through pinned memory) and is ignored.
+meaning here (each field is copied through pinned memory) and is ignored,
+as are `model.attention_impl` and `model.grouping_impl` (one log line each
+when set; an attention_impl the JAX package refuses raises).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from segclip_tpu_torch.checkpoint.io import (auto_resume_path, restore_checkpoin
                                              save_checkpoint)
 from segclip_tpu_torch.config import Config
 from segclip_tpu_torch.data.pipeline import BatchLoader, ShardedEpochSampler, build_dataset
-from segclip_tpu_torch.models.segclip import SegCLIP, init_segclip
+from segclip_tpu_torch.models.segclip import SegCLIP, check_kernel_fields, init_segclip
 from segclip_tpu_torch.parallel import dist, gspmd
 from segclip_tpu_torch.parallel.prefetch import prefetch_to_device
 from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
@@ -90,6 +92,7 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
     if cfg.data.packed_transfer:
         logger.info("data.packed_transfer is ignored: the port copies each batch "
                     "field through pinned memory (ROADMAP.md, 'do not port')")
+    check_kernel_fields(cfg.model, logger.info)
 
     # The pipeline ships uint8 images; the train step normalizes on device.
     factory = functools.partial(

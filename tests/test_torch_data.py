@@ -153,7 +153,7 @@ def test_seg_map_codec(binary):
     (0.1, 0.9, 0.8, 0.2), (0.8, 0.9, 0.1, 0.2), (0.5, 0.5, 0.505, 0.9),
     (0.3, 0.6, 0.9, 0.6)],
     ids=["whole", "crop", "flip-h", "flip-v", "flip-both", "degenerate-w", "degenerate-h"])
-@pytest.mark.parametrize("size, patch", [(224, 16), (64, 8)])
+@pytest.mark.parametrize("size, patch", [(224, 16), (64, 8), (224, 32)])
 def test_crop_seg_from_cache(coord, size, patch):
     seg = np.random.default_rng(6).integers(0, 500, (131, 97)).astype(np.int32)
     coord = np.asarray(coord, np.float32)
@@ -304,19 +304,27 @@ def corpus(tmp_path_factory):
     return str(root)
 
 
-@pytest.mark.parametrize("datatype, workers, transport", [
-    ("shapes", 0, "rgb"), ("shapes", 2, "rgb"), ("synthetic", 0, "rgb"),
-    ("shapes,synthetic", 0, "rgb"), ("shapes", 0, "yuv420"), ("shapes", 2, "yuv420"),
-    ("shapes", 0, "device_aug"), ("shapes", 2, "device_aug")])
-def test_batch_loader_batches_equal_jax(corpus, datatype, workers, transport):
+# (datatype, workers, transport, image size, patch): 64 / 8, and ViT-B/32's
+# 224 / 32 (a 7 × 7 superpixel grid) in each transport
+LOADER_CASES = [
+    ("shapes", 0, "rgb", 64, 8), ("shapes", 2, "rgb", 64, 8), ("synthetic", 0, "rgb", 64, 8),
+    ("shapes,synthetic", 0, "rgb", 64, 8), ("shapes", 0, "yuv420", 64, 8),
+    ("shapes", 2, "yuv420", 64, 8), ("shapes", 0, "device_aug", 64, 8),
+    ("shapes", 2, "device_aug", 64, 8), ("shapes", 0, "rgb", 224, 32),
+    ("shapes", 0, "yuv420", 224, 32), ("shapes", 0, "device_aug", 224, 32)]
+
+
+@pytest.mark.parametrize("datatype, workers, transport, size, patch", LOADER_CASES, ids=[
+    "-".join(map(str, c[:3])) + ("" if c[4] == 8 else f"-patch{c[4]}") for c in LOADER_CASES])
+def test_batch_loader_batches_equal_jax(corpus, datatype, workers, transport, size, patch):
     """Two epochs of BatchLoader.epoch on the same corpus, seed and sampler,
     in each transport (rgb crops; yuv420's Y and CbCr planes; device_aug's
     canvas, window and transposed flag): the same batches, keys, dtypes and
     bits."""
     kw = dict(datatype=datatype, data_dir=corpus, batch_size=4, max_words=16,
               **TRANSPORTS[transport])
-    factory_kw = dict(use_seg=True, normalize=False, vocab_size=49408, image_size=64,
-                      patch_size=8, emit_class_ids=datatype == "shapes")
+    factory_kw = dict(use_seg=True, normalize=False, vocab_size=49408, image_size=size,
+                      patch_size=patch, emit_class_ids=datatype == "shapes")
     batches = []
     for pipe, config in ((jpipe, jconfig), (tpipe, tconfig)):
         cfg = config.DataConfig(**kw)
@@ -333,6 +341,8 @@ def test_batch_loader_batches_equal_jax(corpus, datatype, workers, transport):
     assert len(out) == len(ref) == 2 * (len(dataset) // 4)
     assert {"rgb": "image", "yuv420": "image_y", "device_aug": "image_window"}[transport] \
         in out[0]
+    if "image_seg" in out[0]:
+        assert out[0]["image_seg"].shape[1:] == (size // patch,) * 2
     for a, b in zip(ref, out):
         assert list(b) == list(a)
         for key in a:
