@@ -18,8 +18,11 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      events: the attention forward (eval shapes, and training shapes with P
      saved), the attention backward, the eval grouping and the Gumbel
      (training) grouping at each of their shapes, each grouping call run
-     twice and required to give the same bits; and the repaired fault: on
-     CUDA, the outputs of
+     twice and required to give the same bits; at every bf16 shape the
+     one-pass forward takes (Lk ≤ its limit), the two-pass forward too, on
+     the same inputs and held to the same rules, each call's route read from
+     the route counters; the host time per forward call (enqueue only) of
+     each route; and the repaired fault: on CUDA, the outputs of
      `attention` and `group_assign` require grad when their inputs do;
   2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
      seeded random init; a 20-class text bank; four requests through
@@ -35,7 +38,8 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      `make_train_step`: finite losses, frozen parameters bit-identical,
      trainable ones moved, per-step launch counters equal to the path's
      count (attention forward and backward, Gumbel grouping, and the MAE
-     decoder's plain-route attention), warm step time and peak memory;
+     decoder's plain-route attention), every forward on the one-pass
+     kernel, warm step time and peak memory;
   5. the training step against its plain self: one float32 step at full
      width with B = 2 and injected noise, on the card and on the CPU;
   6. pretraining through the CLI from SGR records: `prepare_data shapes`
@@ -133,12 +137,20 @@ then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
 kernel names), at the phase-1 shapes, each beside its bound
-(segclip_tpu_torch/ops/kernels/bounds.py); a profile of three warm requests,
+(segclip_tpu_torch/ops/kernels/bounds.py) and, where the one-pass forward
+ran, the two-pass forward's time, which must be the longer (the two
+measured in turns, three rounds each, medians compared); a kernel time
+under its bound is profiled again and fails the run if it stays there (unless
+the work fits in the L2 cache); a profile of three warm requests,
 of one training step, of one B = 512 step with remat and of one ViT-B/32
 step at B = 96. The build prints
 each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
-instructions (HMMA) in each kernel; the bf16 attention kernels and the
-bf16 grouping kernel must have some. The profiles list the port's own
+instructions (HMMA, HGMMA) and TMA instructions in each kernel; the bf16
+attention kernels and the bf16 grouping kernel must have tensor-core
+instructions, and the one-pass forward HGMMA and TMA ones too. The forward's
+launches by route (one-pass, two-pass) are printed per phase of the main
+path (phases 2-14; phase 9's ranks and phase 10's studies report their
+own); both routes must have launched. The profiles list the port's own
 kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
 
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
@@ -147,7 +159,10 @@ kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
 Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, whether cv2 is importable, one JSON line of
 kernel results ("ms", "plain_ms", "library_ms", "bound_ms" at each
-kernel's main shape, and the Gumbel grouping's at the MAE shape as
+kernel's main shape: the one-pass forward ("attention_fwd_one_pass", with
+"two_pass_ms" and "host_us") at 96x196 with P, the two-pass forward
+("attention_fwd") at 448 px's 24x784 with P, whose launches are counted
+by route per phase as above; the Gumbel grouping's at the MAE shape as
 "mae_*"; launches per training step
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
 "train_cli" (phase 6's run A), "train_cli_device_aug" (phase 6's run C,
@@ -365,6 +380,9 @@ TRAIN_GRAD_TOL = 1e-4
 E2E_PIXEL_TOL = 1e-3        # a pixel agrees if every class logit is within this
 E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
 PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
+L2_BYTES = 50e6             # the H100's L2 cache
+HOST_ROUNDS = 5             # rounds of host_us per forward route
+ROUTE_ROUNDS = 3            # rounds, in turns, of the one-pass and two-pass device times
 # Phase 6: the shapes corpus (96 scenes, two captions each: 192 samples, two
 # B = 96 steps per epoch) and its eval split; the loader timed alone over
 # LOADER_EPOCHS warm epochs after a cold one, once in each transport (as the
@@ -526,6 +544,50 @@ def attention_inputs(case, dtype, dev, gen):
     return q, k, v, bias2d, biasb
 
 
+def check_route(case, dtype, before: dict) -> str:
+    """The route one forward call took (from the route counters moved since
+    `before`), which must be the one `fwd_route` names for its dtype and Lk
+    with the library's limit."""
+    from segclip_tpu_torch.ops.kernels.attention import fwd_route, one_pass_limit
+    moved = {k: n - before[k] for k, n in read_routes().items()}
+    route = fwd_route(dtype, case[3], one_pass_limit())
+    check(moved == {"one_pass": int(route == "one_pass"), "two_pass": int(route == "two_pass")},
+          f"attention {case[0]} {dtype}: routes moved {moved}, expected one {route} launch")
+    return route
+
+
+def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 50) -> tuple:
+    """At a bf16 shape the one-pass kernel takes: the two-pass kernel on the
+    same inputs, held to the plain version by the same rules (max |err| and
+    the >1-ulp share of out, and of P when saved). Returns its call and a
+    note with its time per call by CUDA events."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_fwd_two_pass
+    from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
+    fn = functools.partial(attention_fwd_two_pass, *inputs, save_p=save_p)
+    out, p = fn()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    shares = [bf16_share(out, ref)] + ([bf16_share(p, p_ref)] if save_p else [])
+    check(err <= ATTN_TOL[torch.bfloat16], f"two-pass {case[0]}: err {err}")
+    for (sh, _), what in zip(shares, ("out", "P")):
+        check(sh <= ATTN_BF16_SHARE, f"two-pass {case[0]} bf16 {what}: share {sh}")
+    return fn, (f"; two-pass err {err:.3e}, >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
+                + f", {call_ms(fn, reps=reps):.4f} ms")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call with nothing waited for (enqueue only), µs."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def phase_kernels(dev) -> tuple:
     """Phase 1: each kernel against its plain version at the path's shapes.
     Returns the main-shape summary and the calls to time on the device."""
@@ -552,7 +614,9 @@ def phase_kernels(dev) -> tuple:
     for dtype in (torch.float32, torch.bfloat16):
         for case in ATTN_CASES:
             q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
+            routes = read_routes()
             out = attention(q, k, v, b2, bb)
+            route = check_route(case, dtype, routes)
             ref = attention_plain(q, k, v, b2, bb)
             torch.cuda.synchronize()
             check(torch.isfinite(out).all().item(), f"attention {case[0]}: non-finite")
@@ -560,6 +624,9 @@ def phase_kernels(dev) -> tuple:
             kernel = functools.partial(attention, q, k, v, b2, bb)
             plain = functools.partial(attention_plain, q, k, v, b2, bb)
             call, plain_call = call_ms(kernel), call_ms(plain)
+            two_pass, two_note = None, ""
+            if route == "one_pass":
+                two_pass, two_note = two_pass_beside(case, (q, k, v, b2, bb), False, ref, None)
             _, b, lq, lk, h, bias, _ = case
             work = bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=False,
                                              bias2d=b2 is not None, biasb=bb is not None)
@@ -572,11 +639,11 @@ def phase_kernels(dev) -> tuple:
                             f"{ulps.max().item():.1f} ulps)")
                 check(share <= ATTN_BF16_SHARE,
                       f"attention {case[0]} bf16: {share} of outputs > 1 ulp")
-            print(f"  attention {case[0]:34s} {str(dtype)[6:]:8s} err {err:.3e} "
-                  f"(tol {tol:g}){ulp_note}  {call:.4f} / {plain_call:.4f} ms")
+            print(f"  attention {case[0]:34s} {str(dtype)[6:]:8s} {route} err {err:.3e} "
+                  f"(tol {tol:g}){ulp_note}  {call:.4f} / {plain_call:.4f} ms{two_note}")
             check(err <= tol, f"attention {case[0]} {dtype}: err {err} > {tol}")
             timings.append(dict(name=f"attention {case[0]} {str(dtype)[6:]}", kernel=kernel,
-                                plain=plain, work=(*work, dtype),
+                                plain=plain, work=(*work, dtype), two_pass=two_pass,
                                 library=sdpa_library(q, k, v, b2, bb)))
             if case is ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention"] = dict(max_abs_err=err, timing=len(timings) - 1)
@@ -625,8 +692,30 @@ def phase_kernels(dev) -> tuple:
                 summary["grouping" if name == GROUP_CASES[0][0] else "b32_grouping"] = dict(
                     max_abs_err=out_err, timing=len(timings) - 1)
     training_kernels(dev, gen, summary, timings)
+    host_costs(dev, gen, summary)
     repaired_fault(dev)
     return summary, timings
+
+
+def host_costs(dev, gen, summary) -> None:
+    """Host µs per forward call (enqueue only, nothing waited for) at the
+    B = 96 vision shape with P, through the routed wrapper and through each
+    route's own function; into summary["host_us"]."""
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd, attention_fwd_one_pass,
+                                                         attention_fwd_two_pass)
+    q, k, v, b2, bb = attention_inputs(TRAIN_ATTN_CASES[0], torch.bfloat16, dev, gen)
+    calls = {name: functools.partial(fn, q, k, v, b2, bb, save_p=True)
+             for name, fn in (("attention_fwd", attention_fwd),
+                              ("one_pass", attention_fwd_one_pass),
+                              ("two_pass", attention_fwd_two_pass))}
+    times = {name: [] for name in calls}
+    for i in range(HOST_ROUNDS):               # in turns, the order reversed every round
+        for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+            times[name].append(host_us(calls[name]))
+    summary["host_us"] = {name: statistics.median(t) for name, t in times.items()}
+    print(f"  host time per forward call at {TRAIN_ATTN_CASES[0][0]} with P (enqueue only; "
+          f"median of {HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
+              f"{k} {v:.1f} us" for k, v in summary["host_us"].items()))
 
 
 def bf16_share(out, ref) -> tuple:
@@ -661,7 +750,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
         for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES + large_attn:
             reps = LARGE_REPS if case in large_attn else 50
             q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
+            routes = read_routes()
             out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
+            route = check_route(case, dtype, routes)
             ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
             do = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
             grads = attention_bwd(p, do, q, k, v)
@@ -690,10 +781,14 @@ def training_kernels(dev, gen, summary, timings) -> None:
             bwd = functools.partial(attention_bwd, p, do, q, k, v)
             bwd_plain = functools.partial(attention_bwd_plain, p, do, q, k, v)
             times = [call_ms(f, reps=reps) for f in (fwd, fwd_plain, bwd, bwd_plain)]
-            print(f"  attention {case[0]:34s} {dname:8s} fwd err {out_err:.3e}, P err "
+            two_pass, two_note = None, ""
+            if route == "one_pass":
+                two_pass, two_note = two_pass_beside(case, (q, k, v, b2, bb), True, ref, p_ref,
+                                                     reps)
+            print(f"  attention {case[0]:34s} {dname:8s} fwd ({route}) err {out_err:.3e}, P err "
                   f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
                   f"{note}  fwd {times[0]:.4f} / {times[1]:.4f} ms, bwd "
-                  f"{times[2]:.4f} / {times[3]:.4f} ms")
+                  f"{times[2]:.4f} / {times[3]:.4f} ms{two_note}")
             if case in TRAIN_DP_ATTN_CASES or (case in TRAIN_TP_ATTN_CASES
                                                and case[1] != TRAIN_BATCH) or (
                     case in large_attn and not (case[0] in profiled
@@ -702,6 +797,7 @@ def training_kernels(dev, gen, summary, timings) -> None:
             _, b, lq, lk, h, bias, _ = case
             timings.append(dict(
                 name=f"attention fwd+P {case[0]} {dname}", kernel=fwd, plain=fwd_plain,
+                two_pass=two_pass,
                 work=(*bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=True,
                                                  bias2d=b2 is not None,
                                                  biasb=bb is not None), dtype),
@@ -712,6 +808,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
             if case == b32_attn[0] and dtype == torch.bfloat16:
                 summary["b32_attention_fwd"] = dict(max_abs_err=out_err,
                                                     timing=len(timings) - 1)
+            if case == shapes["448"][0][0] and dtype == torch.bfloat16:   # Lk 784: two-pass
+                summary["attention_fwd_two_pass"] = dict(max_abs_err=out_err,
+                                                         timing=len(timings) - 1)
             timings.append(dict(
                 name=f"attention bwd {case[0]} {dname}", kernel=bwd, plain=bwd_plain,
                 work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
@@ -813,6 +912,32 @@ def reset_counters() -> None:
     attention.launches = attention_bwd.launches = 0
     group_assign.launches = group_assign_st.launches = 0
     plain_route.calls = 0
+
+
+def reset_routes() -> None:
+    """Zero the forward's route counters (reset_counters leaves them, so
+    that they add up over the whole main path)."""
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_one_pass,
+                                                         attention_fwd_two_pass)
+    attention_fwd_one_pass.launches = attention_fwd_two_pass.launches = 0
+
+
+def read_routes() -> dict:
+    """Forward launches by route in this process: {"one_pass": n, "two_pass": n}."""
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_one_pass,
+                                                         attention_fwd_two_pass)
+    return {"one_pass": attention_fwd_one_pass.launches,
+            "two_pass": attention_fwd_two_pass.launches}
+
+
+def add_routes(into: dict, more: dict) -> None:
+    for key, n in more.items():
+        into[key] = into.get(key, 0) + n
+
+
+# Forward launches by route made in other processes of the main path (phase
+# 9's ranks, phase 10's studies), added as their results come back.
+ROUTES_ELSEWHERE = {"one_pass": 0, "two_pass": 0}
 
 
 def read_counters() -> dict:
@@ -1042,9 +1167,14 @@ def phase_train(dev) -> tuple:
     totals, times = {}, []
     for i in range(1 + TRAIN_STEPS):
         reset_counters()
+        routes = read_routes()
         metrics, ms = timed(lambda: step(state, batch))
         counts = read_counters()
+        routes = {k: n - routes[k] for k, n in read_routes().items()}
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
+        check(routes == {"one_pass": expected["attention_fwd"], "two_pass": 0},
+              f"step {i}: forward launches by route {routes}, expected every one of the "
+              f"{expected['attention_fwd']} on the one-pass kernel")
         for key, n in counts.items():
             totals[key] = totals.get(key, 0) + n
         values = {k: float(v) for k, v in metrics.items()}
@@ -1052,7 +1182,7 @@ def phase_train(dev) -> tuple:
         check(values["skipped_nan"] == 0.0, f"step {i} was skipped")
         times.append(ms)
         print(f"  step {i} ({'cold' if i == 0 else 'warm'}): {ms:.1f} ms; " + ", ".join(
-            f"{k} {v:.5f}" for k, v in values.items()))
+            f"{k} {v:.5f}" for k, v in values.items()) + f"; forward launches by route {routes}")
     warm = sorted(times[1:])
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     print(f"  warm step time: median {statistics.median(warm):.2f} ms (min {warm[0]:.2f}, "
@@ -1404,6 +1534,42 @@ def print_profile(name: str, fn) -> None:
               for name, e in sorted(ours, key=lambda x: -x[1].self_device_time_total)))
 
 
+def routes_in_turns(t: dict, bound: float) -> tuple:
+    """The one-pass and the two-pass kernel's device ms per call at one
+    shape: each measured ROUTE_ROUNDS times (kernel_ms), the two in turns,
+    and the median of each. One profile that reads slow (a stray record, a
+    clock still rising) then decides nothing; every round is printed where
+    the rounds of one kernel differ by more than a fifth."""
+    rounds = {"one-pass": [], "two-pass": []}
+    for _ in range(ROUTE_ROUNDS):
+        rounds["one-pass"].append(kernel_ms(t["name"], t["kernel"], bound, t["work"][0]))
+        rounds["two-pass"].append(kernel_ms(t["name"] + " (two-pass)", t["two_pass"], bound,
+                                            t["work"][0]))
+    for route, times in rounds.items():
+        if max(times) > 1.2 * min(times):
+            print(f"  ({t['name']}, {route}: rounds {' '.join(f'{x:.4f}' for x in times)} ms; "
+                  "the median is kept)")
+    return statistics.median(rounds["one-pass"]), statistics.median(rounds["two-pass"])
+
+
+def kernel_ms(name: str, fn, bound: float, nbytes: float) -> float:
+    """A kernel's device ms per call (device_ms). A time under its bound is
+    a lost profiler record, so it is measured again, PROFILE_TRIES times at
+    most; if every try reads under the bound, the phase fails, unless the
+    work's bytes fit in the L2 cache: then the inputs may sit there from the
+    call before and the HBM bound does not bind, which is printed."""
+    for _ in range(PROFILE_TRIES):
+        ms = device_ms(fn)[0]
+        if ms >= bound:
+            return ms
+        print(f"  ({name}: {ms:.4f} ms reads under its bound {bound:.4f}: measured again)")
+    check(nbytes <= L2_BYTES, f"{name}: {ms:.4f} ms under its bound {bound:.4f} in "
+          f"{PROFILE_TRIES} profiles")
+    print(f"  ({name}: {nbytes / 1e6:.1f} MB of work fits the {L2_BYTES / 1e6:.0f} MB L2; "
+          "its inputs stay there between calls and the HBM bound does not bind)")
+    return ms
+
+
 def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) -> list:
     """Device time from torch.profiler, last: profiling slows the launches
     that follow it, so nothing is timed by the host clock after this. For
@@ -1416,9 +1582,13 @@ def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) 
           "against the kernels' fwd+P + bwd pair)")
     rows = []
     for t in timings:
-        row = dict(ms=device_ms(t["kernel"])[0], plain_ms=device_ms(t["plain"])[0],
-                   library_ms=None, library_backend=None)
+        row = dict(plain_ms=device_ms(t["plain"])[0], library_ms=None, library_backend=None,
+                   two_pass_ms=None)
         row["bound_ms"], row["bound_by"] = bound_ms(*t["work"])
+        if t.get("two_pass") is None:
+            row["ms"] = kernel_ms(t["name"], t["kernel"], row["bound_ms"], t["work"][0])
+        else:
+            row["ms"], row["two_pass_ms"] = routes_in_turns(t, row["bound_ms"])
         if t["library"] is not None:
             row["library_ms"], top = device_ms(t["library"])
             row["library_backend"] = sdpa_backend(top)
@@ -1428,9 +1598,14 @@ def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) 
         if "pair" in t:
             row["pair_ms"] = rows[t["pair"]]["ms"] + row["ms"]
             pair = f"; fwd+P + bwd pair {row['pair_ms']:.4f}"
+        two = ("" if row["two_pass_ms"] is None else
+               f"; two-pass {row['two_pass_ms']:.4f} ({row['two_pass_ms'] / row['ms']:.2f}x)")
         print(f"  {t['name']:58s} {row['ms']:.4f} / {row['plain_ms']:.4f} / {lib}; "
               f"bound {row['bound_ms']:.4f} ({row['bound_by']}), kernel at "
-              f"{row['bound_ms'] / row['ms']:.1%} of it{pair}")
+              f"{row['bound_ms'] / row['ms']:.1%} of it{pair}{two}")
+        if row["two_pass_ms"] is not None:
+            check(row["ms"] < row["two_pass_ms"], f"{t['name']}: the one-pass kernel "
+                  f"({row['ms']:.4f} ms) is not faster than the two-pass ({row['two_pass_ms']:.4f})")
         rows.append(row)
     for name, fn, _, _ in requests[:3]:
         print_profile(name, fn)
@@ -1458,6 +1633,7 @@ def kernel_name(mangled: str) -> str:
     args = ["bf16"] if "__nv_bfloat16" in names else (
         ["float"] if re.search(r"If[EL]", mangled) else [])
     args += ["true" if flag == "1" else "false" for flag in re.findall(r"Lb([01])E", mangled)]
+    args += re.findall(r"Li(\d+)E", mangled)
     return f"{name}<{', '.join(args)}>" if args else name
 
 
@@ -1469,38 +1645,51 @@ def print_ptxas(log: str) -> None:
             if name:
                 print(f"  ptxas: {kernel_name(name):34s} " + "; ".join(notes))
             name, notes = line.split("'")[1], []
-        elif name and ("registers" in line or "spill" in line):
+        elif name and ("Used " in line or "spill" in line):
             notes.append(line.split(":", 1)[-1].strip())
 
 
 def tensor_core_counts(library) -> dict:
-    """Where cuobjdump exists: the HMMA (tensor-core) instructions in each
-    kernel's SASS, printed; the bf16 attention kernels and the bf16
-    grouping kernel's 16-byte path must have some. Returns {"attention_fwd":
-    n, "attention_bwd": n, "group_assign": n, "group_assign_st": n} (empty
-    without cuobjdump)."""
+    """Where cuobjdump exists: the tensor-core (HMMA, HGMMA) and TMA
+    (UTMALDG, UTMASTG, UBLKCP) instructions in each kernel's SASS, printed;
+    the bf16 attention kernels and the bf16 grouping kernel's 16-byte path
+    must have tensor-core instructions, and every instance of the one-pass
+    forward HGMMA and TMA ones. Returns {"attention_fwd": n,
+    "attention_fwd_one_pass": n, "attention_bwd": n, "group_assign": n,
+    "group_assign_st": n} of tensor-core instructions (empty without
+    cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        print("  cuobjdump not found: tensor-core instructions not counted")
+        print("  cuobjdump not found: tensor-core and TMA instructions not counted")
         return {}
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, name = {}, None
+    counts, tma, name = {}, {}, None
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = kernel_name(found.group(1))
-            counts[name] = 0
+            counts[name], tma[name] = 0, 0
         elif name and re.search(r"\bHMMA\b|\bHGMMA\b", line):
             counts[name] += 1
+        elif name and re.search(r"\bUTMALDG\b|\bUTMASTG\b|\bUBLKCP\b", line):
+            tma[name] += 1
     print("  SASS tensor-core instructions (HMMA/HGMMA) per kernel: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
+    print("  SASS TMA instructions (UTMALDG/UTMASTG/UBLKCP) per kernel: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(tma.items()) if v))
     group = "group_assign_kernel<bf16, true>"
     for kernel in ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
                    "attention_bwd_dkv_bf16_kernel", group):
         check(counts.get(kernel, 0) > 0, f"{kernel}: no tensor-core instruction in its SASS")
+    one_pass = [k for k in counts if k.startswith("attention_fwd_one_pass_kernel")]
+    check(len(one_pass) == 4, f"one-pass kernel instances in the SASS: {one_pass}")
+    for kernel in one_pass:
+        check(counts[kernel] > 0 and tma[kernel] > 0,
+              f"{kernel}: {counts[kernel]} HGMMA and {tma[kernel]} TMA instructions in its SASS")
     return {"attention_fwd": counts["attention_fwd_bf16_kernel"],
+            "attention_fwd_one_pass": sum(counts[k] for k in one_pass),
             "attention_bwd": counts["attention_bwd_dq_bf16_kernel"]
             + counts["attention_bwd_dkv_bf16_kernel"],
             "group_assign": counts[group], "group_assign_st": counts[group]}
@@ -2045,6 +2234,7 @@ def dp_worker(rank: int, world: int, tmp: str, voc: str, model_path: str) -> Non
             contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
         try:
             result = dp_rank(rank, world, tmp, voc, model_path)
+            result["routes"] = read_routes()
         except BaseException:
             traceback.print_exc()
             raise
@@ -2081,6 +2271,7 @@ def run_ranks(world: int, args: tuple) -> list:
     for r in range(world):
         with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
             results.append(json.load(f))
+        add_routes(ROUTES_ELSEWHERE, results[-1]["routes"])
     return results
 
 
@@ -2391,7 +2582,7 @@ def study_worker(name: str, result: str, argv: list) -> int:
     reset_counters()
     report = module.main(argv)
     with open(result, "w") as f:
-        json.dump({"counts": read_counters(), "report": report}, f)
+        json.dump({"counts": read_counters(), "routes": read_routes(), "report": report}, f)
     return 0
 
 
@@ -2514,6 +2705,7 @@ def phase_studies(smi: str, tmp: str) -> dict:
         with open(result) as f:
             out = json.load(f)
         report, counts = out["report"], out["counts"]
+        add_routes(ROUTES_ELSEWHERE, out["routes"])
         check_report(name, report)
         notes = [line for line in proc.stdout.splitlines()
                  if line.startswith(("device ", f"{name}:"))]
@@ -3060,61 +3252,98 @@ def main() -> int:
     hmma = tensor_core_counts(build.build())
 
     summary, timings = phase_kernels(dev)
+    # the main path from here: the forward's launches by route, per phase
+    reset_routes()
+    marks = [("start", dict(ROUTES_ELSEWHERE))]
+
+    def mark(path: str) -> None:
+        now = read_routes()
+        add_routes(now, ROUTES_ELSEWHERE)
+        marks.append((path, now))
+
     cfg = ModelConfig()
     model, seg, requests, eval_counts, per_request = phase_slice(dev, cfg)
+    mark("eval")
     phase_plain_self(dev, model, cfg)
+    mark("eval_f32")
     train_model, step, state, batch, train_counts, warm_step_ms, train_peak = phase_train(dev)
+    mark("train")
     per_step = train_path_counts(cfg)
     phase_train_plain_self(dev, train_model)
+    mark("train_f32")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cli_counts, cli_c_counts, transport_batches = phase_train_cli(smi, warm_step_ms, tmp)
+        mark("train_cli")
         demo_counts, model_path = phase_ingest_demo(dev, model, tmp)
+        mark("demo")
         sharded_counts, eval_one, voc = phase_sharded_eval(dev, model, cfg, tmp, model_path)
+        mark("eval_sharded")
         dp_counts, dp_eval_counts, tp_counts = phase_data_parallel(
             dev, tmp, smi, warm_step_ms, voc, model_path, eval_one)
+        mark("train_dp_tp")
         studies_counts = phase_studies(smi, tmp)
+        mark("studies")
         b32_counts, b32_step = phase_b32(dev, smi, tmp, {"warm_ms": warm_step_ms,
                                                          "peak_mib": train_peak})
+        mark("b32")
     phase_transports(dev, smi, transport_batches)
     remat_counts, b512_step = phase_remat(dev, smi)
+    mark("remat_large")
     runm_counts = phase_runm(smi)
+    mark("train_cli_runM")
     drift_counts = phase_drift(dev, smi)
+    mark("drift")
+    routes = {path: {k: n - prev[k] for k, n in now.items()}
+              for (_, prev), (path, now) in zip(marks, marks[1:])}
+    print("forward launches by route on the main path, per phase: " + "; ".join(
+        f"{path} {r['one_pass']} one-pass / {r['two_pass']} two-pass"
+        for path, r in routes.items()))
+    for route in ("one_pass", "two_pass"):
+        check(sum(r[route] for r in routes.values()) > 0,
+              f"the {route} forward kernel was never launched on the main path")
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
                              b32_step)
 
     kernels = []
     for name, src, tpu, key, counter in (
-            ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "attention_fwd"),
+            ("attention_fwd_one_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "one_pass"),
+            ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_two_pass", "two_pass"),
             ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd", "attention_bwd"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
-        b32 = summary[{"attention_fwd_train": "b32_attention_fwd",
-                       "attention_bwd": "b32_attention_bwd", "grouping": "b32_grouping",
-                       "grouping_st": "b32_grouping_st"}[key]]
-        b32_row = rows[b32["timing"]]
         t = timings[summary[key]["timing"]]
         row = rows[summary[key]["timing"]]
-        by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
-                   "train_cli": cli_counts[counter],
-                   "train_cli_device_aug": cli_c_counts[counter], "demo": demo_counts[counter],
-                   "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
-                   "train_dp": dp_counts[counter], "train_tp": tp_counts[counter],
-                   "studies": studies_counts[counter],
-                   **{path: c[counter] for path, c in remat_counts.items()},
-                   "train_cli_runM": runm_counts[counter],
-                   **{path: c[counter] for path, c in b32_counts.items()},
-                   "drift": drift_counts["drift"][counter]}
+        if counter in ("one_pass", "two_pass"):
+            by_path = {path: r[counter] for path, r in routes.items()}
+            step_launches = per_step["attention_fwd"] if counter == "one_pass" else 0
+            request_launches = per_request["attention_fwd"] if counter == "one_pass" else 0
+        else:
+            by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
+                       "train_cli": cli_counts[counter],
+                       "train_cli_device_aug": cli_c_counts[counter],
+                       "demo": demo_counts[counter],
+                       "eval_sharded": sharded_counts[counter] + dp_eval_counts[counter],
+                       "train_dp": dp_counts[counter], "train_tp": tp_counts[counter],
+                       "studies": studies_counts[counter],
+                       **{path: c[counter] for path, c in remat_counts.items()},
+                       "train_cli_runM": runm_counts[counter],
+                       **{path: c[counter] for path, c in b32_counts.items()},
+                       "drift": drift_counts["drift"][counter]}
+            step_launches, request_launches = per_step[counter], per_request[counter]
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,
-                     launches_per_train_step=per_step[counter],
-                     launches_per_eval_request=per_request[counter],
+                     launches_per_train_step=step_launches,
+                     launches_per_eval_request=request_launches,
                      max_abs_err=summary[key]["max_abs_err"], shape=t["name"],
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=row["library_ms"],
                      library_call=None, hmma=hmma.get(name))
-        if name == "attention_fwd":
+        if name.startswith("attention_fwd"):
             entry["library_call"] = ("scaled_dot_product_attention forward, no P "
                                      f"({row['library_backend']})")
+            entry["host_us"] = summary["host_us"][counter]
+        if name == "attention_fwd_one_pass":
+            entry["two_pass_ms"] = row["two_pass_ms"]
         elif name == "group_assign_st":
             mae = summary["grouping_st_mae"]
             mae_row = rows[mae["timing"]]
@@ -3126,10 +3355,15 @@ def main() -> int:
                                      f"under autograd ({row['library_backend']}); "
                                      "compare with pair_ms")
             entry["pair_ms"] = row["pair_ms"]
-        entry.update(b32_shape=timings[b32["timing"]]["name"], b32_max_abs_err=b32["max_abs_err"],
-                     b32_ms=b32_row["ms"], b32_plain_ms=b32_row["plain_ms"],
-                     b32_library_ms=b32_row["library_ms"], b32_bound_ms=b32_row["bound_ms"],
-                     b32_bound_by=b32_row["bound_by"])
+        if name != "attention_fwd":            # the two-pass kernel takes no ViT-B/32 row
+            b32 = summary[{"attention_fwd_train": "b32_attention_fwd",
+                           "attention_bwd": "b32_attention_bwd", "grouping": "b32_grouping",
+                           "grouping_st": "b32_grouping_st"}[key]]
+            b32_row = rows[b32["timing"]]
+            entry.update(b32_shape=timings[b32["timing"]]["name"],
+                         b32_max_abs_err=b32["max_abs_err"], b32_ms=b32_row["ms"],
+                         b32_plain_ms=b32_row["plain_ms"], b32_library_ms=b32_row["library_ms"],
+                         b32_bound_ms=b32_row["bound_ms"], b32_bound_by=b32_row["bound_by"])
         if name == "attention_bwd":
             entry["b32_pair_ms"] = b32_row["pair_ms"]
         kernels.append(entry)

@@ -5,19 +5,28 @@ their plain PyTorch versions, and the autograd Function that joins them.
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 segclip_tpu/ops/pallas/attention.py (`attention_vmem` and its custom VJP).
 What bounds them on the H100 and what their design does about it is in the
-headers of the CUDA sources: at bfloat16 both kernels run their products on
+headers of the CUDA sources: at bfloat16 the kernels run their products on
 tensor cores and are bound by the bytes of Q, K, V, dO and the saved P;
-both read the q|k|v column views of the packed projection in place (a row
+they read the q|k|v column views of the packed projection in place (a row
 stride per operand), with no head transpose and no copy. At float32 they run
 fp32 FMAs (the parity path, no TF32).
+
+The forward has two kernels, and `fwd_route` picks one by dtype and Lk
+alone: bfloat16 rows of at most ONE_PASS_LIMIT keys (every row of the B = 96
+step and of the 224×224 request) go to the one-pass kernel (TMA copies,
+`wgmma`, whole score rows on chip); longer bf16 rows and every float32 call
+go to the two-pass kernel. Nothing falls back: a launch that fails raises.
+`attention.launches` counts every forward launch, and
+`attention_fwd_one_pass.launches` / `attention_fwd_two_pass.launches` each
+route's; those two functions launch their kernel directly.
 
 `attention` is differentiable on every device. Under autograd its forward
 saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
 the TPU kernel's VJP does. On the card P is a view of a (B, H, Lq, Lk8)
 buffer, Lk8 = Lk rounded up to 8, so every row starts on 16 bytes; the
 backward reads it through its strides, without a copy. Each wrapper
-(`attention_fwd`, `attention_bwd`) takes its plain version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+takes its plain version only for tensors on the CPU; for CUDA tensors it
+launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -31,6 +40,9 @@ from segclip_tpu_torch.kernels import build
 
 HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The longest rows (Lk) the bf16 one-pass kernel takes: ONE_PASS_LIMIT of
+# csrc/attention_fwd.cu, which the library reports (`one_pass_limit`).
+ONE_PASS_LIMIT = 256
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -127,6 +139,31 @@ def _fwd_entry():
 
 
 @lru_cache(maxsize=None)
+def _one_pass_entry():
+    fn = build.load().segclip_attention_fwd_one_pass
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def one_pass_limit() -> int:
+    """The longest Lk the one-pass kernel takes, as the library reports it
+    (`segclip_attention_fwd_one_pass_limit`); ONE_PASS_LIMIT mirrors it."""
+    fn = build.load().segclip_attention_fwd_one_pass_limit
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def fwd_route(dtype: torch.dtype, lk: int, limit: int = ONE_PASS_LIMIT) -> str:
+    """Which forward kernel takes a call on the card, by its dtype and Lk
+    alone: "one_pass" for bfloat16 rows of at most `limit` keys, else
+    "two_pass" (the longer bf16 rows and every float32 call)."""
+    return "one_pass" if dtype == torch.bfloat16 and lk <= limit else "two_pass"
+
+
+@lru_cache(maxsize=None)
 def _bwd_entry():
     fn = build.load().segclip_attention_bwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
@@ -217,21 +254,13 @@ def _kernel_do(do: torch.Tensor) -> torch.Tensor:
     return do if ok else do.clone(memory_format=torch.contiguous_format)
 
 
-def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias2d: Optional[torch.Tensor] = None,
-                  biasb: Optional[torch.Tensor] = None,
-                  scale: float = HEAD_DIM ** -0.5, save_p: bool = False
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel's wrapper: (out (B, Lq, H·64) contiguous in v's
-    dtype, P (B, H, Lq, Lk) in v's dtype if `save_p` else None; on the card
-    P is the view [..., :Lk] of a (B, H, Lq, Lk8) buffer). Not
-    differentiable itself; `attention` is."""
-    _check(q, k, v, bias2d, biasb)
-    device = _device_of(q, k, v, bias2d, biasb)
-    if device.type == "cpu":
-        out, p = attention_fwd_plain(q, k, v, bias2d, biasb, scale)
-        return out, (p if save_p else None)
-
+def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
+    """One launch of a forward kernel on CUDA tensors (checked): "one_pass"
+    (`segclip_attention_fwd_one_pass`, bf16, Lk ≤ the limit) or "two_pass"
+    (`segclip_attention_fwd`). Returns (out, P or None). The training step
+    is host-bound, so the stream comes as a raw handle and the device is
+    switched only when the tensors are not on the current one."""
+    device = q.device
     _unit_last_stride(q, k, v)
     if q.dtype == torch.bfloat16:
         _check_aligned(q, k, v)
@@ -240,21 +269,87 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, dm = q.shape
     lk = k.shape[1]
     heads = dm // HEAD_DIM
+    if route == "one_pass":
+        if q.dtype != torch.bfloat16 or lk > one_pass_limit():
+            raise ValueError(f"the one-pass kernel takes bfloat16 rows of at most "
+                             f"{one_pass_limit()} keys, got {q.dtype}, Lk = {lk}")
+        entry, dtype = _one_pass_entry(), ()
+    else:
+        entry, dtype = _fwd_entry(), (_DTYPES[q.dtype],)
     out = torch.empty((b, lq, dm), dtype=v.dtype, device=device)
     p = (torch.empty((b, heads, lq, _round8(lk)), dtype=v.dtype,
-                     device=device)[..., :lk] if save_p else None)
+                     device=device).narrow(3, 0, lk) if save_p else None)
     p_strides = p.stride()[:3] if save_p else (0, 0, 0)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = _fwd_entry()(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    args = (*dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias2d is None else bias2d.data_ptr(),
             None if biasb is None else biasb.data_ptr(), out.data_ptr(),
-            None if p is None else p.data_ptr(),
-            b, heads, lq, lk,
+            None if p is None else p.data_ptr(), b, heads, lq, lk,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), *p_strides, float(scale), stream)
-    build.check(err, "attention_fwd")
+            v.stride(0), v.stride(1), *p_strides, float(scale),
+            torch._C._cuda_getCurrentRawStream(device.index))
+    if device.index == torch.cuda.current_device():
+        err = entry(*args)
+    else:
+        with torch.cuda.device(device):
+            err = entry(*args)
+    build.check(err, f"attention_fwd ({route})")
+    return out, p
+
+
+def _fwd_route_call(route, q, k, v, bias2d, biasb, scale, save_p):
+    _check(q, k, v, bias2d, biasb)
+    if _device_of(q, k, v, bias2d, biasb).type == "cpu":
+        out, p = attention_fwd_plain(q, k, v, bias2d, biasb, scale)
+        return out, (p if save_p else None)
+    out, p = _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p)
+    _ROUTES[route].launches += 1
+    return out, p
+
+
+def attention_fwd_one_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias2d: Optional[torch.Tensor] = None,
+                           biasb: Optional[torch.Tensor] = None,
+                           scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The bf16 one-pass forward kernel alone (Lk ≤ the limit; it raises on
+    anything else), as `attention_fwd` returns; the plain version on the
+    CPU. `attention_fwd` routes to it; chip_smoke.py times it directly."""
+    return _fwd_route_call("one_pass", q, k, v, bias2d, biasb, scale, save_p)
+
+
+def attention_fwd_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias2d: Optional[torch.Tensor] = None,
+                           biasb: Optional[torch.Tensor] = None,
+                           scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The two-pass forward kernel alone (bf16 on tensor cores, float32 on
+    FMAs; any Lk), as `attention_fwd` returns; the plain version on the
+    CPU. `attention_fwd` routes to it; chip_smoke.py times it directly."""
+    return _fwd_route_call("two_pass", q, k, v, bias2d, biasb, scale, save_p)
+
+
+_ROUTES = {"one_pass": attention_fwd_one_pass, "two_pass": attention_fwd_two_pass}
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias2d: Optional[torch.Tensor] = None,
+                  biasb: Optional[torch.Tensor] = None,
+                  scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernels' wrapper: (out (B, Lq, H·64) contiguous in v's
+    dtype, P (B, H, Lq, Lk) in v's dtype if `save_p` else None; on the card
+    P is the view [..., :Lk] of a (B, H, Lq, Lk8) buffer). On the card the
+    call goes to the kernel `fwd_route` names for its dtype and Lk, with
+    the library's limit. Not differentiable itself; `attention` is."""
+    _check(q, k, v, bias2d, biasb)
+    device = _device_of(q, k, v, bias2d, biasb)
+    if device.type == "cpu":
+        out, p = attention_fwd_plain(q, k, v, bias2d, biasb, scale)
+        return out, (p if save_p else None)
+    limit = one_pass_limit() if q.dtype == torch.bfloat16 else ONE_PASS_LIMIT
+    route = fwd_route(q.dtype, k.shape[1], limit)
+    out, p = _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p)
+    _ROUTES[route].launches += 1
     attention.launches += 1
     return out, p
 
@@ -342,5 +437,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_fwd(q, k, v, bias2d, biasb, scale)[0]
 
 
-attention.launches = 0          # forward kernel launches
+attention.launches = 0          # forward kernel launches, both routes
+attention_fwd_one_pass.launches = 0     # forward launches of the one-pass kernel
+attention_fwd_two_pass.launches = 0     # forward launches of the two-pass kernels
 attention_bwd.launches = 0      # backward kernel launches

@@ -547,3 +547,134 @@ def test_group_assign_empty_group_and_exact_tie_both_forms(cuda, dtype, gumbel, 
     assert hard[0, 1].all() and not hard[0, 0].any() and not hard[0, 2].any()
     assert torch.equal(out[0, 1], v[0].float().mean(0).to(dtype))
     assert torch.equal(out[0, 0], torch.zeros(d, device=cuda, dtype=dtype))
+
+
+# The bf16 one-pass forward (csrc/attention_fwd.cu, attention_fwd_one_pass_kernel:
+# TMA copies, wgmma, whole score rows on chip) for Lk ≤ its limit, the
+# two-pass kernel above it. Each case runs both kernels on the same inputs
+# and holds each to the plain version (out and P, the bf16 share rule), and
+# the routed wrapper's call to the kernel `fwd_route` names.
+ONE_PASS_MAIN_PATH = [           # (B, Lq, Lk, H, bias, cross): the B = 96 step, the 224×224 request
+    (96, 196, 196, 12, None, False), (96, 8, 204, 12, None, True), (96, 8, 8, 12, None, False),
+    (96, 48, 48, 12, None, False), (96, 8, 56, 12, None, True), (96, 32, 32, 8, "causal", False),
+    (2, 196, 196, 12, None, False), (2, 8, 204, 12, None, True), (2, 8, 8, 12, None, False),
+    (20, 77, 77, 8, "causal", False), (32, 256, 256, 16, None, False),
+    (96, 49, 49, 12, None, False), (96, 8, 57, 12, None, True)]
+ONE_PASS_EDGES = [               # Lq across the 64-row tile, Lk not a multiple of 8 or 16
+    (2, lq, lk, 2, None, False) for lq in (1, 8, 63, 64, 65, 196)
+    for lk in (1, 13, 77, 100, 255, 256)]
+
+
+def _routes():
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_one_pass,
+                                                         attention_fwd_two_pass)
+    return attention_fwd_one_pass.launches, attention_fwd_two_pass.launches
+
+
+def _one_pass_case(cuda, b, lq, lk, h, bias, cross, seed):
+    q, k, v, bias2d, biasb, _ = _bf16_case(cuda, b, lq, lk, h, bias, seed)
+    if cross:                                      # q apart, k|v views of one projection
+        gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+        q = torch.randn(b, lq, h * 64, generator=gen, device=cuda).to(torch.bfloat16)
+    return q, k, v, bias2d, biasb
+
+
+@pytest.mark.parametrize("b, lq, lk, h, bias, cross", ONE_PASS_MAIN_PATH + ONE_PASS_EDGES)
+def test_bf16_one_pass_forward_matches_plain_and_the_two_pass_kernel(cuda, b, lq, lk, h,
+                                                                     bias, cross):
+    from segclip_tpu_torch.ops.kernels.attention import (ONE_PASS_LIMIT, attention_fwd_one_pass,
+                                                         attention_fwd_two_pass, one_pass_limit)
+    assert one_pass_limit() == ONE_PASS_LIMIT
+    q, k, v, bias2d, biasb = _one_pass_case(cuda, b, lq, lk, h, bias, cross, seed=lq * 7 + lk)
+    before, routes = attention.launches, _routes()
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    assert attention.launches == before + 1 and _routes() == (routes[0] + 1, routes[1])
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    eval_out, none = attention_fwd_one_pass(q, k, v, bias2d, biasb)
+    two, p_two = attention_fwd_two_pass(q, k, v, bias2d, biasb, save_p=True)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(eval_out, out)
+    for got, want in ((out, ref), (p, p_ref), (two, ref), (p_two, p_ref)):
+        assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[torch.bfloat16]
+        _assert_bf16_close(got, want)
+    lk8 = (lk + 7) // 8 * 8
+    full = p.as_strided((b, h, lq, lk8), p.stride())
+    assert torch.equal(full[..., lk:], torch.zeros_like(full[..., lk:]))
+
+
+@pytest.mark.parametrize("lk", [256, 257])
+def test_bf16_forward_route_at_the_limit(cuda, lk):
+    """Lk at the limit takes the one-pass kernel, one past it the two-pass
+    kernel; the one-pass function refuses what it does not take."""
+    from segclip_tpu_torch.ops.kernels.attention import (ONE_PASS_LIMIT, attention_fwd_one_pass,
+                                                         fwd_route)
+    q, k, v, _, _, _ = _bf16_case(cuda, 2, 33, lk, 2)
+    routes = _routes()
+    out = attention(q, k, v)
+    one = int(lk <= ONE_PASS_LIMIT)
+    assert fwd_route(torch.bfloat16, lk) == ("one_pass" if one else "two_pass")
+    assert _routes() == (routes[0] + one, routes[1] + 1 - one)
+    _assert_bf16_close(out, attention_plain(q, k, v))
+    if not one:
+        with pytest.raises(ValueError, match="one-pass"):
+            attention_fwd_one_pass(q, k, v)
+        with pytest.raises(ValueError, match="one-pass"):
+            attention_fwd_one_pass(q.float(), k.float(), v.float())
+
+
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+def test_bf16_one_pass_biases_and_masked_rows(cuda, bias):
+    """Causal bias2d, and padding biasb with whole rows at −1e6, through
+    the one-pass kernel; P read by the backward through its strides."""
+    q, k, v, bias2d, biasb, do = _bf16_case(cuda, 4, 77, 77, 8, bias, seed=3)
+    if biasb is not None:
+        biasb[1] = -1e6                            # a sample padded everywhere
+    routes = _routes()
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    assert _routes()[0] == routes[0] + 1
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref)
+    _assert_bf16_close(p, p_ref)
+    from segclip_tpu_torch.ops.kernels.attention import _kernel_p
+    assert _kernel_p(p) is p
+    for g, r in zip(attention_bwd(p, do, q, k, v), attention_bwd_plain(p, do, q, k, v)):
+        _assert_bf16_close(g, r)
+
+
+def test_bf16_one_pass_fully_masked_row_is_nan_like_softmax(cuda):
+    q, k, v, _, _, _ = _bf16_case(cuda, 1, 70, 100, 1)
+    bias2d = torch.zeros(70, 100, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    routes = _routes()
+    out, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    assert _routes()[0] == routes[0] + 1
+    ref, _ = attention_fwd_plain(q, k, v, bias2d)
+    assert torch.isnan(out[0, 66]).all() and torch.isnan(ref[0, 66]).all()
+    assert torch.isnan(p[0, 0, 66]).all()
+    full = p.as_strided((1, 1, 70, 104), p.stride())
+    assert torch.equal(full[..., 100:], torch.zeros_like(full[..., 100:]))
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    _assert_bf16_close(out[:, keep], ref[:, keep])
+
+
+def test_bf16_one_pass_is_bit_reproducible_and_refuses_misaligned_operands(cuda):
+    q, k, v, _, _, _ = _bf16_case(cuda, 8, 196, 196, 12)
+    first = attention_fwd(q, k, v, save_p=True)
+    second = attention_fwd(q, k, v, save_p=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    from segclip_tpu_torch.ops.kernels.attention import attention_fwd_one_pass
+    x = torch.randn(2, 9, 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fwd_one_pass(x[..., 1:65], x[..., 65:129], x[..., 129:193])
+
+
+def test_bf16_one_pass_rounds_p_bit_for_bit(cuda):
+    from segclip_tpu_torch.ops.kernels.attention import attention_fwd_one_pass
+    q, k, v, bias2d = rounded_p_case(cuda)
+    routes = _routes()
+    out = attention(q, k, v, bias2d)
+    assert _routes()[0] == routes[0] + 1
+    assert torch.equal(out, attention_plain(q, k, v, bias2d))
+    assert torch.equal(attention_fwd_one_pass(q, k, v, bias2d)[0], out)

@@ -573,3 +573,93 @@ def test_every_kernel_source_declares_the_ports_namespace():
         if "__global__" in text:
             opened = text.find(f"namespace {build.KERNEL_NAMESPACE} {{")
             assert 0 <= opened < text.find("__global__"), src.name
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
+    """`fwd_route` by shape alone: every bf16 forward of the B = 96 step
+    (chip_smoke.step_shapes of the default ModelConfig: Lk 196, 204, 8, 48,
+    56, 32) and of the 224×224 request (196, 204, 8, and the text bank's 77)
+    goes to the one-pass kernel, as do ViT-L/14's 256 and ViT-B/32's 49 and
+    57; the longer rows (ViT-L/14's cross 264, a 224×336 image's 294, 448
+    px's 784 and 792) and every float32 call go to the two-pass kernel."""
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.ops.kernels.attention import ONE_PASS_LIMIT, fwd_route
+    smoke = _chip_smoke()
+    step = smoke.step_shapes("train", ModelConfig(), 96)[0]
+    assert sorted({c[3] for c in step}) == [8, 32, 48, 56, 196, 204]
+    request = {c[3] for c in smoke.ATTN_CASES if c[1] <= 2 and "294" not in c[0]
+               and "b32" not in c[0]} | {ModelConfig().context_length}
+    assert request == {8, 77, 196, 204}
+    b32 = {c[3] for c in smoke.step_shapes("b32", smoke.b32_config(), 96)[0]}
+    l14 = {c[3] for c in smoke.step_shapes("l14", smoke.large_config("l14", False), 32)[0]}
+    px448 = {c[3] for c in smoke.step_shapes("448", smoke.large_config("448", False), 24)[0]}
+    assert {49, 57} <= b32 and {256, 264} <= l14 and {784, 792} <= px448
+    for lk in {c[3] for c in step} | request | b32 | {256, ONE_PASS_LIMIT}:
+        assert fwd_route(torch.bfloat16, lk) == "one_pass", lk
+    for lk in (264, 294, 784, 792, ONE_PASS_LIMIT + 1):
+        assert fwd_route(torch.bfloat16, lk) == "two_pass", lk
+    for lk in (8, 196, 256, 784):
+        assert fwd_route(torch.float32, lk) == "two_pass", lk
+
+
+def test_one_pass_limit_mirrors_the_cuda_constant():
+    """ONE_PASS_LIMIT in the wrapper is csrc/attention_fwd.cu's constant
+    (read from the source, as the namespace test reads it), which covers
+    every row of the B = 96 step and of ViT-L/14 (256)."""
+    import re
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.ops.kernels.attention import ONE_PASS_LIMIT
+    text = (build.CSRC / "attention_fwd.cu").read_text()
+    assert re.findall(r"constexpr int ONE_PASS_LIMIT = (\d+);", text) == [str(ONE_PASS_LIMIT)]
+    assert ONE_PASS_LIMIT >= 256
+    assert "int segclip_attention_fwd_one_pass_limit() { return ONE_PASS_LIMIT; }" in text
+
+
+def test_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
+    """The forward source's header says which TPU kernel it replaces, what
+    bounds the one-pass kernel on the card and what its design does (one
+    pass over whole score rows, TMA copies with an mbarrier, wgmma for both
+    products); the Hopper header says what its building blocks are."""
+    from segclip_tpu_torch.kernels import build
+    text = (build.CSRC / "attention_fwd.cu").read_text()
+    header = text[:text.index("#include")]
+    for needle in ("segclip_tpu/ops/pallas/attention.py", "_fwd_kernel", "one pass",
+                   "bound", "bytes", "TMA", "mbarrier", "wgmma", "ONE_PASS_LIMIT",
+                   "attention_fwd_one_pass_kernel", "attention_fwd_bf16_kernel"):
+        assert needle in header, needle
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    hopper_header = hopper[:hopper.index("#pragma once")]
+    for needle in ("TMA", "mbarrier", "wgmma", "swizzle", "descriptor"):
+        assert needle in hopper_header, needle
+    assert '#include "hopper.cuh"' in text
+
+
+@pytest.mark.parametrize("route", ["one_pass", "two_pass"])
+def test_forward_routes_take_the_plain_version_on_the_cpu(route):
+    """Each route's function, given CPU tensors, returns the plain version's
+    output and P and launches nothing (no counter moves)."""
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    rng = np.random.default_rng(5)
+    qkv = _t(rng.normal(size=(2, 9, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    fn = {"one_pass": kattn.attention_fwd_one_pass,
+          "two_pass": kattn.attention_fwd_two_pass}[route]
+    counts = (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
+              kattn.attention_fwd_two_pass.launches)
+    out, p = fn(q, k, v, save_p=True)
+    ref, p_ref = kattn.attention_fwd_plain(q, k, v)
+    assert torch.equal(out, ref) and torch.equal(p, p_ref)
+    assert fn(q, k, v)[1] is None
+    assert counts == (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
+                      kattn.attention_fwd_two_pass.launches)
