@@ -19,11 +19,13 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      saved), the attention backward, the eval grouping and the Gumbel
      (training) grouping at each of their shapes, each grouping call run
      twice and required to give the same bits; at every bf16 shape the
-     one-pass forward takes (Lk ≤ its limit), the two-pass forward too, on
-     the same inputs and held to the same rules, each call's route read from
-     the route counters; the host time per forward call (enqueue only) of
-     each route; and the repaired fault: on CUDA, the outputs of
-     `attention` and `group_assign` require grad when their inputs do;
+     one-pass forward takes (Lk ≤ its limit), the two-pass forward too, and
+     at every bf16 shape the one-pass backward takes, the two-pass backward
+     too, each on the same inputs and held to the same rules, each call's
+     route read from the route counters; the host time per forward and per
+     backward call (enqueue only) of each route; and the repaired fault: on
+     CUDA, the outputs of `attention` and `group_assign` require grad when
+     their inputs do;
   2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
      seeded random init; a 20-class text bank; four requests through
      ZeroShotSegmenter (224×224 whole, 224×448 slide, a 300×500 image in
@@ -38,8 +40,8 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      `make_train_step`: finite losses, frozen parameters bit-identical,
      trainable ones moved, per-step launch counters equal to the path's
      count (attention forward and backward, Gumbel grouping, and the MAE
-     decoder's plain-route attention), every forward on the one-pass
-     kernel, warm step time and peak memory;
+     decoder's plain-route attention), every forward and every backward on
+     its one-pass kernel, warm step time and peak memory;
   5. the training step against its plain self: one float32 step at full
      width with B = 2 and injected noise, on the card and on the CPU;
   6. pretraining through the CLI from SGR records: `prepare_data shapes`
@@ -137,9 +139,10 @@ then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
 kernel names), at the phase-1 shapes, each beside its bound
-(segclip_tpu_torch/ops/kernels/bounds.py) and, where the one-pass forward
-ran, the two-pass forward's time, which must be the longer (the two
-measured in turns, three rounds each, medians compared); a kernel time
+(segclip_tpu_torch/ops/kernels/bounds.py) and, where a one-pass kernel
+(forward or backward) ran, the two-pass kernel's time on the same inputs,
+which must be the longer (the two measured in turns, three rounds each,
+medians compared); a kernel time
 under its bound is profiled again and fails the run if it stays there (unless
 the work fits in the L2 cache); a profile of three warm requests,
 of one training step, of one B = 512 step with remat and of one ViT-B/32
@@ -147,10 +150,11 @@ step at B = 96. The build prints
 each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
 instructions (HMMA, HGMMA) and TMA instructions in each kernel; the bf16
 attention kernels and the bf16 grouping kernel must have tensor-core
-instructions, and the one-pass forward HGMMA and TMA ones too. The forward's
-launches by route (one-pass, two-pass) are printed per phase of the main
-path (phases 2-14; phase 9's ranks and phase 10's studies report their
-own); both routes must have launched. The profiles list the port's own
+instructions, and every instance of the one-pass forward and backward
+HGMMA and TMA ones too. The forward's and the backward's launches by route
+(one-pass, two-pass) are printed per phase of the main path (phases 2-14;
+phase 9's ranks and phase 10's studies report their own); all four kernels
+must have launched. The profiles list the port's own
 kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
 
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
@@ -161,8 +165,12 @@ card's name and power limit, whether cv2 is importable, one JSON line of
 kernel results ("ms", "plain_ms", "library_ms", "bound_ms" at each
 kernel's main shape: the one-pass forward ("attention_fwd_one_pass", with
 "two_pass_ms" and "host_us") at 96x196 with P, the two-pass forward
-("attention_fwd") at 448 px's 24x784 with P, whose launches are counted
-by route per phase as above; the Gumbel grouping's at the MAE shape as
+("attention_fwd") at 448 px's 24x784 with P, the one-pass backward
+("attention_bwd_one_pass", with "two_pass_ms", "host_us" and "pair_ms",
+the forward with P plus the backward, beside SDPA's forward + backward)
+at 96x196 and the two-pass backward ("attention_bwd") at 24x784, whose
+launches are counted by route per phase as above; the Gumbel grouping's at
+the MAE shape as
 "mae_*"; launches per training step
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
 "train_cli" (phase 6's run A), "train_cli_device_aug" (phase 6's run C,
@@ -544,15 +552,21 @@ def attention_inputs(case, dtype, dev, gen):
     return q, k, v, bias2d, biasb
 
 
-def check_route(case, dtype, before: dict) -> str:
-    """The route one forward call took (from the route counters moved since
-    `before`), which must be the one `fwd_route` names for its dtype and Lk
-    with the library's limit."""
-    from segclip_tpu_torch.ops.kernels.attention import fwd_route, one_pass_limit
-    moved = {k: n - before[k] for k, n in read_routes().items()}
-    route = fwd_route(dtype, case[3], one_pass_limit())
+def check_route(case, dtype, before: dict, backward: bool = False) -> str:
+    """The route one forward (or backward) call took, from the route
+    counters moved since `before`, which must be the one `fwd_route` (or
+    `bwd_route`) names for its dtype and Lk with the library's limit."""
+    from segclip_tpu_torch.ops.kernels.attention import (bwd_one_pass_limit, bwd_route,
+                                                         fwd_route, one_pass_limit)
+    if backward:
+        route, prefix = bwd_route(dtype, case[3], bwd_one_pass_limit()), "bwd_"
+    else:
+        route, prefix = fwd_route(dtype, case[3], one_pass_limit()), ""
+    now = read_routes()
+    moved = {k: now[prefix + k] - before[prefix + k] for k in ("one_pass", "two_pass")}
     check(moved == {"one_pass": int(route == "one_pass"), "two_pass": int(route == "two_pass")},
-          f"attention {case[0]} {dtype}: routes moved {moved}, expected one {route} launch")
+          f"attention {'backward' if backward else 'forward'} {case[0]} {dtype}: routes "
+          f"moved {moved}, expected one {route} launch")
     return route
 
 
@@ -572,6 +586,25 @@ def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 5
     for (sh, _), what in zip(shares, ("out", "P")):
         check(sh <= ATTN_BF16_SHARE, f"two-pass {case[0]} bf16 {what}: share {sh}")
     return fn, (f"; two-pass err {err:.3e}, >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
+                + f", {call_ms(fn, reps=reps):.4f} ms")
+
+
+def bwd_two_pass_beside(case, inputs: tuple, refs, reps: int = 50) -> tuple:
+    """At a bf16 shape the one-pass backward takes: the two-pass kernels on
+    the same P, dO, q, k, v, held to the plain version by the same rules
+    (finite, and the >1-ulp share of dQ, dK and dV). Returns its call and a
+    note with its time per call by CUDA events."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_two_pass
+    from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
+    fn = functools.partial(attention_bwd_two_pass, *inputs)
+    grads = fn()
+    torch.cuda.synchronize()
+    check(all(torch.isfinite(g).all().item() for g in grads),
+          f"two-pass backward {case[0]}: non-finite")
+    shares = [bf16_share(g, r) for g, r in zip(grads, refs)]
+    for (sh, _), what in zip(shares, ("dQ", "dK", "dV")):
+        check(sh <= ATTN_BF16_SHARE, f"two-pass backward {case[0]} bf16 {what}: share {sh}")
+    return fn, ("; two-pass bwd >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
                 + f", {call_ms(fn, reps=reps):.4f} ms")
 
 
@@ -698,24 +731,35 @@ def phase_kernels(dev) -> tuple:
 
 
 def host_costs(dev, gen, summary) -> None:
-    """Host µs per forward call (enqueue only, nothing waited for) at the
-    B = 96 vision shape with P, through the routed wrapper and through each
-    route's own function; into summary["host_us"]."""
-    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd, attention_fwd_one_pass,
-                                                         attention_fwd_two_pass)
+    """Host µs per forward call with P and per backward call (enqueue only,
+    nothing waited for) at the B = 96 vision shape, through each routed
+    wrapper and through each route's own function; into summary["host_us"]
+    and summary["bwd_host_us"]."""
+    from segclip_tpu_torch.ops.kernels.attention import (
+        attention_bwd, attention_bwd_one_pass, attention_bwd_two_pass, attention_fwd,
+        attention_fwd_one_pass, attention_fwd_two_pass)
     q, k, v, b2, bb = attention_inputs(TRAIN_ATTN_CASES[0], torch.bfloat16, dev, gen)
-    calls = {name: functools.partial(fn, q, k, v, b2, bb, save_p=True)
-             for name, fn in (("attention_fwd", attention_fwd),
-                              ("one_pass", attention_fwd_one_pass),
-                              ("two_pass", attention_fwd_two_pass))}
-    times = {name: [] for name in calls}
-    for i in range(HOST_ROUNDS):               # in turns, the order reversed every round
-        for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
-            times[name].append(host_us(calls[name]))
-    summary["host_us"] = {name: statistics.median(t) for name, t in times.items()}
-    print(f"  host time per forward call at {TRAIN_ATTN_CASES[0][0]} with P (enqueue only; "
-          f"median of {HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
-              f"{k} {v:.1f} us" for k, v in summary["host_us"].items()))
+    out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
+    do = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+    for key, what, calls in (
+            ("host_us", "forward call with P", {
+                name: functools.partial(fn, q, k, v, b2, bb, save_p=True)
+                for name, fn in (("attention_fwd", attention_fwd),
+                                 ("one_pass", attention_fwd_one_pass),
+                                 ("two_pass", attention_fwd_two_pass))}),
+            ("bwd_host_us", "backward call", {
+                name: functools.partial(fn, p, do, q, k, v)
+                for name, fn in (("attention_bwd", attention_bwd),
+                                 ("one_pass", attention_bwd_one_pass),
+                                 ("two_pass", attention_bwd_two_pass))})):
+        times = {name: [] for name in calls}
+        for i in range(HOST_ROUNDS):           # in turns, the order reversed every round
+            for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+                times[name].append(host_us(calls[name]))
+        summary[key] = {name: statistics.median(t) for name, t in times.items()}
+        print(f"  host time per {what} at {TRAIN_ATTN_CASES[0][0]} (enqueue only; median of "
+              f"{HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
+                  f"{k} {v:.1f} us" for k, v in summary[key].items()))
 
 
 def bf16_share(out, ref) -> tuple:
@@ -755,7 +799,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
             route = check_route(case, dtype, routes)
             ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
             do = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            routes = read_routes()
             grads = attention_bwd(p, do, q, k, v)
+            bwd_route = check_route(case, dtype, routes, backward=True)
             grads_ref = attention_bwd_plain(p, do, q, k, v)
             torch.cuda.synchronize()
             check(all(torch.isfinite(g).all().item() for g in grads),
@@ -781,14 +827,16 @@ def training_kernels(dev, gen, summary, timings) -> None:
             bwd = functools.partial(attention_bwd, p, do, q, k, v)
             bwd_plain = functools.partial(attention_bwd_plain, p, do, q, k, v)
             times = [call_ms(f, reps=reps) for f in (fwd, fwd_plain, bwd, bwd_plain)]
-            two_pass, two_note = None, ""
+            two_pass, two_note, bwd_two, bwd_note = None, "", None, ""
             if route == "one_pass":
                 two_pass, two_note = two_pass_beside(case, (q, k, v, b2, bb), True, ref, p_ref,
                                                      reps)
+            if bwd_route == "one_pass":
+                bwd_two, bwd_note = bwd_two_pass_beside(case, (p, do, q, k, v), grads_ref, reps)
             print(f"  attention {case[0]:34s} {dname:8s} fwd ({route}) err {out_err:.3e}, P err "
-                  f"{p_err:.3e}, bwd rel err dQ/dK/dV {' '.join(f'{r:.2e}' for r in rel)}"
-                  f"{note}  fwd {times[0]:.4f} / {times[1]:.4f} ms, bwd "
-                  f"{times[2]:.4f} / {times[3]:.4f} ms{two_note}")
+                  f"{p_err:.3e}, bwd ({bwd_route}) rel err dQ/dK/dV "
+                  f"{' '.join(f'{r:.2e}' for r in rel)}{note}  fwd {times[0]:.4f} / "
+                  f"{times[1]:.4f} ms, bwd {times[2]:.4f} / {times[3]:.4f} ms{two_note}{bwd_note}")
             if case in TRAIN_DP_ATTN_CASES or (case in TRAIN_TP_ATTN_CASES
                                                and case[1] != TRAIN_BATCH) or (
                     case in large_attn and not (case[0] in profiled
@@ -813,14 +861,14 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                                          timing=len(timings) - 1)
             timings.append(dict(
                 name=f"attention bwd {case[0]} {dname}", kernel=bwd, plain=bwd_plain,
-                work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
+                two_pass=bwd_two, work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
                 library=sdpa_library(q, k, v, b2, bb, do), pair=len(timings) - 1))
-            if (case is TRAIN_ATTN_CASES[0] or case == b32_attn[0]) \
-                    and dtype == torch.bfloat16:
-                summary["attention_bwd" if case is TRAIN_ATTN_CASES[0] else "b32_attention_bwd"] \
-                    = dict(max_abs_err=max((g.float() - r.float()).abs().max().item()
-                                           for g, r in zip(grads, grads_ref)),
-                           timing=len(timings) - 1)
+            keys = {TRAIN_ATTN_CASES[0]: "attention_bwd_one_pass", b32_attn[0]: "b32_attention_bwd",
+                    shapes["448"][0][0]: "attention_bwd_two_pass"}   # Lk 784: two-pass
+            if dtype == torch.bfloat16 and case in keys:
+                summary[keys[case]] = dict(max_abs_err=max((g.float() - r.float()).abs().max().item()
+                                                           for g, r in zip(grads, grads_ref)),
+                                           timing=len(timings) - 1)
 
         for name, n, g, l, d in GROUP_ST_CASES + large_gumbel:
             reps = LARGE_REPS if name in {c[0] for c in large_gumbel} else 50
@@ -914,20 +962,24 @@ def reset_counters() -> None:
     plain_route.calls = 0
 
 
+ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "two_pass": "attention_fwd_two_pass",
+                   "bwd_one_pass": "attention_bwd_one_pass",
+                   "bwd_two_pass": "attention_bwd_two_pass"}
+
+
 def reset_routes() -> None:
-    """Zero the forward's route counters (reset_counters leaves them, so
-    that they add up over the whole main path)."""
-    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_one_pass,
-                                                         attention_fwd_two_pass)
-    attention_fwd_one_pass.launches = attention_fwd_two_pass.launches = 0
+    """Zero the forward's and the backward's route counters (reset_counters
+    leaves them, so that they add up over the whole main path)."""
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    for fn in ROUTE_FUNCTIONS.values():
+        getattr(kattn, fn).launches = 0
 
 
 def read_routes() -> dict:
-    """Forward launches by route in this process: {"one_pass": n, "two_pass": n}."""
-    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_one_pass,
-                                                         attention_fwd_two_pass)
-    return {"one_pass": attention_fwd_one_pass.launches,
-            "two_pass": attention_fwd_two_pass.launches}
+    """Launches by route in this process: forward {"one_pass", "two_pass"}
+    and backward {"bwd_one_pass", "bwd_two_pass"}."""
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    return {key: getattr(kattn, fn).launches for key, fn in ROUTE_FUNCTIONS.items()}
 
 
 def add_routes(into: dict, more: dict) -> None:
@@ -937,7 +989,7 @@ def add_routes(into: dict, more: dict) -> None:
 
 # Forward launches by route made in other processes of the main path (phase
 # 9's ranks, phase 10's studies), added as their results come back.
-ROUTES_ELSEWHERE = {"one_pass": 0, "two_pass": 0}
+ROUTES_ELSEWHERE = {key: 0 for key in ROUTE_FUNCTIONS}
 
 
 def read_counters() -> dict:
@@ -1172,9 +1224,11 @@ def phase_train(dev) -> tuple:
         counts = read_counters()
         routes = {k: n - routes[k] for k, n in read_routes().items()}
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
-        check(routes == {"one_pass": expected["attention_fwd"], "two_pass": 0},
-              f"step {i}: forward launches by route {routes}, expected every one of the "
-              f"{expected['attention_fwd']} on the one-pass kernel")
+        check(routes == {"one_pass": expected["attention_fwd"], "two_pass": 0,
+                         "bwd_one_pass": expected["attention_bwd"], "bwd_two_pass": 0},
+              f"step {i}: launches by route {routes}, expected every one of the "
+              f"{expected['attention_fwd']} forwards and {expected['attention_bwd']} backwards "
+              "on the one-pass kernels")
         for key, n in counts.items():
             totals[key] = totals.get(key, 0) + n
         values = {k: float(v) for k, v in metrics.items()}
@@ -1182,7 +1236,7 @@ def phase_train(dev) -> tuple:
         check(values["skipped_nan"] == 0.0, f"step {i} was skipped")
         times.append(ms)
         print(f"  step {i} ({'cold' if i == 0 else 'warm'}): {ms:.1f} ms; " + ", ".join(
-            f"{k} {v:.5f}" for k, v in values.items()) + f"; forward launches by route {routes}")
+            f"{k} {v:.5f}" for k, v in values.items()) + f"; launches by route {routes}")
     warm = sorted(times[1:])
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     print(f"  warm step time: median {statistics.median(warm):.2f} ms (min {warm[0]:.2f}, "
@@ -1683,15 +1737,20 @@ def tensor_core_counts(library) -> dict:
     for kernel in ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
                    "attention_bwd_dkv_bf16_kernel", group):
         check(counts.get(kernel, 0) > 0, f"{kernel}: no tensor-core instruction in its SASS")
-    one_pass = [k for k in counts if k.startswith("attention_fwd_one_pass_kernel")]
-    check(len(one_pass) == 4, f"one-pass kernel instances in the SASS: {one_pass}")
-    for kernel in one_pass:
-        check(counts[kernel] > 0 and tma[kernel] > 0,
-              f"{kernel}: {counts[kernel]} HGMMA and {tma[kernel]} TMA instructions in its SASS")
+    one_pass = {}
+    for prefix in ("attention_fwd_one_pass_kernel", "attention_bwd_one_pass_kernel"):
+        one_pass[prefix] = [k for k in counts if k.startswith(prefix)]
+        check(len(one_pass[prefix]) == 4, f"{prefix} instances in the SASS: {one_pass[prefix]}")
+        for kernel in one_pass[prefix]:
+            check(counts[kernel] > 0 and tma[kernel] > 0, f"{kernel}: {counts[kernel]} HGMMA "
+                  f"and {tma[kernel]} TMA instructions in its SASS")
     return {"attention_fwd": counts["attention_fwd_bf16_kernel"],
-            "attention_fwd_one_pass": sum(counts[k] for k in one_pass),
+            "attention_fwd_one_pass": sum(
+                counts[k] for k in one_pass["attention_fwd_one_pass_kernel"]),
             "attention_bwd": counts["attention_bwd_dq_bf16_kernel"]
             + counts["attention_bwd_dkv_bf16_kernel"],
+            "attention_bwd_one_pass": sum(
+                counts[k] for k in one_pass["attention_bwd_one_pass_kernel"]),
             "group_assign": counts[group], "group_assign_st": counts[group]}
 
 
@@ -3295,12 +3354,12 @@ def main() -> int:
     mark("drift")
     routes = {path: {k: n - prev[k] for k, n in now.items()}
               for (_, prev), (path, now) in zip(marks, marks[1:])}
-    print("forward launches by route on the main path, per phase: " + "; ".join(
-        f"{path} {r['one_pass']} one-pass / {r['two_pass']} two-pass"
-        for path, r in routes.items()))
-    for route in ("one_pass", "two_pass"):
+    print("launches by route on the main path, per phase (forward; backward): " + "; ".join(
+        f"{path} {r['one_pass']} one-pass / {r['two_pass']} two-pass; {r['bwd_one_pass']} "
+        f"one-pass / {r['bwd_two_pass']} two-pass" for path, r in routes.items()))
+    for route in ROUTE_FUNCTIONS:
         check(sum(r[route] for r in routes.values()) > 0,
-              f"the {route} forward kernel was never launched on the main path")
+              f"the {ROUTE_FUNCTIONS[route]} kernel was never launched on the main path")
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
                              b32_step)
 
@@ -3308,15 +3367,20 @@ def main() -> int:
     for name, src, tpu, key, counter in (
             ("attention_fwd_one_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "one_pass"),
             ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_two_pass", "two_pass"),
-            ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd", "attention_bwd"),
+            ("attention_bwd_one_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_one_pass",
+             "bwd_one_pass"),
+            ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_two_pass",
+             "bwd_two_pass"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
         t = timings[summary[key]["timing"]]
         row = rows[summary[key]["timing"]]
-        if counter in ("one_pass", "two_pass"):
+        if counter in ROUTE_FUNCTIONS:
             by_path = {path: r[counter] for path, r in routes.items()}
-            step_launches = per_step["attention_fwd"] if counter == "one_pass" else 0
-            request_launches = per_request["attention_fwd"] if counter == "one_pass" else 0
+            direction = "attention_bwd" if counter.startswith("bwd_") else "attention_fwd"
+            one = counter.endswith("one_pass")
+            step_launches = per_step[direction] if one else 0
+            request_launches = per_request[direction] if one else 0
         else:
             by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
                        "train_cli": cli_counts[counter],
@@ -3342,29 +3406,31 @@ def main() -> int:
             entry["library_call"] = ("scaled_dot_product_attention forward, no P "
                                      f"({row['library_backend']})")
             entry["host_us"] = summary["host_us"][counter]
-        if name == "attention_fwd_one_pass":
+        if name.startswith("attention_bwd"):
+            entry["host_us"] = summary["bwd_host_us"][counter[len("bwd_"):]]
+        if name.endswith("one_pass"):
             entry["two_pass_ms"] = row["two_pass_ms"]
-        elif name == "group_assign_st":
+        if name == "group_assign_st":
             mae = summary["grouping_st_mae"]
             mae_row = rows[mae["timing"]]
             entry.update(mae_shape=timings[mae["timing"]]["name"], mae_max_abs_err=mae["max_abs_err"],
                          mae_ms=mae_row["ms"], mae_plain_ms=mae_row["plain_ms"],
                          mae_bound_ms=mae_row["bound_ms"], mae_bound_by=mae_row["bound_by"])
-        elif name == "attention_bwd":
+        elif name.startswith("attention_bwd"):
             entry["library_call"] = ("scaled_dot_product_attention forward + backward "
                                      f"under autograd ({row['library_backend']}); "
                                      "compare with pair_ms")
             entry["pair_ms"] = row["pair_ms"]
-        if name != "attention_fwd":            # the two-pass kernel takes no ViT-B/32 row
+        if name not in ("attention_fwd", "attention_bwd"):   # the two-pass kernels take no ViT-B/32 row
             b32 = summary[{"attention_fwd_train": "b32_attention_fwd",
-                           "attention_bwd": "b32_attention_bwd", "grouping": "b32_grouping",
-                           "grouping_st": "b32_grouping_st"}[key]]
+                           "attention_bwd_one_pass": "b32_attention_bwd",
+                           "grouping": "b32_grouping", "grouping_st": "b32_grouping_st"}[key]]
             b32_row = rows[b32["timing"]]
             entry.update(b32_shape=timings[b32["timing"]]["name"],
                          b32_max_abs_err=b32["max_abs_err"], b32_ms=b32_row["ms"],
                          b32_plain_ms=b32_row["plain_ms"], b32_library_ms=b32_row["library_ms"],
                          b32_bound_ms=b32_row["bound_ms"], b32_bound_by=b32_row["bound_by"])
-        if name == "attention_bwd":
+        if name == "attention_bwd_one_pass":
             entry["b32_pair_ms"] = b32_row["pair_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

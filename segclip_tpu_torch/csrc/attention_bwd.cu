@@ -1,6 +1,6 @@
 // Attention backward from the saved probabilities, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_bwd_kernel` of segclip_tpu/ops/pallas/attention.py
+// Replaces the TPU kernel `_bwd_kernel` of segclip_tpu/ops/pallas/attention.py:96
 // (reached through `_call_bwd`, pallas_call at :203, VJP at :217-247). With P
 // the (Lq, Lk) probabilities that the forward saved (csrc/attention_fwd.cu),
 // per batch and head, all in fp32 from the operands:
@@ -16,25 +16,81 @@
 // per operand, as in the forward, so the q|k|v column views of a packed
 // projection go in without copies. P is (B, H, Lq, ≥ Lk) in V's dtype with
 // its own batch, head and row strides (the forward's padded rows go in
-// as they are); dQ, dK, dV are contiguous (B, L, H·64). D goes through a
-// (B, H, Lq4) fp32 scratch, Lq4 = Lq rounded up to 4.
+// as they are); dQ, dK, dV are contiguous (B, L, H·64).
 //
-// The TPU kernel carries a whole (batch, head pair) in VMEM and reduces dK
-// and dV over all query rows inside one program. Blocks on Hopper run in no
-// order, so that reduction cannot be carried across blocks, and float
-// atomics would make the gradients change from run to run. Two passes with
-// no atomics keep them bit-reproducible:
-//   (a) one block per (b, h, query rows): D, written to the scratch, then
-//       dS and dQ;
-//   (b) one block per (b, h, key rows): dV and dK, with dS rebuilt from P,
-//       dO, V and D.
-//
-// bfloat16, `attention_bwd_{dq,dkv}_bf16_kernel` (the path of the model).
 // What bounds it on the H100: bytes. At 96×196, H = 12, P, dO, Q, K and V
 // read and dQ, dK and dV written are 291 MB (0.087 ms at 3.35 TB/s) against
-// 22.7 GFLOP (0.023 ms at 989 TFLOP/s bf16). The design:
+// 22.7 GFLOP (0.023 ms at 989 TFLOP/s bf16); P is 90 MB of it.
+//
+// dS is fp32. Rounded to bf16 before dS·K and dSᵀ·Q it would move dQ and dK
+// by about 0.3 bf16 ulp on average, so every kernel here splits it into bf16
+// hi + lo parts and runs each of those products twice: fp32-exact to about
+// 2^-17. dV = PᵀdO and dP = dO·Vᵀ take bf16 operands (P, dO, V), whose
+// products are exact. No kernel uses atomics: the gradients are the same
+// bits from run to run.
+//
+// Three kernels; the wrapper (ops/kernels/attention.py `bwd_route`) picks one
+// by dtype and Lk alone, and nothing falls back:
+//
+// bfloat16, Lk ≤ BWD_ONE_PASS_LIMIT (256): `attention_bwd_one_pass_kernel`,
+// the path of the model (every backward of the B = 96 and B = 512 steps and
+// of ViT-L/14's 32×256). The TPU kernel carries a whole (batch, head pair) in
+// VMEM and sums dK and dV over all query rows inside one program; here one
+// block owns one (batch, head) and walks its query rows in 64-row tiles, so
+// dK and dV are summed on chip in a fixed order, with no atomics and no
+// second pass:
+//   - warpgroup 0 takes the rows: per query tile, dP = dO·Vᵀ on wgmma over
+//     the whole row (m64n64 pieces of 64 keys; dO K-major, V K-major, as the
+//     forward's Q·Kᵀ), D = rowsum(dP ∘ P) in registers, dS = P ∘ (dP − D)
+//     in fp32 and its bf16 hi and lo parts written into swizzled tiles (P's
+//     fragments read and dS's written by ldmatrix / stmatrix at the
+//     accumulator's places, then `fence.proxy.async`), and dQ = dS·K·scale
+//     on wgmma from shared memory (dS K-major, K MN-major through the
+//     transpose bit), stored from registers (rows ≥ Lq dropped). Past 128
+//     keys the row is taken in two parts, the first part's dP computed again
+//     once D is whole (8 more products a tile), so that 64 registers of dP
+//     are live at a time, not 128;
+//   - the column warpgroups (one for Lk ≤ 128, two above: each owns 64 or
+//     128 key rows) hold dV and dK in fp32 accumulators across all tiles:
+//     dV += Pᵀ·dO as soon as a tile arrives, dK += dSᵀ·Q (hi, then lo) as
+//     soon as warpgroup 0 has written that warpgroup's pieces of dS; both A
+//     operands are MN-major (Pᵀ and dSᵀ read with the transpose bit from the
+//     tiles P and dS are stored in), as are Q and dO as B. Named barriers
+//     hand dS over (one per column warpgroup) and back;
+//   - registers: at Lk > 128 three warpgroups of 168 each; `setmaxnreg`
+//     moves 16 from warpgroup 0 to the columns' 128 accumulator registers
+//     (below that ptxas serializes their wgmma for want of registers), and
+//     the warpgroup index is broadcast from lane 0 so that ptxas sees the
+//     warpgroup branches as warp-uniform (in a path it takes for divergent
+//     it serializes every wgmma);
+//   - TMA copies (hopper.cuh): V and K of the head arrive once per block,
+//     each on its mbarrier, rows past Lk filled with zeros; each tile's P,
+//     dO and Q arrive on one of two stage mbarriers, the next tile fetched
+//     while this one is computed. P's map is Lk wide, so its columns past Lk
+//     read as zeros whatever the padding holds; P, dO and Q rows past Lq read
+//     as zeros and add nothing to dK or dV;
+//   - dK and dV leave once per block: each column warpgroup stages them in
+//     swizzled tiles over its own P pieces and stores them by TMA, which
+//     drops rows ≥ Lk.
+// Shared memory at Lk = 256: K and V 32 KB each, two stages of P (32 KB), dO
+// and Q (8 KB each), dS hi and lo 32 KB each: 224 KB, one block of three
+// warpgroups per SM; at Lk ≤ 64, 80 KB and two blocks of two warpgroups.
+// Measured (PERF.md): about half its byte bound at 96×196. What holds it
+// there: warpgroup 0's chain per tile (dP, the elementwise dS, dQ), which
+// the column warpgroups' products overlap only in part, and one block per
+// SM, whose first loads and last stores nothing else overlaps.
+//
+// bfloat16, Lk > BWD_ONE_PASS_LIMIT: `attention_bwd_{dq,dkv}_bf16_kernel`,
+// two passes on `mma.sync` (tc_bf16.cuh), any Lk. Blocks of this design own
+// 64 rows, and blocks run in no order, so the sum of dK and dV over query
+// blocks cannot be carried across them without atomics. Instead:
+//   (a) one block per (b, h, query rows): D, written to a (B, H, Lq4) fp32
+//       scratch (Lq4 = Lq rounded up to 4), then dS and dQ;
+//   (b) one block per (b, h, key rows): dV and dK, with dS rebuilt from P,
+//       dO, V and D.
+// Its design:
 //   - blocks of 64 rows, four warps of 16; every product on tensor cores
-//     (`mma.sync.m16n8k16`, tc_bf16.cuh) with fp32 accumulators;
+//     (`mma.sync.m16n8k16`) with fp32 accumulators;
 //   - dO, Q, K, V and P tiles staged in shared memory by `cp.async`,
 //     double-buffered, zero-filled past Lq and Lk; P is read in coalesced
 //     16-byte pieces;
@@ -44,24 +100,23 @@
 //     (on tensor cores that costs FLOPs, not bytes). Above that Lk it streams
 //     P twice;
 //   - pass (b) reads Pᵀ fragments with `ldmatrix.trans`, rebuilds dPᵀ = V·dOᵀ
-//     on tensor cores, and sums dV and dK in fp32 registers;
-//   - dS is fp32. Rounded to bf16 before dS·K and dSᵀ·Q it would move dQ and
-//     dK by about 0.3 bf16 ulp on average, so it is split into bf16 hi + lo
-//     parts and each product is two MMAs: fp32-exact to about 2^-17. dV = PᵀdO
-//     and dP = dO·Vᵀ take bf16 operands (P, dO, V), whose products are exact.
+//     on tensor cores, and sums dV and dK in fp32 registers.
 //
 // float32, `attention_bwd_{dq,dkv}_simt_kernel`: the parity path, fp32 FMAs
-// (no TF32). Pass (a) takes 16 query rows per block and walks the keys
-// twice in 64-row tiles (D, then dS and dQ); pass (b) takes 64 key rows and
-// walks the queries in 32-row tiles.
+// (no TF32), the two passes above. Pass (a) takes 16 query rows per block
+// and walks the keys twice in 64-row tiles (D, then dS and dQ); pass (b)
+// takes 64 key rows and walks the queries in 32-row tiles.
 //
 // Masks: query rows at or past Lq and key rows at or past Lk are never
 // stored and read as zeros (P = 0 there, so they add nothing). Entries that
-// the causal mask removed have P = 0 and add nothing either.
+// the causal mask removed have P = 0 and add nothing either. A fully masked
+// row (P = NaN) gives NaN in dQ's row and in every row of dK and dV, as the
+// plain version does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "tc_bf16.cuh"
 
 namespace segclip_kernels {
@@ -91,7 +146,7 @@ struct Args {
 
 constexpr int BR = 64;                         // rows per block and per tile
 constexpr int THREADS_TC = 128;                // four warps of 16 rows
-constexpr int TILE = BR * LDS;                 // elements of one staged tile
+constexpr int TILE_ELEMS = BR * LDS;           // elements of one staged tile
 constexpr int PA_CACHE_TILES = 8;              // pass (a) keeps P rows while Lk ≤ 512
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -103,10 +158,10 @@ __host__ __device__ inline int pa_plds(int lk) {
   return pa_cached(lk) ? cdiv(lk, BR) * BR + 8 : LDS;
 }
 __host__ __device__ inline size_t pa_smem(int lk) {
-  return sizeof(bf16) * (4 * TILE + (pa_cached(lk) ? BR * pa_plds(lk) : 2 * TILE));
+  return sizeof(bf16) * (4 * TILE_ELEMS + (pa_cached(lk) ? BR * pa_plds(lk) : 2 * TILE_ELEMS));
 }
-constexpr size_t PA_SMEM_MAX = sizeof(bf16) * (4 * TILE + BR * (PA_CACHE_TILES * BR + 8));
-constexpr size_t PB_SMEM = sizeof(bf16) * 6 * TILE + sizeof(float) * 2 * BR;
+constexpr size_t PA_SMEM_MAX = sizeof(bf16) * (4 * TILE_ELEMS + BR * (PA_CACHE_TILES * BR + 8));
+constexpr size_t PB_SMEM = sizeof(bf16) * 6 * TILE_ELEMS + sizeof(float) * 2 * BR;
 
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -116,9 +171,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Pass (a): D and dQ. Grid (⌈Lq / 64⌉, H, B), dynamic shared memory pa_smem(Lk).
 __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);            // [2][TILE]; sk[0] first holds dO
-  bf16* sv = sk + 2 * TILE;                                  // [2][TILE]
-  bf16* sp = sv + 2 * TILE;                                  // P rows or [2][TILE]
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);            // [2][TILE_ELEMS]; sk[0] first holds dO
+  bf16* sv = sk + 2 * TILE_ELEMS;                                  // [2][TILE_ELEMS]
+  bf16* sp = sv + 2 * TILE_ELEMS;                                  // P rows or [2][TILE_ELEMS]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -126,7 +181,7 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
   const int tiles = cdiv(a.lk, BR);
   const bool cached = pa_cached(a.lk);
   const int plds = pa_plds(a.lk);
-  auto p_tile = [&](int t) { return cached ? sp + t * BR : sp + (t & 1) * TILE; };
+  auto p_tile = [&](int t) { return cached ? sp + t * BR : sp + (t & 1) * TILE_ELEMS; };
 
   const bf16* dop = static_cast<const bf16*>(a.dout) + b * a.do_bs + h * HD;
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_bs + h * HD;
@@ -153,7 +208,7 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
   float dsum[2] = {0.f, 0.f};
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
-      segclip_tc::load_rows<BR, THREADS_TC>(sv + ((t + 1) & 1) * TILE, vp, a.v_rs,
+      segclip_tc::load_rows<BR, THREADS_TC>(sv + ((t + 1) & 1) * TILE_ELEMS, vp, a.v_rs,
                                             (t + 1) * BR, a.lk);
       load_p(t + 1);
       segclip_tc::cp_async_commit();
@@ -164,7 +219,7 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
     __syncthreads();
     const int ncols = min(BR, a.lk - t * BR);                // real keys in this tile
     if (active) {
-      segclip_tc::mma_abt(dp, dof, sv + (t & 1) * TILE, lane, ncols);
+      segclip_tc::mma_abt(dp, dof, sv + (t & 1) * TILE_ELEMS, lane, ncols);
       const bf16* pt = p_tile(t);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -197,8 +252,8 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
       const int nb = (t + 1) & 1;
-      segclip_tc::load_rows<BR, THREADS_TC>(sk + nb * TILE, kp, a.k_rs, (t + 1) * BR, a.lk);
-      segclip_tc::load_rows<BR, THREADS_TC>(sv + nb * TILE, vp, a.v_rs, (t + 1) * BR, a.lk);
+      segclip_tc::load_rows<BR, THREADS_TC>(sk + nb * TILE_ELEMS, kp, a.k_rs, (t + 1) * BR, a.lk);
+      segclip_tc::load_rows<BR, THREADS_TC>(sv + nb * TILE_ELEMS, vp, a.v_rs, (t + 1) * BR, a.lk);
       if (!cached) load_p(t + 1);
       segclip_tc::cp_async_commit();
       segclip_tc::cp_async_wait<1>();
@@ -208,7 +263,7 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
     __syncthreads();
     const int ncols = min(BR, a.lk - t * BR);
     if (active) {
-      segclip_tc::mma_abt(dp, dof, sv + (t & 1) * TILE, lane, ncols);
+      segclip_tc::mma_abt(dp, dof, sv + (t & 1) * TILE_ELEMS, lane, ncols);
       const bf16* pt = p_tile(t);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {                       // keys 16kk .. 16kk + 15
@@ -224,8 +279,8 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
           }
         uint32_t hi[4], lo[4];
         segclip_tc::acc_to_a_split(hi, lo, dp[2 * kk], dp[2 * kk + 1]);
-        segclip_tc::mma_ab_step(acc, hi, sk + (t & 1) * TILE, kk, lane);
-        segclip_tc::mma_ab_step(acc, lo, sk + (t & 1) * TILE, kk, lane);
+        segclip_tc::mma_ab_step(acc, hi, sk + (t & 1) * TILE_ELEMS, kk, lane);
+        segclip_tc::mma_ab_step(acc, lo, sk + (t & 1) * TILE_ELEMS, kk, lane);
       }
     }
     __syncthreads();
@@ -241,10 +296,10 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dq_bf16_kernel(Args 
 // Warp w owns key rows k0 + 16w .. k0 + 16w + 15.
 __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dkv_bf16_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);            // [2][TILE]
-  bf16* sdo = sq + 2 * TILE;                                 // [2][TILE]
-  bf16* sp = sdo + 2 * TILE;                                 // [2][TILE]; sp[1] first holds V
-  float* sd = reinterpret_cast<float*>(sp + 2 * TILE);      // [2][BR]
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);            // [2][TILE_ELEMS]
+  bf16* sdo = sq + 2 * TILE_ELEMS;                                 // [2][TILE_ELEMS]
+  bf16* sp = sdo + 2 * TILE_ELEMS;                                 // [2][TILE_ELEMS]; sp[1] first holds V
+  float* sd = reinterpret_cast<float*>(sp + 2 * TILE_ELEMS);      // [2][BR]
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -259,9 +314,9 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dkv_bf16_kernel(Args
   const float* dr = a.drow + (static_cast<long long>(b) * a.heads + h) * a.d_rs;
   auto load_tile = [&](int i) {
     const int nb = i & 1, i0 = i * BR;
-    segclip_tc::load_rows<BR, THREADS_TC>(sq + nb * TILE, qp, a.q_rs, i0, a.lq);
-    segclip_tc::load_rows<BR, THREADS_TC>(sdo + nb * TILE, dop, a.do_rs, i0, a.lq);
-    segclip_tc::load_block<BR, THREADS_TC>(sp + nb * TILE, LDS, pp, a.p_rs, i0, a.lq, k0, a.lk);
+    segclip_tc::load_rows<BR, THREADS_TC>(sq + nb * TILE_ELEMS, qp, a.q_rs, i0, a.lq);
+    segclip_tc::load_rows<BR, THREADS_TC>(sdo + nb * TILE_ELEMS, dop, a.do_rs, i0, a.lq);
+    segclip_tc::load_block<BR, THREADS_TC>(sp + nb * TILE_ELEMS, LDS, pp, a.p_rs, i0, a.lq, k0, a.lk);
     if (threadIdx.x < BR / 4) {
       const int r = i0 + 4 * threadIdx.x;
       int bytes = 4 * (a.lq - r);
@@ -270,13 +325,13 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dkv_bf16_kernel(Args
     }
   };
 
-  segclip_tc::load_rows<BR, THREADS_TC>(sp + TILE, vp, a.v_rs, k0, a.lk);
+  segclip_tc::load_rows<BR, THREADS_TC>(sp + TILE_ELEMS, vp, a.v_rs, k0, a.lk);
   load_tile(0);
   segclip_tc::cp_async_commit();
   segclip_tc::cp_async_wait<0>();
   __syncthreads();
   uint32_t vf[4][4];
-  segclip_tc::load_a_rows(vf, sp + TILE, warp, lane);
+  segclip_tc::load_a_rows(vf, sp + TILE_ELEMS, warp, lane);
   __syncthreads();
 
   float dk[8][4], dv[8][4], dpt[8][4];
@@ -293,9 +348,9 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dkv_bf16_kernel(Args
       segclip_tc::cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* tq = sq + (i & 1) * TILE;
-    const bf16* tdo = sdo + (i & 1) * TILE;
-    const bf16* tp = sp + (i & 1) * TILE;
+    const bf16* tq = sq + (i & 1) * TILE_ELEMS;
+    const bf16* tdo = sdo + (i & 1) * TILE_ELEMS;
+    const bf16* tp = sp + (i & 1) * TILE_ELEMS;
     const float* td = sd + (i & 1) * BR;
     const int nrows = min(BR, a.lq - i * BR);                // real queries in this tile
     if (active) segclip_tc::mma_abt(dpt, vf, tdo, lane, nrows);  // dPᵀ = V·dOᵀ
@@ -333,6 +388,384 @@ __global__ void __launch_bounds__(THREADS_TC) attention_bwd_dkv_bf16_kernel(Args
                           HD, lane);
   segclip_tc::stage_store(stage, dv, 1.f, static_cast<bf16*>(a.dv) + o, a.heads * HD, rows, HD,
                           lane);
+}
+
+// ------------------------------------------------------ bfloat16, one pass
+
+using namespace segclip_hopper;
+
+// The longest rows the one-pass backward takes: a 64-row query tile's whole
+// dP rows are one wgmma accumulator of at most four 64-column pieces, and
+// dK and dV of 256 key rows fill two warpgroups' registers.
+constexpr int BWD_ONE_PASS_LIMIT = 256;
+
+struct OnePassArgs {
+  CUtensorMap p;           // (Lk, Lq, B·H), the saved probabilities
+  CUtensorMap dout, q;     // (H·64, Lq, B) over the operands' own strides
+  CUtensorMap k, v;        // (H·64, Lk, B)
+  CUtensorMap dk, dv;      // (H·64, Lk, B), the contiguous outputs
+  bf16* dq;                // (B, Lq, H·64) contiguous
+  int heads, lq, lk;
+  float scale;
+};
+
+// Named barriers: dS of a tile read (the column warpgroups arrive,
+// warpgroup 0 waits), warpgroup 0's own, column warpgroup c's part of dS
+// written (BAR_DS_FULL + c: warpgroup 0 arrives, c waits), and column
+// warpgroup c's own (BAR_COLS + c).
+constexpr int BAR_DS_EMPTY = 1, BAR_ROWS = 2, BAR_DS_FULL = 3, BAR_COLS = 5;
+// Registers per thread at Lk > 128 (three warpgroups, 168 each at launch):
+// warpgroup 0 gives 16 and each column warpgroup takes 8, for its 128
+// accumulator registers (`setmaxnreg`).
+constexpr int ROW_REGS = 152, COL_REGS = 176;
+
+__host__ __device__ constexpr int bwd_col_groups(int nc) { return (nc + 1) / 2; }
+__host__ __device__ constexpr int bwd_threads(int nc) { return 128 * (1 + bwd_col_groups(nc)); }
+// K, V, dS hi and dS lo (NC tiles each), two stages of P (NC tiles), dO and
+// Q (one tile each), then four mbarriers.
+__host__ __device__ constexpr int bwd_one_pass_smem(int nc) {
+  return (6 * nc + 4) * TILE_BYTES + 32;
+}
+
+// Warpgroup 0's work on one query tile, piece by piece of 64 key columns
+// (addresses in shared memory). P's and dS's fragments move by ldmatrix /
+// stmatrix, four 8 × 8 pieces a call, at the accumulator's places: lane l
+// gives row 16w + 8·(i % 2) + l % 8 of 8-column group 2jp + i / 2, i = l / 8
+// (`frag`, for jp = 0), so register i of call jp holds the pair of row
+// r0 + 8·(i % 2), group j = 2jp + i / 2.
+struct RowTile {
+  uint32_t dout, v, p, hi, lo, frag;
+
+  __device__ __forceinline__ uint32_t frag_at(int c, int jp) const {
+    return c * TILE_BYTES + (frag ^ (jp << 5));
+  }
+  // dp[c] = dO·V[piece c0 + c]ᵀ, each a 64 × 64 fp32 accumulator.
+  template <int N>
+  __device__ __forceinline__ void dp_product(float (&dp)[N][32], int c0) const {
+#pragma unroll
+    for (int c = 0; c < N; ++c) fence_regs(dp[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss(dp[c], desc_sw128(dout + 32 * kk),
+                           desc_sw128(v + (c0 + c) * TILE_BYTES + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < N; ++c) fence_regs(dp[c]);
+  }
+  // d[r] += this thread's share of rowsum(dP ∘ P) over pieces c0.. of row
+  // r0 + 8r; P's columns past Lk are 0.
+  template <int N>
+  __device__ __forceinline__ void rowsum(float (&d)[2], const float (&dp)[N][32], int c0) const {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      uint32_t pv[4][4];
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) ldmatrix_x4(pv[jp], p + frag_at(c0 + c, jp));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 2 * jp + (i >> 1), r = i & 1;
+          const float2 p2 = segclip_tc::unpack(pv[jp][i]);
+          d[r] = fmaf(p2.x, dp[c][4 * j + 2 * r], d[r]);
+          d[r] = fmaf(p2.y, dp[c][4 * j + 2 * r + 1], d[r]);
+        }
+    }
+  }
+  // The whole row's D from the four threads that share it.
+  __device__ __forceinline__ void finish_d(float (&d)[2]) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) d[r] = quad_sum(d[r]);
+  }
+  // dS = P ∘ (dP − D) in fp32 over pieces c0.., split into bf16 hi + lo
+  // and written into the dS tiles.
+  template <int N>
+  __device__ __forceinline__ void store_ds(const float (&dp)[N][32], int c0,
+                                           const float (&d)[2]) const {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      uint32_t pv[4][4];
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) ldmatrix_x4(pv[jp], p + frag_at(c0 + c, jp));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 2 * jp + (i >> 1), r = i & 1;
+          const float2 p2 = segclip_tc::unpack(pv[jp][i]);
+          const float x0 = p2.x * (dp[c][4 * j + 2 * r] - d[r]);
+          const float x1 = p2.y * (dp[c][4 * j + 2 * r + 1] - d[r]);
+          h[i] = segclip_tc::pack(x0, x1);
+          const float2 hv = segclip_tc::unpack(h[i]);
+          l[i] = segclip_tc::pack(x0 - hv.x, x1 - hv.y);
+        }
+        stmatrix_x4(hi + frag_at(c0 + c, jp), h);
+        stmatrix_x4(lo + frag_at(c0 + c, jp), l);
+      }
+    }
+  }
+};
+
+// One block per (batch, head). Warpgroup 0 takes the query rows (dP, D, dS,
+// dQ); column warpgroup c ≥ 1 owns the key tiles MT·(c − 1) .. MT·c − 1 of
+// 64 rows (dV, dK). In each warpgroup, warp w holds rows 16w + g and
+// 16w + g + 8 of a 64-row accumulator tile, columns 8j + 2(lane % 4) + {0, 1}.
+template <int NC>
+__global__ void __launch_bounds__(bwd_threads(NC), NC == 1 ? 2 : 1)
+    attention_bwd_one_pass_kernel(const __grid_constant__ OnePassArgs a) {
+  constexpr int THREADS = bwd_threads(NC);
+  constexpr int MT = NC == 1 ? 1 : 2;          // key tiles a column warpgroup owns
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* sk = smem;
+  uint8_t* sv = sk + NC * TILE_BYTES;
+  uint8_t* shi = sv + NC * TILE_BYTES;
+  uint8_t* slo = shi + NC * TILE_BYTES;
+  uint8_t* sp = slo + NC * TILE_BYTES;         // [stage][NC]
+  uint8_t* sdo = sp + 2 * NC * TILE_BYTES;     // [stage]
+  uint8_t* sq = sdo + 2 * TILE_BYTES;          // [stage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sq + 2 * TILE_BYTES);
+  const uint32_t bar_v = smem_u32(bars), bar_k = smem_u32(bars + 1);
+  const uint32_t bar_full = smem_u32(bars + 2);     // stage st's barrier: bar_full + 8·st
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  // The warpgroup index broadcast from lane 0, so that the compiler sees the
+  // branch below as warp-uniform: in a path it thinks divergent it would
+  // serialize every wgmma.
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid >> 7, 0), wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), c2 = 2 * (lane & 3);
+  const int tiles = (a.lq + TILE - 1) / TILE;
+
+  if (tid == 0) {
+    if (smem_u32(smem) & 1023) __trap();      // the swizzle needs 1024-byte tiles
+    mbar_init(bar_v, 1);
+    mbar_init(bar_k, 1);
+    mbar_init(bar_full, 1);
+    mbar_init(bar_full + 8, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // P, dO and Q of query tile t into stage t % 2, on that stage's barrier.
+  auto load_tile = [&](int t) {
+    const int st = t & 1;
+    mbar_expect_tx(bar_full + 8 * st, (NC + 2) * TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      tma_load_3d(sp + (st * NC + c) * TILE_BYTES, &a.p, bar_full + 8 * st, c * TILE, t * TILE,
+                  b * a.heads + h);
+    tma_load_3d(sdo + st * TILE_BYTES, &a.dout, bar_full + 8 * st, h * HD, t * TILE, b);
+    tma_load_3d(sq + st * TILE_BYTES, &a.q, bar_full + 8 * st, h * HD, t * TILE, b);
+  };
+  if (tid == 0) {            // V (for the first dP), tile 0, K (for the first dQ), tile 1
+    mbar_expect_tx(bar_v, NC * TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) tma_load_3d(sv + c * TILE_BYTES, &a.v, bar_v, h * HD, c * TILE, b);
+    load_tile(0);
+    mbar_expect_tx(bar_k, NC * TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) tma_load_3d(sk + c * TILE_BYTES, &a.k, bar_k, h * HD, c * TILE, b);
+    if (tiles > 1) load_tile(1);
+  }
+
+  if (wg == 0) {
+    // ------------------------------------------------ the rows: dP, D, dS, dQ
+    if constexpr (NC >= 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(ROW_REGS));
+    const uint32_t k_addr = smem_u32(sk), v_addr = smem_u32(sv);
+    const uint32_t hi_addr = smem_u32(shi), lo_addr = smem_u32(slo);
+    const long long dm = static_cast<long long>(a.heads) * HD;
+    // This lane's row address for ldmatrix / stmatrix (RowTile)
+    const int mi = lane >> 3;
+    const uint32_t frag = sw128(16 * warp + 8 * (mi & 1) + (lane & 7), mi >> 1, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t & 1, q0 = t * TILE;
+      if (t > 0) {
+        named_sync(BAR_DS_EMPTY, THREADS);    // the column warpgroups are done with tile t − 1
+        if (tid == 0 && t + 1 < tiles) load_tile(t + 1);   // into tile t − 1's stage
+      }
+      mbar_wait(bar_full + 8 * st, (t >> 1) & 1);
+      if (t == 0) mbar_wait(bar_v, 0);
+
+      // dP = dO·Vᵀ over the whole row (V's rows past Lk are zeros), D =
+      // rowsum(dP ∘ P), then dS, handed to each column warpgroup as soon as
+      // its pieces are written. Past two 64-column pieces (Lk > 128) the row
+      // is taken in two parts, pieces 0..1 (column warpgroup 0's) and the
+      // rest (column warpgroup 1's): the first part's dP gives its share of
+      // D and is computed again once D is whole, so that warpgroup 0 never
+      // holds more than two pieces (64 registers) of dP.
+      const uint32_t do_addr = smem_u32(sdo + st * TILE_BYTES);
+      const uint32_t p_addr = smem_u32(sp + st * NC * TILE_BYTES);
+      const RowTile rt{do_addr, v_addr, p_addr, hi_addr, lo_addr, frag};
+      float d[2] = {0.f, 0.f};
+      if constexpr (NC <= 2) {
+        float dp[NC][32];
+        rt.dp_product(dp, 0);
+        rt.rowsum(d, dp, 0);
+        rt.finish_d(d);
+        rt.store_ds(dp, 0, d);
+        fence_proxy_async();
+        named_arrive(BAR_DS_FULL, 256);
+      } else {
+        {
+          float dp[2][32];
+          rt.dp_product(dp, 0);
+          rt.rowsum(d, dp, 0);
+        }
+        float dp[NC - 2][32];
+        rt.dp_product(dp, 2);
+        rt.rowsum(d, dp, 2);
+        rt.finish_d(d);
+        rt.store_ds(dp, 2, d);
+        fence_proxy_async();
+        named_arrive(BAR_DS_FULL + 1, 256);
+        float dpa[2][32];
+        rt.dp_product(dpa, 0);
+        rt.store_ds(dpa, 0, d);
+        fence_proxy_async();
+        named_arrive(BAR_DS_FULL, 256);
+      }
+      named_sync(BAR_ROWS, 128);
+
+      // dQ = dS·K·scale, dS (K-major) hi then lo, K (MN-major) through the
+      // transpose bit; K's rows past Lk are zeros.
+      if (t == 0) mbar_wait(bar_k, 0);
+      float dq[32];
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NC; ++kk) {
+        if (16 * kk >= a.lk) break;
+        const uint32_t at = (kk >> 2) * TILE_BYTES + 32 * (kk & 3);
+        const uint64_t kd = desc_sw128(k_addr + 2048 * kk);
+        wgmma_m64n64k16_ss<0, 1>(dq, desc_sw128(hi_addr + at), kd, kk);
+        wgmma_m64n64k16_ss<0, 1>(dq, desc_sw128(lo_addr + at), kd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+
+      // dQ out from registers, rows < Lq.
+      bf16* dqp = a.dq + (static_cast<long long>(b) * a.lq + q0 + r0) * dm + h * HD + c2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (q0 + r0 + 8 * r < a.lq)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<uint32_t*>(dqp + 8 * r * dm + 8 * j) = segclip_tc::pack(
+                dq[4 * j + 2 * r] * a.scale, dq[4 * j + 2 * r + 1] * a.scale);
+    }
+  } else {
+    // ------------------------------------- the columns: dV and dK of MT key tiles
+    if constexpr (NC >= 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(COL_REGS));
+    const int col = wg - 1, m0 = MT * col;
+    float dv[MT][32], dk[MT][32];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dv[m][i] = dk[m][i] = 0.f;
+    const uint32_t hi_addr = smem_u32(shi), lo_addr = smem_u32(slo);
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t & 1;
+      const int ksteps = (min(TILE, a.lq - t * TILE) + 15) / 16;   // query rows of the tile
+      const uint32_t p_addr = smem_u32(sp + st * NC * TILE_BYTES);
+      const uint32_t do_addr = smem_u32(sdo + st * TILE_BYTES);
+      const uint32_t q_addr = smem_u32(sq + st * TILE_BYTES);
+      mbar_wait(bar_full + 8 * st, (t >> 1) & 1);
+
+      // dV += Pᵀ·dO: Pᵀ (MN-major A) from P's tile, dO (MN-major B).
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_regs(dv[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        if (m0 + m < NC)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (kk < ksteps)
+              wgmma_m64n64k16_ss<1, 1>(dv[m], desc_sw128(p_addr + (m0 + m) * TILE_BYTES + 2048 * kk),
+                                       desc_sw128(do_addr + 2048 * kk), 1);
+      wgmma_commit();
+
+      // dK += dSᵀ·Q once warpgroup 0 has written this warpgroup's pieces of
+      // dS: hi, then lo.
+      named_sync(BAR_DS_FULL + col, 256);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_regs(dk[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        if (m0 + m < NC)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (kk < ksteps) {
+              const uint32_t at = (m0 + m) * TILE_BYTES + 2048 * kk;
+              const uint64_t qd = desc_sw128(q_addr + 2048 * kk);
+              wgmma_m64n64k16_ss<1, 1>(dk[m], desc_sw128(hi_addr + at), qd, 1);
+              wgmma_m64n64k16_ss<1, 1>(dk[m], desc_sw128(lo_addr + at), qd, 1);
+            }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        fence_regs(dv[m]);
+        fence_regs(dk[m]);
+      }
+      if (t + 1 < tiles) named_arrive(BAR_DS_EMPTY, THREADS);
+    }
+
+    // dV and dK out: staged over this warpgroup's own P pieces of both stages
+    // (nothing else reads them now), one TMA store per tile; rows ≥ Lk dropped.
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      if (m0 + m < NC) {
+        uint8_t* sdv = sp + (m0 + m) * TILE_BYTES;
+        uint8_t* sdk = sp + (NC + m0 + m) * TILE_BYTES;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t at = sw128(r0 + 8 * r, j, c2);
+            *reinterpret_cast<uint32_t*>(sdv + at) =
+                segclip_tc::pack(dv[m][4 * j + 2 * r], dv[m][4 * j + 2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(sdk + at) = segclip_tc::pack(
+                dk[m][4 * j + 2 * r] * a.scale, dk[m][4 * j + 2 * r + 1] * a.scale);
+          }
+      }
+    fence_proxy_async();
+    named_sync(BAR_COLS + col, 128);
+    if (wtid == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        if (m0 + m < NC) {
+          tma_store_3d(&a.dv, sp + (m0 + m) * TILE_BYTES, h * HD, (m0 + m) * TILE, b);
+          tma_store_3d(&a.dk, sp + (NC + m0 + m) * TILE_BYTES, h * HD, (m0 + m) * TILE, b);
+        }
+      bulk_commit();
+      bulk_wait_read<0>();                    // shared memory stays until the stores read it
+    }
+  }
+}
+
+template <int NC>
+int launch_bwd_one_pass(const OnePassArgs& a, int batch, cudaStream_t stream) {
+  const auto kernel = attention_bwd_one_pass_kernel<NC>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool raised[64] = {};                // the shared-memory limit, once per device
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bwd_one_pass_smem(NC));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised[device] = true;
+  }
+  kernel<<<dim3(a.heads, batch), bwd_threads(NC), bwd_one_pass_smem(NC), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- float32
@@ -585,6 +1018,54 @@ int segclip_attention_bwd(int dtype, const void* p, const void* dout, const void
   if (dtype == 0) return launch_f32(a, batch, s);
   if (dtype == 1) return launch_bf16(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The longest Lk that `segclip_attention_bwd_one_pass` takes.
+int segclip_attention_bwd_one_pass_limit() { return BWD_ONE_PASS_LIMIT; }
+
+// The bf16 one-pass backward, for 1 ≤ Lk ≤ BWD_ONE_PASS_LIMIT. Strides are
+// in elements; the wrapper guarantees 16-byte aligned p, dO, q, k, v and
+// strides, and P's rows padded to a multiple of 8 elements (p_rs ≥ Lk). P's
+// batch and head dims are read as one (B·H) dim: p_bs = H·p_hs unless B or H
+// is 1. dq, dk, dv are contiguous (B, L, H·64). Returns the cudaError_t of
+// the launch (0 on success).
+int segclip_attention_bwd_one_pass(const void* p, const void* dout, const void* q,
+                                   const void* k, const void* v, void* dq, void* dk, void* dv,
+                                   int batch, int heads, int lq, int lk, long long p_bs,
+                                   long long p_hs, long long p_rs, long long do_bs,
+                                   long long do_rs, long long q_bs, long long q_rs,
+                                   long long k_bs, long long k_rs, long long v_bs,
+                                   long long v_rs, float scale, void* stream) {
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || lk > BWD_ONE_PASS_LIMIT || batch > 65535 ||
+      heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lq > 1 && (p_rs < lk || p_rs % 8)) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch > 1 && heads > 1 && p_bs != heads * p_hs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long dm = static_cast<long long>(heads) * HD;
+  const long long p_bh = heads > 1 ? p_hs : p_bs;        // the stride of the B·H dim
+  OnePassArgs a{};
+  const bool ok =
+      encode_bf16_3d(&a.p, p, lk, lq, static_cast<uint64_t>(batch) * heads, p_rs, p_bh) &&
+      encode_bf16_3d(&a.dout, dout, dm, lq, batch, do_rs, do_bs) &&
+      encode_bf16_3d(&a.q, q, dm, lq, batch, q_rs, q_bs) &&
+      encode_bf16_3d(&a.k, k, dm, lk, batch, k_rs, k_bs) &&
+      encode_bf16_3d(&a.v, v, dm, lk, batch, v_rs, v_bs) &&
+      encode_bf16_3d(&a.dk, dk, dm, lk, batch, dm, dm * lk) &&
+      encode_bf16_3d(&a.dv, dv, dm, lk, batch, dm, dm * lk);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.dq = static_cast<bf16*>(dq);
+  a.heads = heads;
+  a.lq = lq;
+  a.lk = lk;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((lk + TILE - 1) / TILE) {
+    case 1: return launch_bwd_one_pass<1>(a, batch, s);
+    case 2: return launch_bwd_one_pass<2>(a, batch, s);
+    case 3: return launch_bwd_one_pass<3>(a, batch, s);
+    default: return launch_bwd_one_pass<4>(a, batch, s);
+  }
 }
 
 }  // extern "C"

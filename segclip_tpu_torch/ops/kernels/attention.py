@@ -20,6 +20,15 @@ go to the two-pass kernel. Nothing falls back: a launch that fails raises.
 `attention_fwd_one_pass.launches` / `attention_fwd_two_pass.launches` each
 route's; those two functions launch their kernel directly.
 
+The backward has two kernels too, and `bwd_route` picks one by dtype and
+Lk alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward
+of the B = 96 and B = 512 steps) go to the one-pass kernel (one block per
+(batch, head), dK and dV summed on chip, TMA copies, `wgmma`); longer bf16
+rows and every float32 call go to the two-pass kernels.
+`attention_bwd.launches` counts every backward launch, and
+`attention_bwd_one_pass.launches` / `attention_bwd_two_pass.launches` each
+route's; those two functions launch their kernel directly.
+
 `attention` is differentiable on every device. Under autograd its forward
 saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
 the TPU kernel's VJP does. On the card P is a view of a (B, H, Lq, Lk8)
@@ -43,6 +52,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The longest rows (Lk) the bf16 one-pass kernel takes: ONE_PASS_LIMIT of
 # csrc/attention_fwd.cu, which the library reports (`one_pass_limit`).
 ONE_PASS_LIMIT = 256
+# The same for the bf16 one-pass backward: BWD_ONE_PASS_LIMIT of
+# csrc/attention_bwd.cu (`bwd_one_pass_limit`).
+BWD_ONE_PASS_LIMIT = 256
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -172,6 +184,32 @@ def _bwd_entry():
     return fn
 
 
+@lru_cache(maxsize=None)
+def _bwd_one_pass_entry():
+    fn = build.load().segclip_attention_bwd_one_pass
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def bwd_one_pass_limit() -> int:
+    """The longest Lk the one-pass backward takes, as the library reports
+    it (`segclip_attention_bwd_one_pass_limit`); BWD_ONE_PASS_LIMIT mirrors
+    it."""
+    fn = build.load().segclip_attention_bwd_one_pass_limit
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def bwd_route(dtype: torch.dtype, lk: int, limit: int = BWD_ONE_PASS_LIMIT) -> str:
+    """Which backward kernel takes a call on the card, by its dtype and Lk
+    alone: "one_pass" for bfloat16 rows of at most `limit` keys, else
+    "two_pass" (the longer bf16 rows and every float32 call)."""
+    return "one_pass" if dtype == torch.bfloat16 and lk <= limit else "two_pass"
+
+
 def _check(q, k, v, bias2d, biasb):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (B, L, H·64)")
@@ -236,10 +274,13 @@ def _round8(n: int) -> int:
 
 
 def _kernel_p(p: torch.Tensor) -> torch.Tensor:
-    """P as the backward kernel reads it: the forward's padded view goes in
+    """P as the backward kernels read it: the forward's padded view goes in
     as it is; another layout is copied into one (bf16: rows padded to 8
-    elements; f32: a unit last stride)."""
-    if p.dtype == torch.bfloat16 and not _aligned16(p):
+    elements, batch and head dims one dim of stride H·Lq·rows; f32: a unit
+    last stride)."""
+    b, heads = p.shape[:2]
+    one_bh = b == 1 or heads == 1 or p.stride(0) == heads * p.stride(1)
+    if p.dtype == torch.bfloat16 and not (_aligned16(p) and one_bh):
         padded = torch.zeros((*p.shape[:-1], _round8(p.shape[-1])), dtype=p.dtype,
                              device=p.device)
         padded[..., :p.shape[-1]] = p
@@ -354,15 +395,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, p
 
 
-def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
-                  k: torch.Tensor, v: torch.Tensor,
-                  scale: float = HEAD_DIM ** -0.5
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's wrapper: (dQ, dK, dV) from the saved P, the
-    output's cotangent dO (B, Lq, H·64) and the operands, each contiguous
-    in its operand's dtype. P is read through its strides (the forward's
-    padded view without a copy); a dO the kernel cannot read in place is
-    copied first."""
+def _check_bwd(p, do, q, k, v) -> torch.device:
+    """Checks the backward's operands; returns their one device."""
     _check(q, k, v, None, None)
     b, lq, dm = q.shape
     lk = k.shape[1]
@@ -373,31 +407,99 @@ def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     if do.shape != q.shape or do.dtype != v.dtype:
         raise ValueError(f"dO must be {v.dtype} {tuple(q.shape)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
-    device = _device_of(p, do, q, k, v)
-    if device.type == "cpu":
-        return attention_bwd_plain(p, do, q, k, v, scale)
+    return _device_of(p, do, q, k, v)
 
+
+def _launch_bwd(route, p, do, q, k, v, scale):
+    """One launch of a backward kernel on CUDA tensors (checked): "one_pass"
+    (`segclip_attention_bwd_one_pass`, bf16, Lk ≤ the limit) or "two_pass"
+    (`segclip_attention_bwd`, with its D scratch). Returns (dQ, dK, dV). As
+    `_launch_fwd`: a raw stream handle, and the device switched only when
+    the tensors are not on the current one."""
+    device = q.device
     _unit_last_stride(q, k, v)
     if q.dtype == torch.bfloat16:
         _check_aligned(q, k, v)
+    b, lq, dm = q.shape
+    lk = k.shape[1]
+    heads = dm // HEAD_DIM
+    if route == "one_pass" and (q.dtype != torch.bfloat16 or lk > bwd_one_pass_limit()):
+        raise ValueError(f"the one-pass backward takes bfloat16 rows of at most "
+                         f"{bwd_one_pass_limit()} keys, got {q.dtype}, Lk = {lk}")
     p, do = _kernel_p(p), _kernel_do(do)
     dq = torch.empty((b, lq, dm), dtype=q.dtype, device=device)
     dk = torch.empty((b, lk, dm), dtype=k.dtype, device=device)
     dv = torch.empty((b, lk, dm), dtype=v.dtype, device=device)
-    drow = torch.empty((b, heads, (lq + 3) // 4 * 4), dtype=torch.float32,
-                       device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = _bwd_entry()(
-            _DTYPES[q.dtype], p.data_ptr(), do.data_ptr(), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), drow.data_ptr(), b, heads, lq, lk,
-            *p.stride()[:3], do.stride(0), do.stride(1), q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), stream)
-    build.check(err, "attention_bwd")
-    attention_bwd.launches += 1
+    ptrs = (p.data_ptr(), do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    rest = (*p.stride()[:3], do.stride(0), do.stride(1), q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
+            torch._C._cuda_getCurrentRawStream(device.index))
+    if route == "one_pass":
+        entry, args = _bwd_one_pass_entry(), (*ptrs, b, heads, lq, lk, *rest)
+    else:
+        drow = torch.empty((b, heads, (lq + 3) // 4 * 4), dtype=torch.float32,
+                           device=device)
+        entry, args = _bwd_entry(), (_DTYPES[q.dtype], *ptrs, drow.data_ptr(), b, heads,
+                                     lq, lk, *rest)
+    if device.index == torch.cuda.current_device():
+        err = entry(*args)
+    else:
+        with torch.cuda.device(device):
+            err = entry(*args)
+    build.check(err, f"attention_bwd ({route})")
     return dq, dk, dv
+
+
+def _bwd_route_call(route, p, do, q, k, v, scale):
+    if _check_bwd(p, do, q, k, v).type == "cpu":
+        return attention_bwd_plain(p, do, q, k, v, scale)
+    grads = _launch_bwd(route, p, do, q, k, v, scale)
+    _BWD_ROUTES[route].launches += 1
+    return grads
+
+
+def attention_bwd_one_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           scale: float = HEAD_DIM ** -0.5
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 one-pass backward kernel alone (Lk ≤ the limit; it raises
+    on anything else), as `attention_bwd` returns; the plain version on the
+    CPU. `attention_bwd` routes to it; chip_smoke.py times it directly."""
+    return _bwd_route_call("one_pass", p, do, q, k, v, scale)
+
+
+def attention_bwd_two_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           scale: float = HEAD_DIM ** -0.5
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-pass backward kernels alone (bf16 on tensor cores, float32 on
+    FMAs; any Lk), as `attention_bwd` returns; the plain version on the
+    CPU. `attention_bwd` routes to it; chip_smoke.py times it directly."""
+    return _bwd_route_call("two_pass", p, do, q, k, v, scale)
+
+
+_BWD_ROUTES = {"one_pass": attention_bwd_one_pass, "two_pass": attention_bwd_two_pass}
+
+
+def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor,
+                  scale: float = HEAD_DIM ** -0.5
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' wrapper: (dQ, dK, dV) from the saved P, the
+    output's cotangent dO (B, Lq, H·64) and the operands, each contiguous
+    in its operand's dtype. P is read through its strides (the forward's
+    padded view without a copy); a dO the kernels cannot read in place is
+    copied first. On the card the call goes to the kernel `bwd_route` names
+    for its dtype and Lk, with the library's limit."""
+    if _check_bwd(p, do, q, k, v).type == "cpu":
+        return attention_bwd_plain(p, do, q, k, v, scale)
+    limit = bwd_one_pass_limit() if q.dtype == torch.bfloat16 else BWD_ONE_PASS_LIMIT
+    route = bwd_route(q.dtype, k.shape[1], limit)
+    grads = _launch_bwd(route, p, do, q, k, v, scale)
+    _BWD_ROUTES[route].launches += 1
+    attention_bwd.launches += 1
+    return grads
 
 
 class AttentionFn(torch.autograd.Function):
@@ -440,4 +542,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention.launches = 0          # forward kernel launches, both routes
 attention_fwd_one_pass.launches = 0     # forward launches of the one-pass kernel
 attention_fwd_two_pass.launches = 0     # forward launches of the two-pass kernels
-attention_bwd.launches = 0      # backward kernel launches
+attention_bwd.launches = 0      # backward kernel launches, both routes
+attention_bwd_one_pass.launches = 0     # backward launches of the one-pass kernel
+attention_bwd_two_pass.launches = 0     # backward launches of the two-pass kernels

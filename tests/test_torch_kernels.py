@@ -678,3 +678,164 @@ def test_bf16_one_pass_rounds_p_bit_for_bit(cuda):
     assert _routes()[0] == routes[0] + 1
     assert torch.equal(out, attention_plain(q, k, v, bias2d))
     assert torch.equal(attention_fwd_one_pass(q, k, v, bias2d)[0], out)
+
+
+# The bf16 one-pass backward (csrc/attention_bwd.cu, attention_bwd_one_pass_kernel:
+# one block per (batch, head), dK and dV summed on chip, TMA copies, wgmma)
+# for Lk ≤ its limit, the two-pass kernels above it. Each case runs both
+# kernels on the same P, dO, q, k, v and holds each to the plain version
+# (the bf16 share rule and finite values), and the routed wrapper's call to
+# the kernel `bwd_route` names.
+BWD_ONE_PASS_MAIN_PATH = [       # (B, Lq, Lk, H, bias, cross): the B = 96 step, ViT-B/32, ViT-L/14
+    (96, 196, 196, 12, None, False), (96, 8, 204, 12, None, True), (96, 8, 8, 12, None, False),
+    (96, 48, 48, 12, None, False), (96, 8, 56, 12, None, True), (96, 32, 32, 8, "causal", False),
+    (96, 49, 49, 12, None, False), (96, 8, 57, 12, None, True), (32, 256, 256, 16, None, False)]
+BWD_ONE_PASS_EDGES = [           # Lq and Lk ragged against the 64-row tiles and 16-key steps;
+    (2, lq, lk, 2, None, lq != lk)  # Lk 100, 129 and 192 take two and three 64-key pieces
+    for lq in (1, 8, 49, 57, 196, 204, 256)
+    for lk in (1, 8, 49, 57, 100, 129, 192, 196, 204, 256)]
+
+
+def _bwd_routes():
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd_one_pass,
+                                                         attention_bwd_two_pass)
+    return attention_bwd_one_pass.launches, attention_bwd_two_pass.launches
+
+
+def _bwd_case(cuda, b, lq, lk, h, bias, cross, seed):
+    q, k, v, bias2d, biasb = _one_pass_case(cuda, b, lq, lk, h, bias, cross, seed)
+    _, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    do = torch.randn(b, lq, h * 64, generator=gen, device=cuda).to(torch.bfloat16)
+    return p, do, q, k, v
+
+
+def _assert_grads_close(grads, ref):
+    for g, r in zip(grads, ref):
+        assert torch.isfinite(g).all() and g.is_contiguous()
+        _assert_bf16_close(g, r)
+
+
+@pytest.mark.parametrize("b, lq, lk, h, bias, cross",
+                         BWD_ONE_PASS_MAIN_PATH + BWD_ONE_PASS_EDGES)
+def test_bf16_bwd_one_pass_matches_plain_and_the_two_pass_kernel(cuda, b, lq, lk, h, bias,
+                                                                 cross):
+    from segclip_tpu_torch.ops.kernels.attention import (
+        BWD_ONE_PASS_LIMIT, attention_bwd_one_pass, attention_bwd_two_pass, bwd_one_pass_limit)
+    assert bwd_one_pass_limit() == BWD_ONE_PASS_LIMIT
+    p, do, q, k, v = _bwd_case(cuda, b, lq, lk, h, bias, cross, seed=lq * 11 + lk)
+    before, routes = attention_bwd.launches, _bwd_routes()
+    grads = attention_bwd(p, do, q, k, v)
+    assert attention_bwd.launches == before + 1 and _bwd_routes() == (routes[0] + 1, routes[1])
+    one = attention_bwd_one_pass(p, do, q, k, v)
+    two = attention_bwd_two_pass(p, do, q, k, v)
+    ref = attention_bwd_plain(p, do, q, k, v)
+    torch.cuda.synchronize()
+    assert _bwd_routes() == (routes[0] + 2, routes[1] + 1)
+    assert all(torch.equal(g, o) for g, o in zip(grads, one))
+    _assert_grads_close(one, ref)
+    _assert_grads_close(two, ref)
+
+
+@pytest.mark.parametrize("lk", [256, 257])
+def test_bf16_bwd_one_pass_route_at_the_limit(cuda, lk):
+    """Lk at the limit takes the one-pass backward, one past it the two-pass
+    kernels; the one-pass function refuses what it does not take."""
+    from segclip_tpu_torch.ops.kernels.attention import (BWD_ONE_PASS_LIMIT,
+                                                         attention_bwd_one_pass, bwd_route)
+    p, do, q, k, v = _bwd_case(cuda, 2, 33, lk, 2, None, True, seed=lk)
+    routes = _bwd_routes()
+    grads = attention_bwd(p, do, q, k, v)
+    one = int(lk <= BWD_ONE_PASS_LIMIT)
+    assert bwd_route(torch.bfloat16, lk) == ("one_pass" if one else "two_pass")
+    assert _bwd_routes() == (routes[0] + one, routes[1] + 1 - one)
+    _assert_grads_close(grads, attention_bwd_plain(p, do, q, k, v))
+    if not one:
+        with pytest.raises(ValueError, match="one-pass"):
+            attention_bwd_one_pass(p, do, q, k, v)
+        with pytest.raises(ValueError, match="one-pass"):
+            attention_bwd_one_pass(p.float(), do.float(), q.float(), k.float(), v.float())
+
+
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+@pytest.mark.parametrize("b, l, h", [(4, 77, 8), (96, 32, 8), (2, 196, 12)])
+def test_bf16_bwd_one_pass_biases(cuda, bias, b, l, h):
+    """Causal bias2d and padding biasb (one sample padded everywhere but its
+    first key) through the forward, then the one-pass backward from its P."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_one_pass
+    q, k, v, bias2d, biasb, do = _bf16_case(cuda, b, l, l, h, bias, seed=l + b)
+    if biasb is not None:
+        biasb[1, 1:] = -1e6
+    _, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    _assert_grads_close(attention_bwd_one_pass(p, do, q, k, v),
+                        attention_bwd_plain(p, do, q, k, v))
+
+
+def test_bf16_bwd_one_pass_reads_views_in_place(cuda):
+    """q|k|v column views of one projection and the forward's padded P go
+    in without a copy (P of Lk = 196 and 204, rows padded to 8); a P whose
+    batch and head dims are not one dim is copied first, to the same bits."""
+    from segclip_tpu_torch.ops.kernels.attention import _kernel_p, attention_bwd_one_pass
+    for lk, cross in ((196, False), (204, True)):
+        p, do, q, k, v = _bwd_case(cuda, 3, 196 if not cross else 8, lk, 2, None, cross, seed=lk)
+        assert _kernel_p(p) is p and p.stride(-2) == (lk + 7) // 8 * 8
+        if not cross:
+            assert q.stride(1) == 3 * q.shape[-1] and k.data_ptr() == q.data_ptr() + 2 * 128
+        grads = attention_bwd_one_pass(p, do, q, k, v)
+        swapped = p.transpose(0, 1).contiguous().transpose(0, 1)
+        assert _kernel_p(swapped) is not swapped
+        for got in (attention_bwd_one_pass(swapped, do, q, k, v),
+                    attention_bwd_one_pass(p.contiguous(), do, q, k, v)):
+            assert all(torch.equal(a, b) for a, b in zip(got, grads))
+        _assert_grads_close(grads, attention_bwd_plain(p, do, q, k, v))
+
+
+@pytest.mark.parametrize("kind", ["misaligned", "expanded"])
+def test_bf16_bwd_one_pass_copies_a_do_it_cannot_read_in_place(cuda, kind):
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_one_pass
+    p, do, q, k, v = _bwd_case(cuda, 2, 40, 50, 2, None, False, seed=4)
+    if kind == "misaligned":
+        flat = torch.empty(do.numel() + 8, dtype=do.dtype, device=cuda)
+        bad = flat[1:1 + do.numel()].view(do.shape)
+        bad.copy_(do)
+        assert bad.data_ptr() % 16 != 0
+    else:                                   # the cotangent of out.sum()
+        bad = do[0, 0, 0].expand_as(do)
+        do = bad.contiguous()
+    routes = _bwd_routes()
+    grads = attention_bwd_one_pass(p, bad, q, k, v)
+    assert _bwd_routes() == (routes[0] + 1, routes[1])
+    for g, r in zip(grads, attention_bwd_one_pass(p, do, q, k, v)):
+        assert torch.equal(g, r)
+
+
+def test_bf16_bwd_one_pass_is_bit_reproducible_and_refuses_misaligned_operands(cuda):
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_one_pass
+    p, do, q, k, v = _bwd_case(cuda, 8, 196, 196, 12, None, False, seed=5)
+    first = attention_bwd_one_pass(p, do, q, k, v)
+    second = attention_bwd_one_pass(p, do, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    x = torch.randn(2, 9, 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd_one_pass(torch.zeros(2, 1, 9, 9, device=cuda, dtype=torch.bfloat16),
+                               torch.zeros(2, 9, 64, device=cuda, dtype=torch.bfloat16),
+                               x[..., 1:65], x[..., 65:129], x[..., 129:193])
+
+
+def test_bf16_bwd_one_pass_fully_masked_row_is_nan_like_the_plain_version(cuda):
+    """A row whose every key is masked has P = NaN: dQ's row is NaN, the
+    other rows of dQ finite, and dK and dV NaN wherever the plain version's
+    are."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_one_pass
+    q, k, v, _, _, do = _bf16_case(cuda, 1, 70, 100, 1)
+    bias2d = torch.zeros(70, 100, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    _, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    grads = attention_bwd_one_pass(p, do, q, k, v)
+    ref = attention_bwd_plain(p, do, q, k, v)
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    assert torch.isnan(grads[0][0, 66]).all() and torch.isfinite(grads[0][:, keep]).all()
+    _assert_bf16_close(grads[0][:, keep], ref[0][:, keep])
+    for g, r in zip(grads[1:], ref[1:]):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))

@@ -663,3 +663,104 @@ def test_forward_routes_take_the_plain_version_on_the_cpu(route):
     assert fn(q, k, v)[1] is None
     assert counts == (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
                       kattn.attention_fwd_two_pass.launches)
+
+
+def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
+    """`bwd_route` by shape alone: every bf16 backward of the B = 96 step
+    (Lk 196, 204, 8, 48, 56, 32), of the B = 512 step and of ViT-B/32 (49,
+    57) goes to the one-pass kernel, as does ViT-L/14's 256; the longer rows
+    (ViT-L/14's cross 264, 448 px's 784 and 792) and every float32 call go
+    to the two-pass kernels."""
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.ops.kernels.attention import BWD_ONE_PASS_LIMIT, bwd_route
+    smoke = _chip_smoke()
+    step = {c[3] for c in smoke.step_shapes("train", ModelConfig(), 96)[0]}
+    b512 = {c[3] for c in smoke.step_shapes("b512", smoke.large_config("b512", True), 512)[0]}
+    b32 = {c[3] for c in smoke.step_shapes("b32", smoke.b32_config(), 96)[0]}
+    l14 = {c[3] for c in smoke.step_shapes("l14", smoke.large_config("l14", False), 32)[0]}
+    px448 = {c[3] for c in smoke.step_shapes("448", smoke.large_config("448", False), 24)[0]}
+    assert step == b512 == {8, 32, 48, 56, 196, 204}
+    assert {49, 57} <= b32 and {256, 264} <= l14 and {784, 792} <= px448
+    assert BWD_ONE_PASS_LIMIT >= 204
+    for lk in step | b512 | b32 | {256, BWD_ONE_PASS_LIMIT}:
+        assert bwd_route(torch.bfloat16, lk) == "one_pass", lk
+    for lk in (264, 784, 792, BWD_ONE_PASS_LIMIT + 1):
+        assert bwd_route(torch.bfloat16, lk) == "two_pass", lk
+    for lk in step | {256, 784}:
+        assert bwd_route(torch.float32, lk) == "two_pass", lk
+
+
+def test_bwd_one_pass_limit_mirrors_the_cuda_constant():
+    """BWD_ONE_PASS_LIMIT in the wrapper is csrc/attention_bwd.cu's constant,
+    which the library reports through its own entry point."""
+    import re
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.ops.kernels.attention import BWD_ONE_PASS_LIMIT
+    text = (build.CSRC / "attention_bwd.cu").read_text()
+    assert re.findall(r"constexpr int BWD_ONE_PASS_LIMIT = (\d+);", text) == [
+        str(BWD_ONE_PASS_LIMIT)]
+    assert BWD_ONE_PASS_LIMIT == 256
+    assert ("int segclip_attention_bwd_one_pass_limit() { return BWD_ONE_PASS_LIMIT; }"
+            in text)
+
+
+def test_bwd_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
+    """The backward source's header says which TPU kernel it replaces (file
+    and line), what bounds it on the card, and what the one-pass design does
+    (one block per (batch, head), dK and dV summed on chip, TMA copies,
+    wgmma with transposed operands, no atomics); the Hopper header has the
+    transposed shared-memory product and the named barriers it uses."""
+    from segclip_tpu_torch.kernels import build
+    text = (build.CSRC / "attention_bwd.cu").read_text()
+    header = text[:text.index("#include")]
+    for needle in ("segclip_tpu/ops/pallas/attention.py:96", "_bwd_kernel", "bound", "bytes",
+                   "0.087 ms", "one block", "(batch, head)", "on chip", "TMA", "mbarrier",
+                   "wgmma", "transpose bit", "atomics", "BWD_ONE_PASS_LIMIT",
+                   "attention_bwd_one_pass_kernel", "attention_bwd_{dq,dkv}_bf16_kernel",
+                   "hi + lo"):
+        assert needle in header, needle
+    assert '#include "hopper.cuh"' in text
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    assert "template <int TRANS_A = 0, int TRANS_B = 0>" in hopper
+    assert "named_sync" in hopper and "named_arrive" in hopper
+
+
+@pytest.mark.parametrize("route", ["routed", "one_pass", "two_pass"])
+def test_backward_routes_take_the_plain_version_on_the_cpu(route):
+    """The routed backward and each route's function, given CPU tensors,
+    return the plain version's gradients and launch nothing (no counter
+    moves)."""
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    rng = np.random.default_rng(6)
+    qkv = _t(rng.normal(size=(2, 9, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    _, p = kattn.attention_fwd(q, k, v, save_p=True)
+    do = _t(rng.normal(size=(2, 9, 128)).astype(np.float32)).to(torch.bfloat16)
+    fn = {"routed": kattn.attention_bwd, "one_pass": kattn.attention_bwd_one_pass,
+          "two_pass": kattn.attention_bwd_two_pass}[route]
+
+    def counts():
+        return (kattn.attention_bwd.launches, kattn.attention_bwd_one_pass.launches,
+                kattn.attention_bwd_two_pass.launches)
+    before = counts()
+    grads = fn(p, do, q, k, v)
+    for g, r in zip(grads, kattn.attention_bwd_plain(p, do, q, k, v)):
+        assert torch.equal(g, r)
+    assert counts() == before
+
+
+def test_kernel_p_hands_the_backward_one_batch_head_dim():
+    """P as the backward kernels read it: the forward's padded layout goes
+    in as it is; a P whose batch and head dims cannot be read as one (B·H)
+    dim, or whose rows are not 16-byte aligned, is copied into rows padded
+    to 8 elements, with the same values."""
+    from segclip_tpu_torch.ops.kernels.attention import _kernel_p
+    rng = np.random.default_rng(7)
+    full = _t(rng.random((2, 3, 5, 16)).astype(np.float32)).to(torch.bfloat16)
+    padded = full[..., :13]                         # the forward's (B, H, Lq, Lk8) view
+    assert _kernel_p(padded) is padded
+    swapped = full.transpose(0, 1).contiguous().transpose(0, 1)[..., :13]
+    for p in (swapped, padded.contiguous()):
+        got = _kernel_p(p)
+        assert got is not p and torch.equal(got, p)
+        assert got.stride() == (3 * 5 * 16, 5 * 16, 16, 1)
