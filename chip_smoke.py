@@ -19,19 +19,21 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      saved), the attention backward, the eval grouping and the Gumbel
      (training) grouping at each of their shapes, each grouping call run
      twice and required to give the same bits; at every bf16 shape the
-     one-pass forward takes (Lk ≤ its limit), the two-pass forward too, and
-     at every bf16 shape the one-pass backward takes, the two-pass backward
-     too, each on the same inputs and held to the same rules, each call's
-     route read from the route counters; the host time per forward and per
-     backward call (enqueue only) of each route; and the repaired fault: on
+     one-pass or the cluster forward takes (Lk ≤ their limits), the
+     two-pass forward too, and at every bf16 shape the one-pass or the
+     cluster backward takes, the two-pass backward too, each on the same
+     inputs and held to the same rules, each call's route read from the
+     route counters; the host time per forward and per backward call
+     (enqueue only) of each route; and the repaired fault: on
      CUDA, the outputs of `attention` and `group_assign` require grad when
      their inputs do;
   2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
-     seeded random init; a 20-class text bank; four requests through
+     seeded random init; a 20-class text bank; five requests through
      ZeroShotSegmenter (224×224 whole, 224×448 slide, a 300×500 image in
-     slide mode answered at its original size, one group map); the kernels'
-     launch counters must show every attention and grouping call of the
-     path went through the kernels;
+     slide mode answered at its original size, 224×336 whole, whose 294
+     patches take the cluster kernel, one group map); the kernels' launch
+     counters must show every attention and grouping call of the path went
+     through the kernels;
   3. the eval path against its plain self: one request at float32 on the
      card and on the CPU (where the wrappers take the plain versions);
   4. the training slice: ViT-B/16 at the default ModelConfig (bfloat16,
@@ -139,37 +141,44 @@ then device time from torch.profiler: each kernel, its plain version and,
 for attention, one PyTorch call computing the same function
 (`scaled_dot_product_attention`, its backend read from the profiler's
 kernel names), at the phase-1 shapes, each beside its bound
-(segclip_tpu_torch/ops/kernels/bounds.py) and, where a one-pass kernel
-(forward or backward) ran, the two-pass kernel's time on the same inputs,
-which must be the longer (the two measured in turns, three rounds each,
-medians compared); a kernel time
+(segclip_tpu_torch/ops/kernels/bounds.py) and, where a one-pass or a
+cluster kernel (forward or backward) ran, the two-pass kernel's time on the
+same inputs, which must be the longer (the two measured in turns, three
+rounds each, medians compared); a kernel time
 under its bound is profiled again and fails the run if it stays there (unless
 the work fits in the L2 cache); a profile of three warm requests,
-of one training step, of one B = 512 step with remat and of one ViT-B/32
-step at B = 96. The build prints
+of one training step, of one B = 512 step with remat, of one ViT-B/32
+step at B = 96 and of one 448 px step at B = 24. The build prints
 each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the count of tensor-core
 instructions (HMMA, HGMMA) and TMA instructions in each kernel; the bf16
 attention kernels and the bf16 grouping kernel must have tensor-core
-instructions, and every instance of the one-pass forward and backward
-HGMMA and TMA ones too. The forward's and the backward's launches by route
-(one-pass, two-pass) are printed per phase of the main path (phases 2-14;
-phase 9's ranks and phase 10's studies report their own); all four kernels
-must have launched. The profiles list the port's own
+instructions, and every instance of the one-pass and the cluster forward
+and backward HGMMA and TMA ones too. The forward's and the backward's
+launches by route (one-pass, cluster, two-pass) are printed per phase of
+the main path (phases 2-14; phase 9's ranks and phase 10's studies report
+their own); all six kernels must have launched, the cluster ones in phase 2
+(the 224×336 request) and phase 12 (448 px, ViT-L/14's cross blocks), and
+the float32 phases only the two-pass ones. The profiles list the port's own
 kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
 
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
 10's subprocess: one study with the launch counters read around it.
+`python3 chip_smoke.py profile-step 448` profiles one warm training step
+of a LARGE_CONFIGS entry alone (it runs on older trees of the port too).
 
 Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, whether cv2 is importable, one JSON line of
 kernel results ("ms", "plain_ms", "library_ms", "bound_ms" at each
 kernel's main shape: the one-pass forward ("attention_fwd_one_pass", with
-"two_pass_ms" and "host_us") at 96x196 with P, the two-pass forward
-("attention_fwd") at 448 px's 24x784 with P, the one-pass backward
-("attention_bwd_one_pass", with "two_pass_ms", "host_us" and "pair_ms",
-the forward with P plus the backward, beside SDPA's forward + backward)
-at 96x196 and the two-pass backward ("attention_bwd") at 24x784, whose
-launches are counted by route per phase as above; the Gumbel grouping's at
+"two_pass_ms" and "host_us") at 96x196 with P, the cluster forward
+("attention_fwd", with "two_pass_ms" and "host_us") and PR 3's two-pass
+forward ("attention_fwd_two_pass", timed in turns beside it) at 448 px's
+24x784 with P, the one-pass backward ("attention_bwd_one_pass", with
+"two_pass_ms", "host_us" and "pair_ms", the forward with P plus the
+backward, beside SDPA's forward + backward) at 96x196, the cluster
+backward ("attention_bwd", with "two_pass_ms" and "pair_ms") and the
+two-pass backward ("attention_bwd_two_pass") at 24x784, whose launches
+are counted by route per phase as above; the Gumbel grouping's at
 the MAE shape as
 "mae_*"; launches per training step
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
@@ -227,6 +236,7 @@ SHARDED_MAX_WINDOWS = 11
 ATTN_CASES = (
     ("vision 2x196 (slide, 2 windows)", 2, 196, 196, 12, None, "self"),
     ("vision 1x294 (whole 224x336)", 1, 294, 294, 12, None, "self"),
+    ("cross 1x8x302 (whole 224x336, 294 patches)", 1, 8, 302, 12, None, "cross"),
     ("cross 2x8x204", 2, 8, 204, 12, None, "cross"),
     ("group stage 2x8x8", 2, 8, 8, 12, None, "self"),
     ("text 20x77 causal", 20, 77, 77, 8, "causal", "self"),
@@ -556,25 +566,28 @@ def check_route(case, dtype, before: dict, backward: bool = False) -> str:
     """The route one forward (or backward) call took, from the route
     counters moved since `before`, which must be the one `fwd_route` (or
     `bwd_route`) names for its dtype and Lk with the library's limit."""
-    from segclip_tpu_torch.ops.kernels.attention import (bwd_one_pass_limit, bwd_route,
-                                                         fwd_route, one_pass_limit)
+    from segclip_tpu_torch.ops.kernels.attention import (
+        bwd_cluster_limit, bwd_one_pass_limit, bwd_route, cluster_limit, fwd_route,
+        one_pass_limit)
     if backward:
-        route, prefix = bwd_route(dtype, case[3], bwd_one_pass_limit()), "bwd_"
+        route = bwd_route(dtype, case[3], bwd_one_pass_limit(), bwd_cluster_limit())
+        prefix = "bwd_"
     else:
-        route, prefix = fwd_route(dtype, case[3], one_pass_limit()), ""
+        route, prefix = fwd_route(dtype, case[3], one_pass_limit(), cluster_limit()), ""
     now = read_routes()
-    moved = {k: now[prefix + k] - before[prefix + k] for k in ("one_pass", "two_pass")}
-    check(moved == {"one_pass": int(route == "one_pass"), "two_pass": int(route == "two_pass")},
+    moved = {k: now[prefix + k] - before[prefix + k] for k in ROUTES}
+    check(moved == {k: int(route == k) for k in ROUTES},
           f"attention {'backward' if backward else 'forward'} {case[0]} {dtype}: routes "
           f"moved {moved}, expected one {route} launch")
     return route
 
 
 def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 50) -> tuple:
-    """At a bf16 shape the one-pass kernel takes: the two-pass kernel on the
-    same inputs, held to the plain version by the same rules (max |err| and
-    the >1-ulp share of out, and of P when saved). Returns its call and a
-    note with its time per call by CUDA events."""
+    """At a bf16 shape the one-pass or the cluster kernel takes: the
+    two-pass kernel on the same inputs, held to the plain version by the
+    same rules (max |err| and the >1-ulp share of out, and of P when saved).
+    Returns its call, a note with its time per call by CUDA events, and its
+    max |err|."""
     from segclip_tpu_torch.ops.kernels.attention import attention_fwd_two_pass
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
     fn = functools.partial(attention_fwd_two_pass, *inputs, save_p=save_p)
@@ -586,14 +599,15 @@ def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 5
     for (sh, _), what in zip(shares, ("out", "P")):
         check(sh <= ATTN_BF16_SHARE, f"two-pass {case[0]} bf16 {what}: share {sh}")
     return fn, (f"; two-pass err {err:.3e}, >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
-                + f", {call_ms(fn, reps=reps):.4f} ms")
+                + f", {call_ms(fn, reps=reps):.4f} ms"), err
 
 
 def bwd_two_pass_beside(case, inputs: tuple, refs, reps: int = 50) -> tuple:
-    """At a bf16 shape the one-pass backward takes: the two-pass kernels on
-    the same P, dO, q, k, v, held to the plain version by the same rules
-    (finite, and the >1-ulp share of dQ, dK and dV). Returns its call and a
-    note with its time per call by CUDA events."""
+    """At a bf16 shape the one-pass or the cluster backward takes: the
+    two-pass kernels on the same P, dO, q, k, v, held to the plain version by
+    the same rules (finite, and the >1-ulp share of dQ, dK and dV). Returns
+    its call, a note with its time per call by CUDA events, and its max
+    |err| over dQ, dK and dV."""
     from segclip_tpu_torch.ops.kernels.attention import attention_bwd_two_pass
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
     fn = functools.partial(attention_bwd_two_pass, *inputs)
@@ -604,8 +618,9 @@ def bwd_two_pass_beside(case, inputs: tuple, refs, reps: int = 50) -> tuple:
     shares = [bf16_share(g, r) for g, r in zip(grads, refs)]
     for (sh, _), what in zip(shares, ("dQ", "dK", "dV")):
         check(sh <= ATTN_BF16_SHARE, f"two-pass backward {case[0]} bf16 {what}: share {sh}")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
     return fn, ("; two-pass bwd >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
-                + f", {call_ms(fn, reps=reps):.4f} ms")
+                + f", {call_ms(fn, reps=reps):.4f} ms"), err
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -658,8 +673,8 @@ def phase_kernels(dev) -> tuple:
             plain = functools.partial(attention_plain, q, k, v, b2, bb)
             call, plain_call = call_ms(kernel), call_ms(plain)
             two_pass, two_note = None, ""
-            if route == "one_pass":
-                two_pass, two_note = two_pass_beside(case, (q, k, v, b2, bb), False, ref, None)
+            if route != "two_pass":
+                two_pass, two_note, _ = two_pass_beside(case, (q, k, v, b2, bb), False, ref, None)
             _, b, lq, lk, h, bias, _ = case
             work = bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=False,
                                              bias2d=b2 is not None, biasb=bb is not None)
@@ -733,33 +748,37 @@ def phase_kernels(dev) -> tuple:
 def host_costs(dev, gen, summary) -> None:
     """Host µs per forward call with P and per backward call (enqueue only,
     nothing waited for) at the B = 96 vision shape, through each routed
-    wrapper and through each route's own function; into summary["host_us"]
-    and summary["bwd_host_us"]."""
-    from segclip_tpu_torch.ops.kernels.attention import (
-        attention_bwd, attention_bwd_one_pass, attention_bwd_two_pass, attention_fwd,
-        attention_fwd_one_pass, attention_fwd_two_pass)
-    q, k, v, b2, bb = attention_inputs(TRAIN_ATTN_CASES[0], torch.bfloat16, dev, gen)
-    out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
-    do = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
-    for key, what, calls in (
-            ("host_us", "forward call with P", {
-                name: functools.partial(fn, q, k, v, b2, bb, save_p=True)
-                for name, fn in (("attention_fwd", attention_fwd),
-                                 ("one_pass", attention_fwd_one_pass),
-                                 ("two_pass", attention_fwd_two_pass))}),
-            ("bwd_host_us", "backward call", {
-                name: functools.partial(fn, p, do, q, k, v)
-                for name, fn in (("attention_bwd", attention_bwd),
-                                 ("one_pass", attention_bwd_one_pass),
-                                 ("two_pass", attention_bwd_two_pass))})):
-        times = {name: [] for name in calls}
-        for i in range(HOST_ROUNDS):           # in turns, the order reversed every round
-            for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
-                times[name].append(host_us(calls[name]))
-        summary[key] = {name: statistics.median(t) for name, t in times.items()}
-        print(f"  host time per {what} at {TRAIN_ATTN_CASES[0][0]} (enqueue only; median of "
-              f"{HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
-                  f"{k} {v:.1f} us" for k, v in summary[key].items()))
+    wrapper and through the one-pass and two-pass routes' own functions, and
+    at 448 px's 24×784 through the cluster route's; into summary["host_us"]
+    and summary["bwd_host_us"] (the cluster route's under "cluster")."""
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    shapes = {"one_pass": TRAIN_ATTN_CASES[0],
+              "cluster": step_shapes("448", large_config("448", False), LARGE_CONFIGS["448"][2])[0][0]}
+    for key in ("host_us", "bwd_host_us"):
+        summary[key] = {}
+    for kind, case in shapes.items():
+        q, k, v, b2, bb = attention_inputs(case, torch.bfloat16, dev, gen)
+        out, p = kattn.attention_fwd(q, k, v, b2, bb, save_p=True)
+        do = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+        routes = ("one_pass", "two_pass") if kind == "one_pass" else ("cluster",)
+        for key, what, calls in (
+                ("host_us", "forward call with P", {
+                    name: functools.partial(getattr(kattn, fn), q, k, v, b2, bb, save_p=True)
+                    for name, fn in [("attention_fwd", "attention_fwd")] * (kind == "one_pass")
+                    + [(r, f"attention_fwd_{r}") for r in routes]}),
+                ("bwd_host_us", "backward call", {
+                    name: functools.partial(getattr(kattn, fn), p, do, q, k, v)
+                    for name, fn in [("attention_bwd", "attention_bwd")] * (kind == "one_pass")
+                    + [(r, f"attention_bwd_{r}") for r in routes]})):
+            times = {name: [] for name in calls}
+            for i in range(HOST_ROUNDS):           # in turns, the order reversed every round
+                for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+                    times[name].append(host_us(calls[name]))
+            found = {name: statistics.median(t) for name, t in times.items()}
+            summary[key].update(found)
+            print(f"  host time per {what} at {case[0]} (enqueue only; median of "
+                  f"{HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
+                      f"{k} {v:.1f} us" for k, v in found.items()))
 
 
 def bf16_share(out, ref) -> tuple:
@@ -827,12 +846,13 @@ def training_kernels(dev, gen, summary, timings) -> None:
             bwd = functools.partial(attention_bwd, p, do, q, k, v)
             bwd_plain = functools.partial(attention_bwd_plain, p, do, q, k, v)
             times = [call_ms(f, reps=reps) for f in (fwd, fwd_plain, bwd, bwd_plain)]
-            two_pass, two_note, bwd_two, bwd_note = None, "", None, ""
-            if route == "one_pass":
-                two_pass, two_note = two_pass_beside(case, (q, k, v, b2, bb), True, ref, p_ref,
-                                                     reps)
-            if bwd_route == "one_pass":
-                bwd_two, bwd_note = bwd_two_pass_beside(case, (p, do, q, k, v), grads_ref, reps)
+            two_pass, two_note, bwd_two, bwd_note, two_err, bwd_two_err = None, "", None, "", 0, 0
+            if route != "two_pass":
+                two_pass, two_note, two_err = two_pass_beside(case, (q, k, v, b2, bb), True, ref,
+                                                              p_ref, reps)
+            if bwd_route != "two_pass":
+                bwd_two, bwd_note, bwd_two_err = bwd_two_pass_beside(case, (p, do, q, k, v),
+                                                                     grads_ref, reps)
             print(f"  attention {case[0]:34s} {dname:8s} fwd ({route}) err {out_err:.3e}, P err "
                   f"{p_err:.3e}, bwd ({bwd_route}) rel err dQ/dK/dV "
                   f"{' '.join(f'{r:.2e}' for r in rel)}{note}  fwd {times[0]:.4f} / "
@@ -856,19 +876,20 @@ def training_kernels(dev, gen, summary, timings) -> None:
             if case == b32_attn[0] and dtype == torch.bfloat16:
                 summary["b32_attention_fwd"] = dict(max_abs_err=out_err,
                                                     timing=len(timings) - 1)
-            if case == shapes["448"][0][0] and dtype == torch.bfloat16:   # Lk 784: two-pass
-                summary["attention_fwd_two_pass"] = dict(max_abs_err=out_err,
-                                                         timing=len(timings) - 1)
+            if case == shapes["448"][0][0] and dtype == torch.bfloat16:   # Lk 784: cluster
+                summary["attention_fwd_cluster"] = dict(max_abs_err=out_err,
+                                                        two_pass_err=two_err,
+                                                        timing=len(timings) - 1)
             timings.append(dict(
                 name=f"attention bwd {case[0]} {dname}", kernel=bwd, plain=bwd_plain,
                 two_pass=bwd_two, work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
                 library=sdpa_library(q, k, v, b2, bb, do), pair=len(timings) - 1))
             keys = {TRAIN_ATTN_CASES[0]: "attention_bwd_one_pass", b32_attn[0]: "b32_attention_bwd",
-                    shapes["448"][0][0]: "attention_bwd_two_pass"}   # Lk 784: two-pass
+                    shapes["448"][0][0]: "attention_bwd_cluster"}   # Lk 784: cluster
             if dtype == torch.bfloat16 and case in keys:
                 summary[keys[case]] = dict(max_abs_err=max((g.float() - r.float()).abs().max().item()
                                                            for g, r in zip(grads, grads_ref)),
-                                           timing=len(timings) - 1)
+                                           two_pass_err=bwd_two_err, timing=len(timings) - 1)
 
         for name, n, g, l, d in GROUP_ST_CASES + large_gumbel:
             reps = LARGE_REPS if name in {c[0] for c in large_gumbel} else 50
@@ -962,8 +983,11 @@ def reset_counters() -> None:
     plain_route.calls = 0
 
 
-ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "two_pass": "attention_fwd_two_pass",
+ROUTES = ("one_pass", "cluster", "two_pass")
+ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "cluster": "attention_fwd_cluster",
+                   "two_pass": "attention_fwd_two_pass",
                    "bwd_one_pass": "attention_bwd_one_pass",
+                   "bwd_cluster": "attention_bwd_cluster",
                    "bwd_two_pass": "attention_bwd_two_pass"}
 
 
@@ -976,8 +1000,9 @@ def reset_routes() -> None:
 
 
 def read_routes() -> dict:
-    """Launches by route in this process: forward {"one_pass", "two_pass"}
-    and backward {"bwd_one_pass", "bwd_two_pass"}."""
+    """Launches by route in this process: forward {"one_pass", "cluster",
+    "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
+    "bwd_two_pass"}."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     return {key: getattr(kattn, fn).launches for key, fn in ROUTE_FUNCTIONS.items()}
 
@@ -1016,6 +1041,7 @@ def phase_slice(dev, cfg) -> tuple:
     img_224 = rng.standard_normal((224, 224, 3), dtype=np.float32)
     img_224x448 = rng.standard_normal((224, 448, 3), dtype=np.float32)
     img_300x500 = rng.standard_normal((224, 373, 3), dtype=np.float32)  # short side 224
+    img_224x336 = rng.standard_normal((224, 336, 3), dtype=np.float32)
     num_classes = len(VOC_CLASSES) + 1
 
     reset_counters()
@@ -1036,12 +1062,18 @@ def phase_slice(dev, cfg) -> tuple:
          lambda: seg.predict(img_224x448, (224, 448), "slide"), (224, 448), num_classes),
         ("300x500 slide (224x373, 2 windows)",
          lambda: seg.predict(img_300x500, (300, 500), "slide"), (300, 500), num_classes),
+        # 294 patches: the vision and cross blocks' rows (Lk 294, 302) take
+        # the cluster kernel
+        ("224x336 whole", lambda: seg.predict(img_224x336, (224, 336), "whole"), (224, 336),
+         num_classes),
         ("224x224 group_map", lambda: seg.group_map(img_224), (224, 224), cfg.group_num),
     )
+    request_routes = {}
     for name, fn, shape, upper in requests:
-        before = read_counters()
+        before, routes = read_counters(), read_routes()
         pred, cold_ms = timed(fn)
         per_request = {k: n - before[k] for k, n in read_counters().items()}
+        request_routes[name] = {k: n - routes[k] for k, n in read_routes().items()}
         da, dg = per_request["attention_fwd"], per_request["group_assign"]
         check(pred.shape == shape and pred.dtype == np.int32,
               f"{name}: {pred.shape} {pred.dtype}")
@@ -1049,11 +1081,17 @@ def phase_slice(dev, cfg) -> tuple:
         check(da == 14 and dg == 1, f"{name}: {da} attention / {dg} grouping "
                                     f"launches, expected 14 / 1")
         print(f"  {name}: cold {cold_ms:.1f} ms, labels {np.unique(pred).size} "
-              f"distinct, launches attention {da} grouping {dg}")
+              f"distinct, launches attention {da} grouping {dg}; attention by route "
+              f"{request_routes[name]}")
     counts = read_counters()
-    check(counts == {"attention_fwd": 12 + 4 * 14, "attention_bwd": 0, "group_assign": 4,
-                     "group_assign_st": 0, "plain_route": 0},
+    check(counts == {"attention_fwd": 12 + len(requests) * 14, "attention_bwd": 0,
+                     "group_assign": len(requests), "group_assign_st": 0, "plain_route": 0},
           f"path launch counts {counts}")
+    wide = request_routes["224x336 whole"]
+    long_rows = cfg.first_stage_layer + cfg.cross_layer      # Lk 294 and 302; the group stage's 8
+    check(wide["cluster"] == long_rows and wide["one_pass"] == 14 - long_rows
+          and wide["two_pass"] == 0, f"224x336 whole: attention by route {wide}; expected "
+          f"{long_rows} (the first stage and cross blocks) on the cluster kernel")
 
     for name, fn, _, _ in requests:                   # warm latency, uncounted
         warm = sorted(timed(fn)[1] for _ in range(7))
@@ -1062,7 +1100,7 @@ def phase_slice(dev, cfg) -> tuple:
     for logits in (seg.whole(img_224), seg.slide(img_300x500)):
         check(np.isfinite(logits).all(), "non-finite logits")
     print(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    return model, seg, requests, counts, per_request
+    return model, seg, requests, counts, per_request, wide["cluster"]
 
 
 def train_path_counts(cfg) -> dict:
@@ -1224,8 +1262,9 @@ def phase_train(dev) -> tuple:
         counts = read_counters()
         routes = {k: n - routes[k] for k, n in read_routes().items()}
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
-        check(routes == {"one_pass": expected["attention_fwd"], "two_pass": 0,
-                         "bwd_one_pass": expected["attention_bwd"], "bwd_two_pass": 0},
+        check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "two_pass": 0,
+                         "bwd_one_pass": expected["attention_bwd"], "bwd_cluster": 0,
+                         "bwd_two_pass": 0},
               f"step {i}: launches by route {routes}, expected every one of the "
               f"{expected['attention_fwd']} forwards and {expected['attention_bwd']} backwards "
               "on the one-pass kernels")
@@ -1589,21 +1628,22 @@ def print_profile(name: str, fn) -> None:
 
 
 def routes_in_turns(t: dict, bound: float) -> tuple:
-    """The one-pass and the two-pass kernel's device ms per call at one
-    shape: each measured ROUTE_ROUNDS times (kernel_ms), the two in turns,
-    and the median of each. One profile that reads slow (a stray record, a
-    clock still rising) then decides nothing; every round is printed where
-    the rounds of one kernel differ by more than a fifth."""
-    rounds = {"one-pass": [], "two-pass": []}
+    """The routed kernel's (one-pass or cluster) and the two-pass kernel's
+    device ms per call at one shape: each measured ROUTE_ROUNDS times
+    (kernel_ms), the two in turns, and the median of each. One profile that
+    reads slow (a stray record, a clock still rising) then decides nothing;
+    every round is printed where the rounds of one kernel differ by more
+    than a fifth."""
+    rounds = {"routed": [], "two-pass": []}
     for _ in range(ROUTE_ROUNDS):
-        rounds["one-pass"].append(kernel_ms(t["name"], t["kernel"], bound, t["work"][0]))
+        rounds["routed"].append(kernel_ms(t["name"], t["kernel"], bound, t["work"][0]))
         rounds["two-pass"].append(kernel_ms(t["name"] + " (two-pass)", t["two_pass"], bound,
                                             t["work"][0]))
     for route, times in rounds.items():
         if max(times) > 1.2 * min(times):
             print(f"  ({t['name']}, {route}: rounds {' '.join(f'{x:.4f}' for x in times)} ms; "
                   "the median is kept)")
-    return statistics.median(rounds["one-pass"]), statistics.median(rounds["two-pass"])
+    return statistics.median(rounds["routed"]), statistics.median(rounds["two-pass"])
 
 
 def kernel_ms(name: str, fn, bound: float, nbytes: float) -> float:
@@ -1624,7 +1664,8 @@ def kernel_ms(name: str, fn, bound: float, nbytes: float) -> float:
     return ms
 
 
-def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) -> list:
+def phase_device_time(seg, requests, timings, train_step, large_step, b32_step,
+                      px448_step) -> list:
     """Device time from torch.profiler, last: profiling slows the launches
     that follow it, so nothing is timed by the host clock after this. For
     each timing: the kernel's and the plain version's ms per call, the
@@ -1658,7 +1699,7 @@ def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) 
               f"bound {row['bound_ms']:.4f} ({row['bound_by']}), kernel at "
               f"{row['bound_ms'] / row['ms']:.1%} of it{pair}{two}")
         if row["two_pass_ms"] is not None:
-            check(row["ms"] < row["two_pass_ms"], f"{t['name']}: the one-pass kernel "
+            check(row["ms"] < row["two_pass_ms"], f"{t['name']}: the routed kernel "
                   f"({row['ms']:.4f} ms) is not faster than the two-pass ({row['two_pass_ms']:.4f})")
         rows.append(row)
     for name, fn, _, _ in requests[:3]:
@@ -1666,6 +1707,7 @@ def phase_device_time(seg, requests, timings, train_step, large_step, b32_step) 
     print_profile(f"training step B={TRAIN_BATCH}", train_step)
     print_profile("training step B=512 with remat (phase 12)", large_step)
     print_profile(f"training step ViT-B/32 B={TRAIN_BATCH} (phase 13)", b32_step)
+    print_profile(f"training step 448 px B={LARGE_CONFIGS['448'][2]} (phase 12)", px448_step)
     return rows
 
 
@@ -1708,10 +1750,9 @@ def tensor_core_counts(library) -> dict:
     (UTMALDG, UTMASTG, UBLKCP) instructions in each kernel's SASS, printed;
     the bf16 attention kernels and the bf16 grouping kernel's 16-byte path
     must have tensor-core instructions, and every instance of the one-pass
-    forward HGMMA and TMA ones. Returns {"attention_fwd": n,
-    "attention_fwd_one_pass": n, "attention_bwd": n, "group_assign": n,
-    "group_assign_st": n} of tensor-core instructions (empty without
-    cuobjdump)."""
+    and the cluster kernels, forward and backward, HGMMA and TMA ones.
+    Returns the tensor-core instructions of each kernel of the kernels JSON
+    line, by its name there (empty without cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -1737,20 +1778,25 @@ def tensor_core_counts(library) -> dict:
     for kernel in ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
                    "attention_bwd_dkv_bf16_kernel", group):
         check(counts.get(kernel, 0) > 0, f"{kernel}: no tensor-core instruction in its SASS")
-    one_pass = {}
-    for prefix in ("attention_fwd_one_pass_kernel", "attention_bwd_one_pass_kernel"):
-        one_pass[prefix] = [k for k in counts if k.startswith(prefix)]
-        check(len(one_pass[prefix]) == 4, f"{prefix} instances in the SASS: {one_pass[prefix]}")
-        for kernel in one_pass[prefix]:
+    hopper = {}
+    for prefix, instances in (("attention_fwd_one_pass_kernel", 4),
+                              ("attention_bwd_one_pass_kernel", 4),
+                              ("attention_fwd_cluster_kernel", 3),
+                              ("attention_bwd_cluster_kernel", 1)):
+        hopper[prefix] = [k for k in counts if k.startswith(prefix)]
+        check(len(hopper[prefix]) == instances, f"{prefix} instances in the SASS: {hopper[prefix]}")
+        for kernel in hopper[prefix]:
             check(counts[kernel] > 0 and tma[kernel] > 0, f"{kernel}: {counts[kernel]} HGMMA "
                   f"and {tma[kernel]} TMA instructions in its SASS")
-    return {"attention_fwd": counts["attention_fwd_bf16_kernel"],
+    return {"attention_fwd": sum(counts[k] for k in hopper["attention_fwd_cluster_kernel"]),
+            "attention_fwd_two_pass": counts["attention_fwd_bf16_kernel"],
             "attention_fwd_one_pass": sum(
-                counts[k] for k in one_pass["attention_fwd_one_pass_kernel"]),
-            "attention_bwd": counts["attention_bwd_dq_bf16_kernel"]
+                counts[k] for k in hopper["attention_fwd_one_pass_kernel"]),
+            "attention_bwd": sum(counts[k] for k in hopper["attention_bwd_cluster_kernel"]),
+            "attention_bwd_two_pass": counts["attention_bwd_dq_bf16_kernel"]
             + counts["attention_bwd_dkv_bf16_kernel"],
             "attention_bwd_one_pass": sum(
-                counts[k] for k in one_pass["attention_bwd_one_pass_kernel"]),
+                counts[k] for k in hopper["attention_bwd_one_pass_kernel"]),
             "group_assign": counts[group], "group_assign_st": counts[group]}
 
 
@@ -2930,12 +2976,14 @@ def train_run(dev, name: str, mcfg, b: int, steps: int, keep: bool = False) -> d
     step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
     state = TrainState(step=0, seed=0)
     batch = synthetic_batch(b, mcfg, 0, dev)
-    out = {"loss": [], "skipped": [], "counts": [], "ms": []}
+    out = {"loss": [], "skipped": [], "counts": [], "ms": [], "routes": []}
     for i in range(1 + steps):
         reset_counters()
+        routes = read_routes()
         with ShapeProbe() as shapes:
             metrics, ms = timed(lambda: step(state, batch))
         out["counts"].append(read_counters())
+        out["routes"].append({k: n - routes[k] for k, n in read_routes().items()})
         out["loss"].append(float(metrics["loss"]))
         out["skipped"].append(float(metrics["skipped_nan"]))
         out["ms"].append(ms)
@@ -2956,6 +3004,12 @@ def train_run(dev, name: str, mcfg, b: int, steps: int, keep: bool = False) -> d
           f"{name}: launches per step {out['counts']}, expected {expected}")
     check(all(np.isfinite(out["loss"])) and not any(out["skipped"]),
           f"{name}: losses {out['loss']}, skipped {out['skipped']}")
+    long_rows = {c[0] for c in step_shapes(name, mcfg, b)[0] if c[3] > 256}
+    if long_rows:         # bf16 rows past the one-pass limit: the cluster kernels, both ways
+        check(all(r["cluster"] > 0 and r["bwd_cluster"] > 0 and r["two_pass"] == 0
+                  and r["bwd_two_pass"] == 0 for r in out["routes"]),
+              f"{name}: attention by route per step {out['routes']}; {sorted(long_rows)} "
+              "must take the cluster kernels")
     if keep:
         out["step"] = lambda: step(state, batch)
     return out
@@ -2968,7 +3022,8 @@ def report_run(name: str, b: int, remat: bool, run: dict) -> None:
           f"{' '.join(f'{v:.5f}' for v in run['loss'])}; warm step median {med:.2f} ms "
           f"(min {warm[0]:.2f}, max {warm[-1]:.2f}, {len(warm)} steps), "
           f"{b * 1e3 / med:.1f} img/s; peak {run['peak_mib']:.0f} MiB ({run['held_mib']:.0f} "
-          f"of it held by earlier phases); launches per step {run['counts'][0]}")
+          f"of it held by earlier phases); launches per step {run['counts'][0]}, attention by "
+          f"route {run['routes'][0]}")
 
 
 def phase_remat(dev, smi: str) -> tuple:
@@ -3025,7 +3080,7 @@ def phase_remat(dev, smi: str) -> tuple:
         arch, overrides, b = LARGE_CONFIGS[name]
         for remat in remats:
             run = train_run(dev, name, large_config(name, remat), b, LARGE_STEPS,
-                            keep=name == "b512")
+                            keep=name in ("b512", "448"))
             report_run(f"{arch}{' 448 px' if overrides else ''}", b, remat, run)
             add({"b256": "train_remat", "b512": "train_b512", "l14": "train_l14",
                  "448": "train_448"}[name], run)
@@ -3055,7 +3110,7 @@ def phase_remat(dev, smi: str) -> tuple:
           f"{own[256]:.0f}), not run")
     check(b512["peak_mib"] < total, f"B=512 peaks at {b512['peak_mib']} MiB of {total}")
     print(f"  phase 12's steps took {time.perf_counter() - t_phase:.1f} s")
-    return counts, b512.pop("step")
+    return counts, b512.pop("step"), large[("448", False)].pop("step")
 
 
 def runm_args(data: str, out: str) -> list:
@@ -3280,9 +3335,42 @@ def phase_drift(dev, smi: str) -> dict:
     return {"drift": {k: sum(c[k] for c in run["counts"]) for k in expected}}
 
 
+def profile_step(name: str) -> int:
+    """`python3 chip_smoke.py profile-step <LARGE_CONFIGS name>`: 1 + 3 warm
+    bf16 steps of `make_train_step` at that configuration (no remat) on the
+    synthetic batch, then one profiled step (device busy, idle share, the
+    port's kernels). Uses only what the port had before the cluster kernels,
+    so that the same script measures an older tree too."""
+    from segclip_tpu_torch.config import Config
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    build.load()
+    dev = torch.device("cuda")
+    mcfg = large_config(name, False)
+    b = LARGE_CONFIGS[name][2]
+    cfg = Config(model=mcfg)
+    model = init_segclip(mcfg, seed=0, device=dev)
+    step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
+    state, batch = TrainState(step=0, seed=0), synthetic_batch(b, mcfg, 0, dev)
+    walls = [timed(lambda: step(state, batch))[1] for _ in range(1 + LARGE_STEPS)]
+    print(f"{name} B={b}: step walls {' '.join(f'{w:.2f}' for w in walls)} ms (first cold)")
+    print_profile(f"training step {name} B={b}", lambda: step(state, batch))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["study"]:                   # phase 10's subprocesses
         return study_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
+    if sys.argv[1:2] == ["profile-step"]:
+        return profile_step(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3321,7 +3409,7 @@ def main() -> int:
         marks.append((path, now))
 
     cfg = ModelConfig()
-    model, seg, requests, eval_counts, per_request = phase_slice(dev, cfg)
+    model, seg, requests, eval_counts, per_request, cluster_per_request = phase_slice(dev, cfg)
     mark("eval")
     phase_plain_self(dev, model, cfg)
     mark("eval_f32")
@@ -3346,7 +3434,7 @@ def main() -> int:
                                                          "peak_mib": train_peak})
         mark("b32")
     phase_transports(dev, smi, transport_batches)
-    remat_counts, b512_step = phase_remat(dev, smi)
+    remat_counts, b512_step, px448_step = phase_remat(dev, smi)
     mark("remat_large")
     runm_counts = phase_runm(smi)
     mark("train_cli_runM")
@@ -3355,32 +3443,46 @@ def main() -> int:
     routes = {path: {k: n - prev[k] for k, n in now.items()}
               for (_, prev), (path, now) in zip(marks, marks[1:])}
     print("launches by route on the main path, per phase (forward; backward): " + "; ".join(
-        f"{path} {r['one_pass']} one-pass / {r['two_pass']} two-pass; {r['bwd_one_pass']} "
-        f"one-pass / {r['bwd_two_pass']} two-pass" for path, r in routes.items()))
+        f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['two_pass']} two-pass; "
+        f"{r['bwd_one_pass']} one-pass / {r['bwd_cluster']} cluster / {r['bwd_two_pass']} "
+        "two-pass" for path, r in routes.items()))
+    for path in ("eval", "remat_large"):      # the 224x336 request; 448 px and ViT-L/14
+        check(routes[path]["cluster"] > 0, f"{path}: no forward on the cluster kernel")
+    check(routes["remat_large"]["bwd_cluster"] > 0, "remat_large: no backward on the cluster kernel")
+    for path in ("eval_f32", "train_f32", "drift"):   # float32: the two-pass kernels only
+        r = routes[path]
+        check(r["two_pass"] > 0 and r["one_pass"] == r["cluster"] == r["bwd_one_pass"]
+              == r["bwd_cluster"] == 0, f"{path} (float32): launches by route {r}")
     for route in ROUTE_FUNCTIONS:
         check(sum(r[route] for r in routes.values()) > 0,
               f"the {ROUTE_FUNCTIONS[route]} kernel was never launched on the main path")
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
-                             b32_step)
+                             b32_step, px448_step)
 
     kernels = []
     for name, src, tpu, key, counter in (
             ("attention_fwd_one_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "one_pass"),
-            ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_two_pass", "two_pass"),
+            ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_cluster", "cluster"),
+            ("attention_fwd_two_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_cluster", "two_pass"),
             ("attention_bwd_one_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_one_pass",
              "bwd_one_pass"),
-            ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_two_pass",
+            ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster", "bwd_cluster"),
+            ("attention_bwd_two_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster",
              "bwd_two_pass"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
         t = timings[summary[key]["timing"]]
-        row = rows[summary[key]["timing"]]
+        row = dict(rows[summary[key]["timing"]])
+        err = summary[key]["max_abs_err"]
+        if name.endswith("two_pass"):    # PR 3's kernels, timed in turns beside the cluster kernels
+            row["ms"], err = row["two_pass_ms"], summary[key]["two_pass_err"]
         if counter in ROUTE_FUNCTIONS:
             by_path = {path: r[counter] for path, r in routes.items()}
             direction = "attention_bwd" if counter.startswith("bwd_") else "attention_fwd"
             one = counter.endswith("one_pass")
             step_launches = per_step[direction] if one else 0
-            request_launches = per_request[direction] if one else 0
+            request_launches = (per_request[direction] if one else
+                                cluster_per_request if counter == "cluster" else 0)
         else:
             by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
                        "train_cli": cli_counts[counter],
@@ -3398,7 +3500,7 @@ def main() -> int:
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      launches_per_train_step=step_launches,
                      launches_per_eval_request=request_launches,
-                     max_abs_err=summary[key]["max_abs_err"], shape=t["name"],
+                     max_abs_err=err, shape=t["name"],
                      ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=row["library_ms"],
                      library_call=None, hmma=hmma.get(name))
@@ -3408,7 +3510,7 @@ def main() -> int:
             entry["host_us"] = summary["host_us"][counter]
         if name.startswith("attention_bwd"):
             entry["host_us"] = summary["bwd_host_us"][counter[len("bwd_"):]]
-        if name.endswith("one_pass"):
+        if name.endswith("one_pass") or name in ("attention_fwd", "attention_bwd"):
             entry["two_pass_ms"] = row["two_pass_ms"]
         if name == "group_assign_st":
             mae = summary["grouping_st_mae"]
@@ -3421,7 +3523,10 @@ def main() -> int:
                                      f"under autograd ({row['library_backend']}); "
                                      "compare with pair_ms")
             entry["pair_ms"] = row["pair_ms"]
-        if name not in ("attention_fwd", "attention_bwd"):   # the two-pass kernels take no ViT-B/32 row
+            if name == "attention_bwd_two_pass":   # PR 3's forward + backward, in turns
+                entry["pair_ms"] = rows[t["pair"]]["two_pass_ms"] + row["ms"]
+        if not name.startswith(("attention_fwd", "attention_bwd")) or name.endswith("one_pass"):
+            # the cluster and two-pass kernels take no ViT-B/32 row
             b32 = summary[{"attention_fwd_train": "b32_attention_fwd",
                            "attention_bwd_one_pass": "b32_attention_bwd",
                            "grouping": "b32_grouping", "grouping_st": "b32_grouping_st"}[key]]

@@ -29,7 +29,7 @@
 // products are exact. No kernel uses atomics: the gradients are the same
 // bits from run to run.
 //
-// Three kernels; the wrapper (ops/kernels/attention.py `bwd_route`) picks one
+// Four kernels; the wrapper (ops/kernels/attention.py `bwd_route`) picks one
 // by dtype and Lk alone, and nothing falls back:
 //
 // bfloat16, Lk ≤ BWD_ONE_PASS_LIMIT (256): `attention_bwd_one_pass_kernel`,
@@ -80,7 +80,38 @@
 // the column warpgroups' products overlap only in part, and one block per
 // SM, whose first loads and last stores nothing else overlaps.
 //
-// bfloat16, Lk > BWD_ONE_PASS_LIMIT: `attention_bwd_{dq,dkv}_bf16_kernel`,
+// bfloat16, BWD_ONE_PASS_LIMIT < Lk ≤ BWD_CLUSTER_LIMIT (1024):
+// `attention_bwd_cluster_kernel`, the one-pass design spread over a
+// thread-block cluster (448 px's 24×784 and cross 24×8×792, ViT-L/14's cross
+// 32×8×264). What bounds it on the H100: bytes. At 24×784, H = 12, P, dO,
+// Q, K and V read and dQ, dK and dV written are 556 MB (0.166 ms at 3.35
+// TB/s; P 354 MB of it) against 91 GFLOP (0.092 ms; 136 with dS in two
+// parts). dK and dV of 784 keys do not fit one SM, so:
+//   - one cluster of C ≤ BWD_CLUSTER_MAX blocks (8, the portable maximum)
+//     per (batch, head); block c owns the key slab [128c, 128(c + 1)), holds
+//     its K and V by TMA, and its column warpgroup sums the slab's dV += Pᵀ·dO
+//     and dK += dSᵀ·Q in fp32 registers across all query tiles, as the
+//     one-pass kernel's column warpgroups do;
+//   - per 64-row query tile, each block's P slab arrives by its own TMA
+//     copy, so P is read once; dO and Q arrive once for the cluster by
+//     rank 0's multicast (past the first two tiles);
+//   - warpgroup 0 forms dP = dO·V_slabᵀ and the partial D_c = rowsum(dP ∘
+//     P) and pushes D_c into every block (`st.async` into distributed shared
+//     memory, DSMEM, completing on the receiver's mbarrier); every block
+//     takes D = Σ_c D_c in rank order; then dS = P ∘ (dP − D) in hi + lo
+//     parts, and the partial dQ_c = dS·K_slab, staged and copied by the copy
+//     engine (`cp.async.bulk.shared::cluster`) to the blocks that own its
+//     rows: block c's column warpgroup sums rows [64c/C, 64(c+1)/C) of dQ in
+//     rank order, scales, rounds and stores them; dK and dV leave once per
+//     (batch, head) by TMA store;
+//   - the grid holds as many clusters as the card runs at once, each taking
+//     (batch, head) rows one after the other with its tiles counted on
+//     across them, so that one row's first copies overlap the row before's
+//     last tiles (the cross blocks' rows have a single query tile).
+//   No atomics and no D scratch in HBM: the gradients are the same bits from
+//   run to run.
+//
+// bfloat16, Lk > BWD_CLUSTER_LIMIT: `attention_bwd_{dq,dkv}_bf16_kernel`,
 // two passes on `mma.sync` (tc_bf16.cuh), any Lk. Blocks of this design own
 // 64 rows, and blocks run in no order, so the sum of dK and dV over query
 // blocks cannot be carried across them without atomics. Instead:
@@ -414,6 +445,11 @@ struct OnePassArgs {
 // written (BAR_DS_FULL + c: warpgroup 0 arrives, c waits), and column
 // warpgroup c's own (BAR_COLS + c).
 constexpr int BAR_DS_EMPTY = 1, BAR_ROWS = 2, BAR_DS_FULL = 3, BAR_COLS = 5;
+// The cluster backward's: a row's last dQ has read the dS tiles.
+constexpr int BAR_DQ_DONE = 7;
+// The cluster backward's: a tile's dQ partial is staged (warpgroup 0
+// arrives, the column warpgroup waits and issues its copies).
+constexpr int BAR_STAGED = 8;
 // Registers per thread at Lk > 128 (three warpgroups, 168 each at launch):
 // warpgroup 0 gives 16 and each column warpgroup takes 8, for its 128
 // accumulator registers (`setmaxnreg`).
@@ -439,29 +475,34 @@ struct RowTile {
   __device__ __forceinline__ uint32_t frag_at(int c, int jp) const {
     return c * TILE_BYTES + (frag ^ (jp << 5));
   }
-  // dp[c] = dO·V[piece c0 + c]ᵀ, each a 64 × 64 fp32 accumulator.
+  // dp[c] = dO·V[piece c0 + c]ᵀ, each a 64 × 64 fp32 accumulator (the
+  // first `live` pieces).
   template <int N>
-  __device__ __forceinline__ void dp_product(float (&dp)[N][32], int c0) const {
+  __device__ __forceinline__ void dp_product(float (&dp)[N][32], int c0, int live = N) const {
 #pragma unroll
     for (int c = 0; c < N; ++c) fence_regs(dp[c]);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < N; ++c)
+      if (c < live)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss(dp[c], desc_sw128(dout + 32 * kk),
-                           desc_sw128(v + (c0 + c) * TILE_BYTES + 32 * kk), kk);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_ss(dp[c], desc_sw128(dout + 32 * kk),
+                             desc_sw128(v + (c0 + c) * TILE_BYTES + 32 * kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < N; ++c) fence_regs(dp[c]);
   }
   // d[r] += this thread's share of rowsum(dP ∘ P) over pieces c0.. of row
-  // r0 + 8r; P's columns past Lk are 0.
+  // r0 + 8r (the first `live` of them: the others hold no copy); P's columns
+  // past Lk are 0.
   template <int N>
-  __device__ __forceinline__ void rowsum(float (&d)[2], const float (&dp)[N][32], int c0) const {
+  __device__ __forceinline__ void rowsum(float (&d)[2], const float (&dp)[N][32], int c0,
+                                         int live = N) const {
 #pragma unroll
     for (int c = 0; c < N; ++c) {
+      if (c >= live) break;
       uint32_t pv[4][4];
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) ldmatrix_x4(pv[jp], p + frag_at(c0 + c, jp));
@@ -481,13 +522,14 @@ struct RowTile {
 #pragma unroll
     for (int r = 0; r < 2; ++r) d[r] = quad_sum(d[r]);
   }
-  // dS = P ∘ (dP − D) in fp32 over pieces c0.., split into bf16 hi + lo
-  // and written into the dS tiles.
+  // dS = P ∘ (dP − D) in fp32 over pieces c0.. (the first `live`), split
+  // into bf16 hi + lo and written into the dS tiles.
   template <int N>
-  __device__ __forceinline__ void store_ds(const float (&dp)[N][32], int c0,
-                                           const float (&d)[2]) const {
+  __device__ __forceinline__ void store_ds(const float (&dp)[N][32], int c0, const float (&d)[2],
+                                           int live = N) const {
 #pragma unroll
     for (int c = 0; c < N; ++c) {
+      if (c >= live) break;
       uint32_t pv[4][4];
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) ldmatrix_x4(pv[jp], p + frag_at(c0 + c, jp));
@@ -766,6 +808,413 @@ int launch_bwd_one_pass(const OnePassArgs& a, int batch, cudaStream_t stream) {
   }
   kernel<<<dim3(a.heads, batch), bwd_threads(NC), bwd_one_pass_smem(NC), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------ bfloat16, one thread-block cluster per (batch, head)
+
+// The longest rows the cluster backward takes: at most BWD_CLUSTER_MAX blocks
+// (the portable maximum), each a slab of BWD_SLAB 64-key pieces.
+constexpr int BWD_CLUSTER_LIMIT = 1024;
+constexpr int BWD_SLAB = 2;
+constexpr int BWD_CLUSTER_MAX = 8;
+static_assert(BWD_CLUSTER_LIMIT == BWD_CLUSTER_MAX * BWD_SLAB * TILE, "the cluster backward's rows");
+constexpr int BWD_CLUSTER_THREADS = 256;       // warpgroup 0 (rows) and one column warpgroup
+
+struct ClusterArgs {
+  CUtensorMap p;           // (Lk, Lq, B·H), the saved probabilities
+  CUtensorMap dout, q;     // (H·64, Lq, B) over the operands' own strides
+  CUtensorMap k, v;        // (H·64, Lk, B)
+  CUtensorMap dk, dv;      // (H·64, Lk, B), the contiguous outputs
+  bf16* dq;                // (B, Lq, H·64) contiguous
+  int batch, heads, lq, lk;
+  float scale;
+};
+
+inline int bwd_cluster_blocks(int lk) { return (lk + BWD_SLAB * TILE - 1) / (BWD_SLAB * TILE); }
+// K, V, dS hi and dS lo (BWD_SLAB tiles each), two stages of P (BWD_SLAB
+// tiles), three of dO and Q (one tile each), two staging tiles of the
+// block's dQ partial (fp32), two receive areas for its share of dQ's rows,
+// two of every block's D_c (64 floats each), then eleven mbarriers.
+constexpr int BWD_XD_BYTES = BWD_CLUSTER_MAX * TILE * 4;
+constexpr int bwd_cluster_smem() {
+  return (6 * BWD_SLAB + 6 + 4) * TILE_BYTES + 2 * share_area_bytes(BWD_CLUSTER_MAX) +
+         2 * BWD_XD_BYTES + 88;
+}
+
+// Grid (C, G) in clusters of C, G at most the clusters the card holds at
+// once: cluster g takes the (batch, head) rows g, g + G, ... one after the
+// other, its tiles counted on across them, so that the copies of one row's
+// first tiles overlap the last tiles of the row before. Block c of a cluster
+// owns the keys [c·128, (c + 1)·128) of the row, as the one-pass backward
+// owns a whole row: warpgroup 0 takes the query rows (dP, D_c, dS, dQ_c),
+// warpgroup 1 holds the slab's dV and dK in fp32 across the row's query
+// tiles and sums the block's share of dQ's rows. Per 64-row query tile
+// every block pushes its D_c into each block (st_async) and copies its dQ
+// partial's rows to the blocks that sum them (bulk copies from a staging
+// tile); both alternate between two receive areas and mbarriers by tile. A
+// block pushes D_c of tile t only once its column warpgroup is done with
+// tile t − 1, so every push of a kind comes after the receiver has read the
+// one two tiles before. dO and Q of tiles 0 and 1 arrive by each block's own
+// copies, of later tiles once for the cluster (rank 0's multicast, three
+// stages: the copy of tile t + 1 leaves once every block's D_c of tile t has
+// come, when all are done with tile t − 2); each block's P slab by its own
+// copy (two stages); K and V of the next row once this row's last dP and dQ
+// have read them. The column warpgroup's first thread issues the copies of
+// tiles past 1; it stages a row's dK and dV over the dS tiles (warpgroup 0
+// done with them) for their TMA stores.
+__global__ void __launch_bounds__(BWD_CLUSTER_THREADS, 1)
+    attention_bwd_cluster_kernel(const __grid_constant__ ClusterArgs a) {
+  constexpr int NC = BWD_SLAB, THREADS = BWD_CLUSTER_THREADS;
+  constexpr int AREA = share_area_bytes(BWD_CLUSTER_MAX);
+  constexpr int XTILE = 2 * TILE_BYTES;        // a 64 × 64 fp32 staging tile
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* sk = smem;
+  uint8_t* sv = sk + NC * TILE_BYTES;
+  uint8_t* shi = sv + NC * TILE_BYTES;
+  uint8_t* slo = shi + NC * TILE_BYTES;
+  uint8_t* sp = slo + NC * TILE_BYTES;         // [tile % 2][NC]
+  uint8_t* sdo = sp + 2 * NC * TILE_BYTES;     // [tile % 3]
+  uint8_t* sq = sdo + 3 * TILE_BYTES;          // [tile % 3]
+  uint8_t* xs = sq + 3 * TILE_BYTES;           // [tile % 2] this block's dQ partial, fp32
+  uint8_t* xq = xs + 2 * XTILE;                // [tile % 2][rank][this block's dQ rows][64] fp32
+  float* xd = reinterpret_cast<float*>(xq + 2 * AREA);   // [tile % 2][rank][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xd + 2 * BWD_CLUSTER_MAX * TILE);
+  const uint32_t bar_v = smem_u32(bars), bar_k = smem_u32(bars + 1);
+  const uint32_t bar_p = smem_u32(bars + 2);       // P of tile t: bar_p + 8·(t % 2)
+  const uint32_t bar_s = smem_u32(bars + 4);       // dO and Q of tile t: bar_s + 8·(t % 3)
+  const uint32_t bar_d = smem_u32(bars + 7);       // the D_c of tile t: bar_d + 8·(t % 2)
+  const uint32_t bar_q = smem_u32(bars + 9);       // the dQ rows of tile t: bar_q + 8·(t % 2)
+
+  const int rank = cluster_rank(), blocks = cluster_blocks();
+  const uint16_t all = static_cast<uint16_t>((1u << blocks) - 1);
+  const int key0 = rank * NC * TILE;            // this block's slab
+  const int lim = a.lk - key0;                  // its real keys, where fewer than NC·64
+  const int live = min(NC, (lim + TILE - 1) / TILE);   // its pieces that hold a real key
+  // The warpgroup index broadcast from lane 0, so that the compiler sees the
+  // branch below as warp-uniform (else it serializes every wgmma).
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid >> 7, 0), wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), c2 = 2 * (lane & 3);
+  const int tiles = (a.lq + TILE - 1) / TILE;   // query tiles of a row
+  const int rows = a.batch * a.heads;            // (batch, head) rows
+  const int total = (rows - blockIdx.y + gridDim.y - 1) / gridDim.y * tiles;   // this cluster's tiles
+  // Tile t of this cluster: of row blockIdx.y + (t / tiles)·G, its query tile t % tiles.
+  auto row_of = [&](int t) { return static_cast<int>(blockIdx.y + (t / tiles) * gridDim.y); };
+  const int qrow0 = share_row0(rank, blocks), qrow1 = share_row0(rank + 1, blocks);
+  const uint32_t d_bytes = blocks * TILE * 4;
+  // the dQ rows copied to this block for tile t: every block's real rows of its share
+  auto q_bytes = [&](int t) {
+    return blocks * share_rows(rank, blocks, a.lq - (t % tiles) * TILE) * TILE * 4;
+  };
+
+  if (tid == 0) {
+    if (smem_u32(smem) & 1023) __trap();      // the swizzle needs 1024-byte tiles
+    for (int i = 0; i < 11; ++i) mbar_init(bar_v + 8 * i, 1);
+    fence_barrier_init();
+    for (int t = 0; t < 2 && t < total; ++t) {   // the pushes of tiles 0 and 1
+      mbar_expect_tx(bar_d + 8 * t, d_bytes);
+      mbar_expect_tx(bar_q + 8 * t, q_bytes(t));
+    }
+  }
+  // This block's P slab of tile t into stage t % 2; dO and Q of tile t into
+  // stage t % 3: tiles 0 and 1 by the block's own copies, later ones once
+  // for the cluster, issued by rank 0 (every block arms its barrier); K and
+  // V of a row.
+  auto load_p = [&](int t) {
+    const int row = row_of(t);
+    const uint32_t bar = bar_p + 8 * (t & 1);
+    mbar_expect_tx(bar, live * TILE_BYTES);
+    for (int c = 0; c < live; ++c)
+      tma_load_3d(sp + ((t & 1) * NC + c) * TILE_BYTES, &a.p, bar, key0 + c * TILE,
+                  (t % tiles) * TILE, row);
+  };
+  auto load_shared = [&](int t) {
+    const int st = t % 3, row = row_of(t), h = row % a.heads, b = row / a.heads;
+    const uint32_t bar = bar_s + 8 * st;
+    mbar_expect_tx(bar, 2 * TILE_BYTES);
+    if (t < 2) {
+      tma_load_3d(sdo + st * TILE_BYTES, &a.dout, bar, h * HD, (t % tiles) * TILE, b);
+      tma_load_3d(sq + st * TILE_BYTES, &a.q, bar, h * HD, (t % tiles) * TILE, b);
+    } else if (rank == 0) {
+      tma_load_3d_multicast(sdo + st * TILE_BYTES, &a.dout, bar, all, h * HD, (t % tiles) * TILE,
+                            b);
+      tma_load_3d_multicast(sq + st * TILE_BYTES, &a.q, bar, all, h * HD, (t % tiles) * TILE, b);
+    }
+  };
+  auto load_kv = [&](const CUtensorMap* map, uint8_t* dst, uint32_t bar, int row) {
+    mbar_expect_tx(bar, live * TILE_BYTES);
+    for (int c = 0; c < live; ++c)
+      tma_load_3d(dst + c * TILE_BYTES, map, bar, (row % a.heads) * HD, key0 + c * TILE,
+                  row / a.heads);
+  };
+  if (tid == 0) {            // V, tile 0, K, tile 1
+    load_kv(&a.v, sv, bar_v, blockIdx.y);
+    load_p(0);
+    load_shared(0);
+    load_kv(&a.k, sk, bar_k, blockIdx.y);
+    if (total > 1) {
+      load_p(1);
+      load_shared(1);
+    }
+  }
+  // Every block's barriers must be set up before a push or a multicast
+  // reaches them: arrived at now, waited for before the first push.
+  cluster_arrive_relaxed();
+
+  if (wg == 0) {
+    // ----------------------------------- the rows: dP, D_c, D, dS, dQ_c
+    const uint32_t k_addr = smem_u32(sk), v_addr = smem_u32(sv);
+    const uint32_t hi_addr = smem_u32(shi), lo_addr = smem_u32(slo);
+    const uint32_t xs_addr = smem_u32(xs), xq_addr = smem_u32(xq);
+    const uint32_t xd_at = smem_u32(xd + rank * TILE + r0);   // this thread's D_c in every block
+    const int mi = lane >> 3;
+    const uint32_t frag = sw128(16 * warp + 8 * (mi & 1) + (lane & 7), mi >> 1, 0);
+    for (int t = 0; t < total; ++t) {
+      const int st = t & 1, s3 = t % 3, u = t % tiles, j = t / tiles;   // tile u of row j
+      const bool next_row = u == tiles - 1 && t + 1 < total;
+      mbar_wait(bar_p + 8 * st, (t >> 1) & 1);
+      mbar_wait(bar_s + 8 * s3, (t / 3) & 1);
+      if (u == 0) mbar_wait(bar_v, j & 1);
+
+      // dP = dO·V_slabᵀ (V's rows past Lk are zeros) while the column
+      // warpgroup finishes tile t − 1, D_c = rowsum(dP ∘ P) over the slab,
+      // pushed to every block once the column warpgroup is done with tile
+      // t − 1; D = Σ D_c in rank order; then dS.
+      const RowTile rt{smem_u32(sdo + s3 * TILE_BYTES), v_addr,
+                       smem_u32(sp + st * NC * TILE_BYTES), hi_addr, lo_addr, frag};
+      float dp[NC][32];
+      rt.dp_product(dp, 0, live);
+      if (next_row && tid == 0) load_kv(&a.v, sv, bar_v, row_of(t + 1));   // V read for the row
+      float d[2] = {0.f, 0.f};
+      rt.rowsum(d, dp, 0, live);
+      rt.finish_d(d);
+      if (t > 0)
+        named_sync(BAR_DS_EMPTY, THREADS);    // the column warpgroup is done with tile t − 1
+      else
+        cluster_wait();                       // every block's barriers are set up
+      if ((lane & 3) == 0)
+        for (int p = 0; p < blocks; ++p) {
+          const uint32_t pb = mapa(bar_d + 8 * st, p);
+          st_async(mapa(xd_at + st * BWD_XD_BYTES, p), d[0], pb);
+          st_async(mapa(xd_at + st * BWD_XD_BYTES + 32, p), d[1], pb);
+        }
+      mbar_wait_cluster(bar_d + 8 * st, (t >> 1) & 1);   // every D_c
+      float x[2][BWD_CLUSTER_MAX];            // every D_c loaded before the sum
+#pragma unroll
+      for (int p = 0; p < BWD_CLUSTER_MAX; ++p)
+        if (p < blocks) {
+          x[0][p] = xd[st * BWD_CLUSTER_MAX * TILE + p * TILE + r0];
+          x[1][p] = xd[st * BWD_CLUSTER_MAX * TILE + p * TILE + r0 + 8];
+        }
+      d[0] = d[1] = 0.f;
+#pragma unroll
+      for (int p = 0; p < BWD_CLUSTER_MAX; ++p)
+        if (p < blocks) {
+          d[0] += x[0][p];
+          d[1] += x[1][p];
+        }
+      rt.store_ds(dp, 0, d, live);
+      fence_proxy_async();
+      named_arrive(BAR_DS_FULL, 256);
+      named_sync(BAR_ROWS, 128);
+
+      // dQ_c = dS·K_slab, dS (K-major) hi then lo, K (MN-major) through the
+      // transpose bit; staged (the staging tile of tile t − 2 was read:
+      // every block has waited for those copies before pushing D_c of tile
+      // t), and its rows copied to the blocks that sum them: by the column
+      // warpgroup, off this chain, unless the rows have one query tile
+      // (measured: the later copies then hold up the receivers more).
+      if (u == 0) mbar_wait(bar_k, j & 1);
+      float dq[32];
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NC; ++kk) {
+        if (16 * kk >= lim) break;
+        const uint32_t at = (kk >> 2) * TILE_BYTES + 32 * (kk & 3);
+        const uint64_t kd = desc_sw128(k_addr + 2048 * kk);
+        wgmma_m64n64k16_ss<0, 1>(dq, desc_sw128(hi_addr + at), kd, kk);
+        wgmma_m64n64k16_ss<0, 1>(dq, desc_sw128(lo_addr + at), kd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (u == tiles - 1) {                   // the row's dS and K are read
+        named_arrive(BAR_DQ_DONE, 256);
+        if (next_row && tid == 0) load_kv(&a.k, sk, bar_k, row_of(t + 1));
+      }
+      stage_partial(xs + st * XTILE, dq, r0, c2);
+      fence_proxy_async();
+      if (tiles > 1) {
+        named_arrive(BAR_STAGED, 256);        // the column warpgroup copies it
+      } else {                                // rows of one tile: the copies cannot wait
+        named_sync(BAR_ROWS, 128);
+        if (warp == 0)
+          push_shares(xs_addr + st * XTILE, xq_addr + st * AREA, bar_q + 8 * st, rank, blocks,
+                      a.lq, lane);
+      }
+    }
+    cluster_arrive_relaxed();                 // the end (below): every push to this block waited for
+  } else {
+    // ------ the columns: dV and dK of the slab's pieces; the block's dQ rows
+    const long long dm = static_cast<long long>(a.heads) * HD;
+    // The dQ of tile t: this block's share of rows, summed over the cluster;
+    // then the receive area is armed for tile t + 2.
+    auto reduce_dq = [&](int t) {
+      const int row = row_of(t);
+      bf16* dqb = a.dq + static_cast<long long>(row / a.heads) * a.lq * dm + (row % a.heads) * HD;
+      mbar_wait_cluster(bar_q + 8 * (t & 1), (t >> 1) & 1);
+      reduce_share<BWD_CLUSTER_MAX>(xq + (t & 1) * AREA, blocks, qrow0, qrow1, a.scale,
+                                    dqb + static_cast<long long>(t % tiles) * TILE * dm, dm,
+                                    a.lq - (t % tiles) * TILE, wtid, 128);
+      if (wtid == 0 && t + 2 < total) mbar_expect_tx(bar_q + 8 * (t & 1), q_bytes(t + 2));
+    };
+    cluster_wait();                           // every block's barriers are set up
+    float dv[NC][32], dk[NC][32];             // a row's first products overwrite them
+    const uint32_t hi_addr = smem_u32(shi), lo_addr = smem_u32(slo);
+    const uint32_t xs_addr = smem_u32(xs), xq_addr = smem_u32(xq);
+    for (int t = 0; t < total; ++t) {
+      const int st = t & 1, s3 = t % 3, u = t % tiles;
+      const int ksteps = (min(TILE, a.lq - u * TILE) + 15) / 16;   // query rows of the tile
+      const uint32_t p_addr = smem_u32(sp + st * NC * TILE_BYTES);
+      const uint32_t do_addr = smem_u32(sdo + s3 * TILE_BYTES);
+      const uint32_t q_addr = smem_u32(sq + s3 * TILE_BYTES);
+      mbar_wait(bar_p + 8 * st, (t >> 1) & 1);
+      mbar_wait(bar_s + 8 * s3, (t / 3) & 1);
+
+      // dV += Pᵀ·dO: Pᵀ (MN-major A) from P's tile, dO (MN-major B).
+#pragma unroll
+      for (int m = 0; m < NC; ++m) fence_regs(dv[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+        if (m < live)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (kk < ksteps)
+              wgmma_m64n64k16_ss<1, 1>(dv[m], desc_sw128(p_addr + m * TILE_BYTES + 2048 * kk),
+                                       desc_sw128(do_addr + 2048 * kk), u > 0 || kk > 0);
+      wgmma_commit();
+      if (t > 0) reduce_dq(t - 1);              // while warpgroup 0 forms dS
+      // Once every block's D_c of tile t has come (all are done with tile
+      // t − 2): dO and Q of tile t + 1 into tile t − 2's stage.
+      if (wtid == 0) {
+        mbar_wait_cluster(bar_d + 8 * st, (t >> 1) & 1);
+        if (t + 2 < total) mbar_expect_tx(bar_d + 8 * st, d_bytes);
+        if (t >= 1 && t + 1 < total) load_shared(t + 1);
+      }
+
+      // dK += dSᵀ·Q once warpgroup 0 has written dS: hi, then lo.
+      named_sync(BAR_DS_FULL, 256);
+#pragma unroll
+      for (int m = 0; m < NC; ++m) fence_regs(dk[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+        if (m < live)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (kk < ksteps) {
+              const uint32_t at = m * TILE_BYTES + 2048 * kk;
+              const uint64_t qd = desc_sw128(q_addr + 2048 * kk);
+              wgmma_m64n64k16_ss<1, 1>(dk[m], desc_sw128(hi_addr + at), qd, u > 0 || kk > 0);
+              wgmma_m64n64k16_ss<1, 1>(dk[m], desc_sw128(lo_addr + at), qd, 1);
+            }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        fence_regs(dv[m]);
+        fence_regs(dk[m]);
+      }
+      // Warpgroup 0's dQ partial of tile t, staged: its rows to the blocks
+      // that sum them, one lane a peer (rows of more than one tile).
+      if (tiles > 1) {
+        named_sync(BAR_STAGED, 256);
+        if (warp == 0)
+          push_shares(xs_addr + st * XTILE, xq_addr + st * AREA, bar_q + 8 * st, rank, blocks,
+                      a.lq - u * TILE, lane);
+      }
+
+      if (u == tiles - 1) {
+        // The row's dV and dK out: staged over the dS tiles once warpgroup
+        // 0's dQ has read them, one TMA store per piece with a real key
+        // (rows ≥ Lk dropped), read before warpgroup 0 writes dS again.
+        const int row = row_of(t);
+        named_sync(BAR_DQ_DONE, 256);
+#pragma unroll
+        for (int m = 0; m < NC; ++m) {
+          uint8_t* sdv = shi + m * TILE_BYTES;
+          uint8_t* sdk = slo + m * TILE_BYTES;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const uint32_t at = sw128(r0 + 8 * r, jj, c2);
+              *reinterpret_cast<uint32_t*>(sdv + at) =
+                  segclip_tc::pack(dv[m][4 * jj + 2 * r], dv[m][4 * jj + 2 * r + 1]);
+              *reinterpret_cast<uint32_t*>(sdk + at) = segclip_tc::pack(
+                  dk[m][4 * jj + 2 * r] * a.scale, dk[m][4 * jj + 2 * r + 1] * a.scale);
+            }
+        }
+        fence_proxy_async();
+        named_sync(BAR_COLS, 128);
+        if (wtid == 0) {
+          for (int m = 0; m < live; ++m) {
+            tma_store_3d(&a.dv, shi + m * TILE_BYTES, (row % a.heads) * HD, key0 + m * TILE,
+                         row / a.heads);
+            tma_store_3d(&a.dk, slo + m * TILE_BYTES, (row % a.heads) * HD, key0 + m * TILE,
+                         row / a.heads);
+          }
+          bulk_commit();
+          bulk_wait_read<0>();                // the dS tiles stay until the stores read them
+        }
+      }
+      // Both warpgroups are done with P of tile t (warpgroup 0 before it
+      // handed dS over): its stage takes tile t + 2.
+      if (wtid == 0 && t + 2 < total) load_p(t + 2);
+      if (t + 1 < total) named_arrive(BAR_DS_EMPTY, THREADS);
+    }
+    reduce_dq(total - 1);
+    cluster_arrive_relaxed();                 // the end (below): every copy to this block landed
+  }
+  cluster_wait();           // no block leaves while a copy from its shared memory may be on its way
+}
+
+// Launches the cluster backward, or with `active` set asks how many of its
+// clusters the card holds at once.
+// Launches the cluster backward, G = min(B·H, the clusters the card holds
+// at once) clusters; or with `active` set only reports that count.
+int launch_bwd_cluster(const ClusterArgs& a, cudaStream_t stream, int* active) {
+  const auto kernel = attention_bwd_cluster_kernel;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool raised[64] = {};                // the shared-memory limit, once per device
+  static int resident[64][BWD_CLUSTER_MAX + 1] = {};   // clusters held at once, by their blocks
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bwd_cluster_smem());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised[device] = true;
+  }
+  const int blocks = bwd_cluster_blocks(a.lk);
+  int& held = resident[device][blocks];
+  if (!held) {
+    err = launch_clusters(kernel, a, dim3(blocks, 1), blocks, BWD_CLUSTER_THREADS,
+                          bwd_cluster_smem(), stream, &held);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (active) {
+    *active = held;
+    return 0;
+  }
+  if (held < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int rows = a.batch * a.heads;
+  err = launch_clusters(kernel, a, dim3(blocks, rows < held ? rows : held), blocks,
+                        BWD_CLUSTER_THREADS, bwd_cluster_smem(), stream, nullptr);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- float32
@@ -1066,6 +1515,63 @@ int segclip_attention_bwd_one_pass(const void* p, const void* dout, const void* 
     case 3: return launch_bwd_one_pass<3>(a, batch, s);
     default: return launch_bwd_one_pass<4>(a, batch, s);
   }
+}
+
+// The longest Lk that `segclip_attention_bwd_cluster` takes.
+int segclip_attention_bwd_cluster_limit() { return BWD_CLUSTER_LIMIT; }
+
+// The cluster that `segclip_attention_bwd_cluster` launches for rows of lk
+// keys (BWD_ONE_PASS_LIMIT < lk ≤ BWD_CLUSTER_LIMIT) over batch·heads
+// (batch, head) rows: its blocks, the keys of a block's slab, the dynamic
+// shared memory of a block, and how many such clusters the current card
+// holds at once (0: it cannot launch). Returns a cudaError_t.
+int segclip_attention_bwd_cluster_shape(int lk, long long batch_heads, int* blocks, int* slab,
+                                        int* smem, int* active) {
+  if (lk <= BWD_ONE_PASS_LIMIT || lk > BWD_CLUSTER_LIMIT || batch_heads < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = bwd_cluster_blocks(lk);
+  *slab = BWD_SLAB * TILE;
+  *smem = bwd_cluster_smem();
+  ClusterArgs a{};
+  a.batch = a.heads = 1;
+  a.lk = lk;
+  return launch_bwd_cluster(a, nullptr, active);
+}
+
+// The bf16 cluster backward, for BWD_ONE_PASS_LIMIT < Lk ≤ BWD_CLUSTER_LIMIT,
+// with the arguments and guarantees of `segclip_attention_bwd_one_pass`.
+// Returns the cudaError_t of the launch (0 on success).
+int segclip_attention_bwd_cluster(const void* p, const void* dout, const void* q, const void* k,
+                                  const void* v, void* dq, void* dk, void* dv, int batch,
+                                  int heads, int lq, int lk, long long p_bs, long long p_hs,
+                                  long long p_rs, long long do_bs, long long do_rs,
+                                  long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+                                  long long v_bs, long long v_rs, float scale, void* stream) {
+  if (batch < 1 || heads < 1 || lq < 1 || lk <= BWD_ONE_PASS_LIMIT || lk > BWD_CLUSTER_LIMIT ||
+      batch > 65535 || heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lq > 1 && (p_rs < lk || p_rs % 8)) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch > 1 && heads > 1 && p_bs != heads * p_hs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long dm = static_cast<long long>(heads) * HD;
+  const long long p_bh = heads > 1 ? p_hs : p_bs;        // the stride of the B·H dim
+  ClusterArgs a{};
+  const bool ok =
+      encode_bf16_3d(&a.p, p, lk, lq, static_cast<uint64_t>(batch) * heads, p_rs, p_bh) &&
+      encode_bf16_3d(&a.dout, dout, dm, lq, batch, do_rs, do_bs) &&
+      encode_bf16_3d(&a.q, q, dm, lq, batch, q_rs, q_bs) &&
+      encode_bf16_3d(&a.k, k, dm, lk, batch, k_rs, k_bs) &&
+      encode_bf16_3d(&a.v, v, dm, lk, batch, v_rs, v_bs) &&
+      encode_bf16_3d(&a.dk, dk, dm, lk, batch, dm, dm * lk) &&
+      encode_bf16_3d(&a.dv, dv, dm, lk, batch, dm, dm * lk);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.dq = static_cast<bf16*>(dq);
+  a.batch = batch;
+  a.heads = heads;
+  a.lq = lq;
+  a.lk = lk;
+  a.scale = scale;
+  return launch_bwd_cluster(a, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // extern "C"

@@ -11,23 +11,31 @@ they read the q|k|v column views of the packed projection in place (a row
 stride per operand), with no head transpose and no copy. At float32 they run
 fp32 FMAs (the parity path, no TF32).
 
-The forward has two kernels, and `fwd_route` picks one by dtype and Lk
+The forward has three kernels, and `fwd_route` picks one by dtype and Lk
 alone: bfloat16 rows of at most ONE_PASS_LIMIT keys (every row of the B = 96
 step and of the 224×224 request) go to the one-pass kernel (TMA copies,
-`wgmma`, whole score rows on chip); longer bf16 rows and every float32 call
-go to the two-pass kernel. Nothing falls back: a launch that fails raises.
+`wgmma`, whole score rows on chip); bf16 rows of up to CLUSTER_LIMIT keys
+(448 px's 784 and 792, ViT-L/14's cross 264, a 224×336 request's 294) to
+the cluster kernel (one thread-block cluster per (batch, head), each block
+one slab of keys, the row statistics and O summed through distributed
+shared memory); longer bf16 rows and every float32 call to the two-pass
+kernel. Nothing falls back: a launch that fails raises.
 `attention.launches` counts every forward launch, and
-`attention_fwd_one_pass.launches` / `attention_fwd_two_pass.launches` each
-route's; those two functions launch their kernel directly.
+`attention_fwd_one_pass.launches`, `attention_fwd_cluster.launches` and
+`attention_fwd_two_pass.launches` each route's; those three functions
+launch their kernel directly.
 
-The backward has two kernels too, and `bwd_route` picks one by dtype and
+The backward has three kernels too, and `bwd_route` picks one by dtype and
 Lk alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward
 of the B = 96 and B = 512 steps) go to the one-pass kernel (one block per
-(batch, head), dK and dV summed on chip, TMA copies, `wgmma`); longer bf16
-rows and every float32 call go to the two-pass kernels.
-`attention_bwd.launches` counts every backward launch, and
-`attention_bwd_one_pass.launches` / `attention_bwd_two_pass.launches` each
-route's; those two functions launch their kernel directly.
+(batch, head), dK and dV summed on chip, TMA copies, `wgmma`); bf16 rows of
+up to BWD_CLUSTER_LIMIT keys to the cluster kernel (the one-pass design
+over a cluster: each block one key slab's dK and dV, D and dQ summed
+through distributed shared memory); longer bf16 rows and every float32
+call to the two-pass kernels. `attention_bwd.launches` counts every
+backward launch, and `attention_bwd_one_pass.launches`,
+`attention_bwd_cluster.launches` and `attention_bwd_two_pass.launches`
+each route's; those three functions launch their kernel directly.
 
 `attention` is differentiable on every device. Under autograd its forward
 saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
@@ -55,6 +63,11 @@ ONE_PASS_LIMIT = 256
 # The same for the bf16 one-pass backward: BWD_ONE_PASS_LIMIT of
 # csrc/attention_bwd.cu (`bwd_one_pass_limit`).
 BWD_ONE_PASS_LIMIT = 256
+# The longest rows the bf16 cluster kernels take: CLUSTER_LIMIT of
+# csrc/attention_fwd.cu and BWD_CLUSTER_LIMIT of csrc/attention_bwd.cu,
+# which the library reports (`cluster_limit`, `bwd_cluster_limit`).
+CLUSTER_LIMIT = 1024
+BWD_CLUSTER_LIMIT = 1024
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -168,11 +181,60 @@ def one_pass_limit() -> int:
     return fn()
 
 
-def fwd_route(dtype: torch.dtype, lk: int, limit: int = ONE_PASS_LIMIT) -> str:
+@lru_cache(maxsize=None)
+def _cluster_entry():
+    fn = build.load().segclip_attention_fwd_cluster
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def cluster_limit() -> int:
+    """The longest Lk the cluster kernel takes, as the library reports it
+    (`segclip_attention_fwd_cluster_limit`); CLUSTER_LIMIT mirrors it."""
+    fn = build.load().segclip_attention_fwd_cluster_limit
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def _routes3(dtype, lk, limit, cluster) -> str:
+    if dtype != torch.bfloat16 or lk > cluster:
+        return "two_pass"
+    return "one_pass" if lk <= limit else "cluster"
+
+
+def fwd_route(dtype: torch.dtype, lk: int, limit: int = ONE_PASS_LIMIT,
+              cluster: int = CLUSTER_LIMIT) -> str:
     """Which forward kernel takes a call on the card, by its dtype and Lk
-    alone: "one_pass" for bfloat16 rows of at most `limit` keys, else
-    "two_pass" (the longer bf16 rows and every float32 call)."""
-    return "one_pass" if dtype == torch.bfloat16 and lk <= limit else "two_pass"
+    alone: "one_pass" for bfloat16 rows of at most `limit` keys, "cluster"
+    for bf16 rows of up to `cluster` keys, else "two_pass" (longer bf16
+    rows and every float32 call)."""
+    return _routes3(dtype, lk, limit, cluster)
+
+
+@lru_cache(maxsize=None)
+def cluster_shape(direction: str, lk: int, batch_heads: int,
+                  device: int) -> Tuple[int, int, int, int]:
+    """The cluster the "fwd" or "bwd" cluster kernel launches for rows of lk
+    keys over batch·heads (batch, head) rows on CUDA card `device`: (blocks,
+    keys per block's slab, bytes of shared memory per block, clusters the
+    card holds at once). Raises if cudaOccupancyMaxActiveClusters says none
+    can be resident."""
+    fn = getattr(build.load(), f"segclip_attention_{direction}_cluster_shape")
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        build.check(fn(lk, batch_heads, *out), f"attention_{direction} (cluster shape)")
+    blocks, slab, smem, active = (x.value for x in out)
+    if active < 1:
+        raise RuntimeError(
+            f"attention_{direction} (cluster) at Lk = {lk}: cudaOccupancyMaxActiveClusters "
+            f"says no cluster of {blocks} blocks with {smem} bytes of shared memory each "
+            f"can be resident on {torch.cuda.get_device_name(device)}")
+    return blocks, slab, smem, active
 
 
 @lru_cache(maxsize=None)
@@ -203,11 +265,31 @@ def bwd_one_pass_limit() -> int:
     return fn()
 
 
-def bwd_route(dtype: torch.dtype, lk: int, limit: int = BWD_ONE_PASS_LIMIT) -> str:
+@lru_cache(maxsize=None)
+def _bwd_cluster_entry():
+    fn = build.load().segclip_attention_bwd_cluster
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def bwd_cluster_limit() -> int:
+    """The longest Lk the cluster backward takes, as the library reports it
+    (`segclip_attention_bwd_cluster_limit`); BWD_CLUSTER_LIMIT mirrors it."""
+    fn = build.load().segclip_attention_bwd_cluster_limit
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def bwd_route(dtype: torch.dtype, lk: int, limit: int = BWD_ONE_PASS_LIMIT,
+              cluster: int = BWD_CLUSTER_LIMIT) -> str:
     """Which backward kernel takes a call on the card, by its dtype and Lk
-    alone: "one_pass" for bfloat16 rows of at most `limit` keys, else
-    "two_pass" (the longer bf16 rows and every float32 call)."""
-    return "one_pass" if dtype == torch.bfloat16 and lk <= limit else "two_pass"
+    alone: "one_pass" for bfloat16 rows of at most `limit` keys, "cluster"
+    for bf16 rows of up to `cluster` keys, else "two_pass" (longer bf16
+    rows and every float32 call)."""
+    return _routes3(dtype, lk, limit, cluster)
 
 
 def _check(q, k, v, bias2d, biasb):
@@ -297,8 +379,10 @@ def _kernel_do(do: torch.Tensor) -> torch.Tensor:
 
 def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
     """One launch of a forward kernel on CUDA tensors (checked): "one_pass"
-    (`segclip_attention_fwd_one_pass`, bf16, Lk ≤ the limit) or "two_pass"
-    (`segclip_attention_fwd`). Returns (out, P or None). The training step
+    (`segclip_attention_fwd_one_pass`, bf16, Lk ≤ the limit), "cluster"
+    (`segclip_attention_fwd_cluster`, bf16, the limit < Lk ≤ the cluster
+    limit) or "two_pass" (`segclip_attention_fwd`). Returns (out, P or
+    None). The training step
     is host-bound, so the stream comes as a raw handle and the device is
     switched only when the tensors are not on the current one."""
     device = q.device
@@ -315,6 +399,12 @@ def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
             raise ValueError(f"the one-pass kernel takes bfloat16 rows of at most "
                              f"{one_pass_limit()} keys, got {q.dtype}, Lk = {lk}")
         entry, dtype = _one_pass_entry(), ()
+    elif route == "cluster":
+        if q.dtype != torch.bfloat16 or not one_pass_limit() < lk <= cluster_limit():
+            raise ValueError(f"the cluster kernel takes bfloat16 rows of {one_pass_limit() + 1} "
+                             f"to {cluster_limit()} keys, got {q.dtype}, Lk = {lk}")
+        cluster_shape("fwd", lk, b * heads, device.index)
+        entry, dtype = _cluster_entry(), ()
     else:
         entry, dtype = _fwd_entry(), (_DTYPES[q.dtype],)
     out = torch.empty((b, lq, dm), dtype=v.dtype, device=device)
@@ -358,6 +448,18 @@ def attention_fwd_one_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fwd_route_call("one_pass", q, k, v, bias2d, biasb, scale, save_p)
 
 
+def attention_fwd_cluster(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias2d: Optional[torch.Tensor] = None,
+                          biasb: Optional[torch.Tensor] = None,
+                          scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The bf16 cluster forward kernel alone (the one-pass limit < Lk ≤ the
+    cluster limit; it raises on anything else), as `attention_fwd` returns;
+    the plain version on the CPU. `attention_fwd` routes to it;
+    chip_smoke.py times it directly."""
+    return _fwd_route_call("cluster", q, k, v, bias2d, biasb, scale, save_p)
+
+
 def attention_fwd_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias2d: Optional[torch.Tensor] = None,
                            biasb: Optional[torch.Tensor] = None,
@@ -369,7 +471,8 @@ def attention_fwd_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fwd_route_call("two_pass", q, k, v, bias2d, biasb, scale, save_p)
 
 
-_ROUTES = {"one_pass": attention_fwd_one_pass, "two_pass": attention_fwd_two_pass}
+_ROUTES = {"one_pass": attention_fwd_one_pass, "cluster": attention_fwd_cluster,
+           "two_pass": attention_fwd_two_pass}
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -381,14 +484,15 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, P (B, H, Lq, Lk) in v's dtype if `save_p` else None; on the card
     P is the view [..., :Lk] of a (B, H, Lq, Lk8) buffer). On the card the
     call goes to the kernel `fwd_route` names for its dtype and Lk, with
-    the library's limit. Not differentiable itself; `attention` is."""
+    the library's limits. Not differentiable itself; `attention` is."""
     _check(q, k, v, bias2d, biasb)
     device = _device_of(q, k, v, bias2d, biasb)
     if device.type == "cpu":
         out, p = attention_fwd_plain(q, k, v, bias2d, biasb, scale)
         return out, (p if save_p else None)
-    limit = one_pass_limit() if q.dtype == torch.bfloat16 else ONE_PASS_LIMIT
-    route = fwd_route(q.dtype, k.shape[1], limit)
+    bf16 = q.dtype == torch.bfloat16
+    route = fwd_route(q.dtype, k.shape[1], one_pass_limit() if bf16 else ONE_PASS_LIMIT,
+                      cluster_limit() if bf16 else CLUSTER_LIMIT)
     out, p = _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p)
     _ROUTES[route].launches += 1
     attention.launches += 1
@@ -412,8 +516,10 @@ def _check_bwd(p, do, q, k, v) -> torch.device:
 
 def _launch_bwd(route, p, do, q, k, v, scale):
     """One launch of a backward kernel on CUDA tensors (checked): "one_pass"
-    (`segclip_attention_bwd_one_pass`, bf16, Lk ≤ the limit) or "two_pass"
-    (`segclip_attention_bwd`, with its D scratch). Returns (dQ, dK, dV). As
+    (`segclip_attention_bwd_one_pass`, bf16, Lk ≤ the limit), "cluster"
+    (`segclip_attention_bwd_cluster`, bf16, the limit < Lk ≤ the cluster
+    limit) or "two_pass" (`segclip_attention_bwd`, with its D scratch).
+    Returns (dQ, dK, dV). As
     `_launch_fwd`: a raw stream handle, and the device switched only when
     the tensors are not on the current one."""
     device = q.device
@@ -426,6 +532,12 @@ def _launch_bwd(route, p, do, q, k, v, scale):
     if route == "one_pass" and (q.dtype != torch.bfloat16 or lk > bwd_one_pass_limit()):
         raise ValueError(f"the one-pass backward takes bfloat16 rows of at most "
                          f"{bwd_one_pass_limit()} keys, got {q.dtype}, Lk = {lk}")
+    if route == "cluster":
+        if q.dtype != torch.bfloat16 or not bwd_one_pass_limit() < lk <= bwd_cluster_limit():
+            raise ValueError(f"the cluster backward takes bfloat16 rows of "
+                             f"{bwd_one_pass_limit() + 1} to {bwd_cluster_limit()} keys, got "
+                             f"{q.dtype}, Lk = {lk}")
+        cluster_shape("bwd", lk, b * heads, device.index)
     p, do = _kernel_p(p), _kernel_do(do)
     dq = torch.empty((b, lq, dm), dtype=q.dtype, device=device)
     dk = torch.empty((b, lk, dm), dtype=k.dtype, device=device)
@@ -435,8 +547,9 @@ def _launch_bwd(route, p, do, q, k, v, scale):
     rest = (*p.stride()[:3], do.stride(0), do.stride(1), q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
             torch._C._cuda_getCurrentRawStream(device.index))
-    if route == "one_pass":
-        entry, args = _bwd_one_pass_entry(), (*ptrs, b, heads, lq, lk, *rest)
+    if route in ("one_pass", "cluster"):
+        entry = _bwd_one_pass_entry() if route == "one_pass" else _bwd_cluster_entry()
+        args = (*ptrs, b, heads, lq, lk, *rest)
     else:
         drow = torch.empty((b, heads, (lq + 3) // 4 * 4), dtype=torch.float32,
                            device=device)
@@ -469,6 +582,17 @@ def attention_bwd_one_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     return _bwd_route_call("one_pass", p, do, q, k, v, scale)
 
 
+def attention_bwd_cluster(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor,
+                          scale: float = HEAD_DIM ** -0.5
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 cluster backward kernel alone (the one-pass limit < Lk ≤ the
+    cluster limit; it raises on anything else), as `attention_bwd` returns;
+    the plain version on the CPU. `attention_bwd` routes to it;
+    chip_smoke.py times it directly."""
+    return _bwd_route_call("cluster", p, do, q, k, v, scale)
+
+
 def attention_bwd_two_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
                            k: torch.Tensor, v: torch.Tensor,
                            scale: float = HEAD_DIM ** -0.5
@@ -479,7 +603,8 @@ def attention_bwd_two_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     return _bwd_route_call("two_pass", p, do, q, k, v, scale)
 
 
-_BWD_ROUTES = {"one_pass": attention_bwd_one_pass, "two_pass": attention_bwd_two_pass}
+_BWD_ROUTES = {"one_pass": attention_bwd_one_pass, "cluster": attention_bwd_cluster,
+               "two_pass": attention_bwd_two_pass}
 
 
 def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
@@ -491,11 +616,12 @@ def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     in its operand's dtype. P is read through its strides (the forward's
     padded view without a copy); a dO the kernels cannot read in place is
     copied first. On the card the call goes to the kernel `bwd_route` names
-    for its dtype and Lk, with the library's limit."""
+    for its dtype and Lk, with the library's limits."""
     if _check_bwd(p, do, q, k, v).type == "cpu":
         return attention_bwd_plain(p, do, q, k, v, scale)
-    limit = bwd_one_pass_limit() if q.dtype == torch.bfloat16 else BWD_ONE_PASS_LIMIT
-    route = bwd_route(q.dtype, k.shape[1], limit)
+    bf16 = q.dtype == torch.bfloat16
+    route = bwd_route(q.dtype, k.shape[1], bwd_one_pass_limit() if bf16 else BWD_ONE_PASS_LIMIT,
+                      bwd_cluster_limit() if bf16 else BWD_CLUSTER_LIMIT)
     grads = _launch_bwd(route, p, do, q, k, v, scale)
     _BWD_ROUTES[route].launches += 1
     attention_bwd.launches += 1
@@ -539,9 +665,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_fwd(q, k, v, bias2d, biasb, scale)[0]
 
 
-attention.launches = 0          # forward kernel launches, both routes
+attention.launches = 0          # forward kernel launches, every route
 attention_fwd_one_pass.launches = 0     # forward launches of the one-pass kernel
+attention_fwd_cluster.launches = 0      # forward launches of the cluster kernel
 attention_fwd_two_pass.launches = 0     # forward launches of the two-pass kernels
-attention_bwd.launches = 0      # backward kernel launches, both routes
+attention_bwd.launches = 0      # backward kernel launches, every route
 attention_bwd_one_pass.launches = 0     # backward launches of the one-pass kernel
+attention_bwd_cluster.launches = 0      # backward launches of the cluster kernel
 attention_bwd_two_pass.launches = 0     # backward launches of the two-pass kernels

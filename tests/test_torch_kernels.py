@@ -365,7 +365,15 @@ def test_bf16_attention_ragged_lengths(cuda, lq, lk):
 
 @pytest.mark.parametrize("lq, lk", [(17, 512), (17, 513), (64, 1000), (130, 700)])
 def test_bf16_attention_backward_streams_p_past_its_cache(cuda, lq, lk):
+    """Rows past 512 keys: the routed calls (the cluster kernels), and the
+    two-pass backward, whose pass (a) streams P there, called directly."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_two_pass
     _fwd_bwd_matches_plain(cuda, 1, lq, lk, 2, seed=lk)
+    q, k, v, _, _, do = _bf16_case(cuda, 1, lq, lk, 2, seed=lk)
+    _, p = attention_fwd(q, k, v, save_p=True)
+    for g, r in zip(attention_bwd_two_pass(p, do, q, k, v), attention_bwd_plain(p, do, q, k, v)):
+        assert torch.isfinite(g).all()
+        _assert_bf16_close(g, r)
 
 
 @pytest.mark.parametrize("bias", ["causal", "padding"])
@@ -604,16 +612,17 @@ def test_bf16_one_pass_forward_matches_plain_and_the_two_pass_kernel(cuda, b, lq
 
 @pytest.mark.parametrize("lk", [256, 257])
 def test_bf16_forward_route_at_the_limit(cuda, lk):
-    """Lk at the limit takes the one-pass kernel, one past it the two-pass
+    """Lk at the limit takes the one-pass kernel, one past it the cluster
     kernel; the one-pass function refuses what it does not take."""
-    from segclip_tpu_torch.ops.kernels.attention import (ONE_PASS_LIMIT, attention_fwd_one_pass,
-                                                         fwd_route)
+    from segclip_tpu_torch.ops.kernels.attention import (ONE_PASS_LIMIT, attention_fwd_cluster,
+                                                         attention_fwd_one_pass, fwd_route)
     q, k, v, _, _, _ = _bf16_case(cuda, 2, 33, lk, 2)
-    routes = _routes()
+    routes, cluster = _routes(), attention_fwd_cluster.launches
     out = attention(q, k, v)
     one = int(lk <= ONE_PASS_LIMIT)
-    assert fwd_route(torch.bfloat16, lk) == ("one_pass" if one else "two_pass")
-    assert _routes() == (routes[0] + one, routes[1] + 1 - one)
+    assert fwd_route(torch.bfloat16, lk) == ("one_pass" if one else "cluster")
+    assert _routes() == (routes[0] + one, routes[1])
+    assert attention_fwd_cluster.launches == cluster + 1 - one
     _assert_bf16_close(out, attention_plain(q, k, v))
     if not one:
         with pytest.raises(ValueError, match="one-pass"):
@@ -739,16 +748,18 @@ def test_bf16_bwd_one_pass_matches_plain_and_the_two_pass_kernel(cuda, b, lq, lk
 
 @pytest.mark.parametrize("lk", [256, 257])
 def test_bf16_bwd_one_pass_route_at_the_limit(cuda, lk):
-    """Lk at the limit takes the one-pass backward, one past it the two-pass
-    kernels; the one-pass function refuses what it does not take."""
+    """Lk at the limit takes the one-pass backward, one past it the cluster
+    kernel; the one-pass function refuses what it does not take."""
     from segclip_tpu_torch.ops.kernels.attention import (BWD_ONE_PASS_LIMIT,
+                                                         attention_bwd_cluster,
                                                          attention_bwd_one_pass, bwd_route)
     p, do, q, k, v = _bwd_case(cuda, 2, 33, lk, 2, None, True, seed=lk)
-    routes = _bwd_routes()
+    routes, cluster = _bwd_routes(), attention_bwd_cluster.launches
     grads = attention_bwd(p, do, q, k, v)
     one = int(lk <= BWD_ONE_PASS_LIMIT)
-    assert bwd_route(torch.bfloat16, lk) == ("one_pass" if one else "two_pass")
-    assert _bwd_routes() == (routes[0] + one, routes[1] + 1 - one)
+    assert bwd_route(torch.bfloat16, lk) == ("one_pass" if one else "cluster")
+    assert _bwd_routes() == (routes[0] + one, routes[1])
+    assert attention_bwd_cluster.launches == cluster + 1 - one
     _assert_grads_close(grads, attention_bwd_plain(p, do, q, k, v))
     if not one:
         with pytest.raises(ValueError, match="one-pass"):
@@ -839,3 +850,184 @@ def test_bf16_bwd_one_pass_fully_masked_row_is_nan_like_the_plain_version(cuda):
     _assert_bf16_close(grads[0][:, keep], ref[0][:, keep])
     for g, r in zip(grads[1:], ref[1:]):
         assert torch.equal(torch.isnan(g), torch.isnan(r))
+
+
+# The bf16 cluster kernels (csrc/attention_fwd.cu attention_fwd_cluster_kernel,
+# csrc/attention_bwd.cu attention_bwd_cluster_kernel: one thread-block cluster
+# per (batch, head), a key slab per block, the row statistics, O, D and dQ
+# summed across the cluster) for ONE_PASS_LIMIT < Lk ≤ CLUSTER_LIMIT. Each
+# case runs the routed calls (which must take the cluster kernels) and PR 3's
+# two-pass kernels on the same inputs, and holds all to the plain version
+# (the bf16 share rule, finite values, P's padding columns zero).
+CLUSTER_LKS = (257, 264, 294, 511, 512, 513, 784, 792, 1000, 1024)
+CLUSTER_LQS = (1, 8, 17, 64, 130, 785)
+
+
+def _cluster_routes():
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd_cluster,
+                                                         attention_fwd_cluster)
+    return attention_fwd_cluster.launches, attention_bwd_cluster.launches
+
+
+def _cluster_matches_plain_and_the_two_pass_kernels(cuda, b, lq, lk, h, bias=None, seed=0,
+                                                    cross=True):
+    from segclip_tpu_torch.ops.kernels.attention import (
+        attention_bwd_two_pass, attention_fwd_two_pass)
+    q, k, v, bias2d, biasb = _one_pass_case(cuda, b, lq, lk, h, bias, cross, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 3)
+    do = torch.randn(b, lq, h * 64, generator=gen, device=cuda).to(torch.bfloat16)
+    routes = _cluster_routes()
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    grads = attention_bwd(p, do, q, k, v)
+    assert _cluster_routes() == (routes[0] + 1, routes[1] + 1)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    grads_ref = attention_bwd_plain(p, do, q, k, v)
+    two, p_two = attention_fwd_two_pass(q, k, v, bias2d, biasb, save_p=True)
+    grads_two = attention_bwd_two_pass(p, do, q, k, v)
+    torch.cuda.synchronize()
+    for got, want in ((out, ref), (p, p_ref), (two, ref), (p_two, p_ref)):
+        assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[torch.bfloat16]
+        _assert_bf16_close(got, want)
+    _assert_grads_close(grads, grads_ref)
+    _assert_grads_close(grads_two, grads_ref)
+    lk8 = (lk + 7) // 8 * 8
+    full = p.as_strided((b, h, lq, lk8), p.stride())
+    assert torch.equal(full[..., lk:], torch.zeros_like(full[..., lk:]))
+
+
+@pytest.mark.parametrize("lk", CLUSTER_LKS)
+@pytest.mark.parametrize("lq", CLUSTER_LQS)
+def test_bf16_cluster_kernels_match_plain_and_the_two_pass_kernels(cuda, lq, lk):
+    _cluster_matches_plain_and_the_two_pass_kernels(cuda, 2, lq, lk, 2, seed=lq * 13 + lk,
+                                                    cross=lq != lk)
+
+
+@pytest.mark.parametrize("b, lq, lk, h", [(24, 784, 784, 12), (24, 8, 792, 12),
+                                          (32, 8, 264, 16), (1, 294, 294, 12),
+                                          (1, 8, 302, 12)])
+def test_bf16_cluster_kernels_at_the_paths_shapes(cuda, b, lq, lk, h):
+    """448 px's 24×784 and cross 24×8×792, ViT-L/14's cross 32×8×264, a
+    224×336 request's 1×294 and cross 1×8×302 (a launch that takes thin
+    slabs)."""
+    _cluster_matches_plain_and_the_two_pass_kernels(cuda, b, lq, lk, h, seed=lk,
+                                                    cross=lq != lk)
+
+
+def test_bf16_cluster_limit_mirrors_the_library():
+    from segclip_tpu_torch.ops.kernels.attention import (BWD_CLUSTER_LIMIT, CLUSTER_LIMIT,
+                                                         bwd_cluster_limit, cluster_limit)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert cluster_limit() == CLUSTER_LIMIT and bwd_cluster_limit() == BWD_CLUSTER_LIMIT
+
+
+@pytest.mark.parametrize("lk", [1024, 1025])
+def test_bf16_cluster_route_at_its_limit(cuda, lk):
+    """CLUSTER_LIMIT keys take the cluster kernels, one more the two-pass
+    kernels; the cluster functions refuse what they do not take."""
+    from segclip_tpu_torch.ops.kernels.attention import (
+        CLUSTER_LIMIT, attention_bwd_cluster, attention_fwd_cluster, fwd_route)
+    p, do, q, k, v = _bwd_case(cuda, 1, 17, lk, 2, None, True, seed=lk)
+    routes = _cluster_routes()
+    attention_bwd(p, do, q, k, v)
+    attention(q, k, v)
+    inside = int(lk <= CLUSTER_LIMIT)
+    assert fwd_route(torch.bfloat16, lk) == ("cluster" if inside else "two_pass")
+    assert _cluster_routes() == (routes[0] + inside, routes[1] + inside)
+    if not inside:
+        with pytest.raises(ValueError, match="cluster"):
+            attention_fwd_cluster(q, k, v)
+        with pytest.raises(ValueError, match="cluster"):
+            attention_bwd_cluster(p, do, q, k, v)
+    q2, k2, v2, _, _, _ = _bf16_case(cuda, 1, 17, 200, 2)
+    with pytest.raises(ValueError, match="cluster"):
+        attention_fwd_cluster(q2, k2, v2)
+    with pytest.raises(ValueError, match="cluster"):
+        attention_fwd_cluster(q.float(), k.float(), v.float())
+
+
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+@pytest.mark.parametrize("lq, lk", [(300, 300), (785, 784), (8, 792)])
+def test_bf16_cluster_kernels_biases(cuda, bias, lq, lk):
+    """Causal bias2d, and padding biasb with one sample padded everywhere but
+    its first key, through both cluster kernels."""
+    if bias == "causal" and lq != lk:
+        lq = lk
+    q, k, v, bias2d, biasb, do = _bf16_case(cuda, 3, lq, lk, 2, bias, seed=lk + 1)
+    if biasb is not None:
+        biasb[1, 1:] = -1e6
+    routes = _cluster_routes()
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    grads = attention_bwd(p, do, q, k, v)
+    assert _cluster_routes() == (routes[0] + 1, routes[1] + 1)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref)
+    _assert_bf16_close(p, p_ref)
+    _assert_grads_close(grads, attention_bwd_plain(p, do, q, k, v))
+
+
+@pytest.mark.parametrize("lk", [300, 784])
+def test_bf16_cluster_nearly_uniform_rows(cuda, lk):
+    """Rows of nearly equal scores: l close to Lk (past 256, where the
+    branch-free division is not used), P held to the plain version's P."""
+    gen = torch.Generator(device=cuda).manual_seed(lk)
+    q = (torch.randn(2, 70, 128, generator=gen, device=cuda) * 1e-3).to(torch.bfloat16)
+    kv = torch.randn(2, lk, 256, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = kv[..., :128], kv[..., 128:]
+    routes = _cluster_routes()
+    out, p = attention_fwd(q, k, v, save_p=True)
+    assert _cluster_routes()[0] == routes[0] + 1
+    ref, p_ref = attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert (p_ref.float().amax() * lk).item() < 1.1       # l is within 10 % of Lk
+    _assert_bf16_close(p, p_ref)
+    _assert_bf16_close(out, ref)
+
+
+def test_bf16_cluster_fully_masked_row_is_nan_like_the_plain_version(cuda):
+    q, k, v, _, _, do = _bf16_case(cuda, 1, 70, 300, 1)
+    bias2d = torch.zeros(70, 300, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    out, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    ref, _ = attention_fwd_plain(q, k, v, bias2d)
+    assert torch.isnan(out[0, 66]).all() and torch.isnan(ref[0, 66]).all()
+    assert torch.isnan(p[0, 0, 66]).all()
+    full = p.as_strided((1, 1, 70, 304), p.stride())
+    assert torch.equal(full[..., 300:], torch.zeros_like(full[..., 300:]))
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    _assert_bf16_close(out[:, keep], ref[:, keep])
+    grads = attention_bwd(p, do, q, k, v)
+    grads_ref = attention_bwd_plain(p, do, q, k, v)
+    assert torch.isnan(grads[0][0, 66]).all() and torch.isfinite(grads[0][:, keep]).all()
+    _assert_bf16_close(grads[0][:, keep], grads_ref[0][:, keep])
+    for g, r in zip(grads[1:], grads_ref[1:]):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+
+
+def test_bf16_cluster_reads_views_in_place_and_repeats_bit_for_bit(cuda):
+    """q|k|v column views and the forward's padded P go in without a copy;
+    two calls give the same bits in both directions; misaligned operands
+    are refused."""
+    from segclip_tpu_torch.ops.kernels.attention import (
+        _kernel_p, attention_bwd_cluster, attention_fwd_cluster)
+    q, k, v, _, _, do = _bf16_case(cuda, 4, 784, 784, 12, seed=9)
+    assert q.stride(1) == 3 * q.shape[-1]
+    first = attention_fwd_cluster(q, k, v, save_p=True)
+    second = attention_fwd_cluster(q, k, v, save_p=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    p = first[1]
+    assert _kernel_p(p) is p and p.stride(-2) == 784
+    g1 = attention_bwd_cluster(p, do, q, k, v)
+    g2 = attention_bwd_cluster(p, do, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    for got in (attention_bwd_cluster(p.contiguous(), do, q, k, v),):
+        assert all(torch.equal(a, b) for a, b in zip(got, g1))
+    x = torch.randn(2, 300, 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fwd_cluster(x[..., 1:65], x[..., 65:129], x[..., 129:193])
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd_cluster(torch.zeros(2, 1, 300, 300, device=cuda, dtype=torch.bfloat16),
+                              torch.zeros(2, 300, 64, device=cuda, dtype=torch.bfloat16),
+                              x[..., 1:65], x[..., 65:129], x[..., 129:193])

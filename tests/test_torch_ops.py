@@ -95,6 +95,9 @@ ATTN_CASES = [
     ("cross_8x204", 2, 8, 204, 2, None),
     ("odd_heads_1", 2, 9, 9, 1, None),
     ("odd_heads_3", 1, 11, 11, 3, "causal"),
+    # rows past the one-pass limit (256): the cluster kernels' route on the card
+    ("cross_8x264", 2, 8, 264, 2, None),
+    ("self_300", 1, 300, 300, 2, None),
 ]
 
 
@@ -310,7 +313,8 @@ def test_gumbel_softmax_draws_from_the_generator():
 # --- the training slice: gradients, masking, position tables, routes -----
 
 ATTN_GRAD_CASES = [("no_bias", 2, 13, 13, 2, None), ("causal", 2, 21, 21, 2, "causal"),
-                   ("padding", 3, 17, 17, 2, "padding"), ("cross", 2, 8, 30, 2, None)]
+                   ("padding", 3, 17, 17, 2, "padding"), ("cross", 2, 8, 30, 2, None),
+                   ("cross_264", 2, 8, 264, 2, None), ("self_300", 1, 300, 300, 2, None)]
 
 
 @pytest.mark.parametrize("case", ATTN_GRAD_CASES, ids=[c[0] for c in ATTN_GRAD_CASES])
@@ -591,10 +595,12 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     (chip_smoke.step_shapes of the default ModelConfig: Lk 196, 204, 8, 48,
     56, 32) and of the 224×224 request (196, 204, 8, and the text bank's 77)
     goes to the one-pass kernel, as do ViT-L/14's 256 and ViT-B/32's 49 and
-    57; the longer rows (ViT-L/14's cross 264, a 224×336 image's 294, 448
-    px's 784 and 792) and every float32 call go to the two-pass kernel."""
+    57; the longer rows up to CLUSTER_LIMIT (ViT-L/14's cross 264, a 224×336
+    image's 294, 448 px's 784 and 792, 257) to the cluster kernel; rows past
+    CLUSTER_LIMIT and every float32 call to the two-pass kernel."""
     from segclip_tpu_torch.config import ModelConfig
-    from segclip_tpu_torch.ops.kernels.attention import ONE_PASS_LIMIT, fwd_route
+    from segclip_tpu_torch.ops.kernels.attention import (CLUSTER_LIMIT, ONE_PASS_LIMIT,
+                                                         fwd_route)
     smoke = _chip_smoke()
     step = smoke.step_shapes("train", ModelConfig(), 96)[0]
     assert sorted({c[3] for c in step}) == [8, 32, 48, 56, 196, 204]
@@ -607,9 +613,11 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     assert {49, 57} <= b32 and {256, 264} <= l14 and {784, 792} <= px448
     for lk in {c[3] for c in step} | request | b32 | {256, ONE_PASS_LIMIT}:
         assert fwd_route(torch.bfloat16, lk) == "one_pass", lk
-    for lk in (264, 294, 784, 792, ONE_PASS_LIMIT + 1):
+    for lk in (264, 294, 784, 792, 257, ONE_PASS_LIMIT + 1, CLUSTER_LIMIT):
+        assert fwd_route(torch.bfloat16, lk) == "cluster", lk
+    for lk in (CLUSTER_LIMIT + 1, 2 * CLUSTER_LIMIT):
         assert fwd_route(torch.bfloat16, lk) == "two_pass", lk
-    for lk in (8, 196, 256, 784):
+    for lk in (8, 196, 256, 264, 784, CLUSTER_LIMIT, CLUSTER_LIMIT + 1):
         assert fwd_route(torch.float32, lk) == "two_pass", lk
 
 
@@ -645,34 +653,40 @@ def test_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
     assert '#include "hopper.cuh"' in text
 
 
-@pytest.mark.parametrize("route", ["one_pass", "two_pass"])
+@pytest.mark.parametrize("route", ["one_pass", "cluster", "two_pass"])
 def test_forward_routes_take_the_plain_version_on_the_cpu(route):
     """Each route's function, given CPU tensors, returns the plain version's
-    output and P and launches nothing (no counter moves)."""
+    output and P and launches nothing (no counter moves); the cluster
+    function at rows past the one-pass limit, where it runs on the card."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     rng = np.random.default_rng(5)
-    qkv = _t(rng.normal(size=(2, 9, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
-    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
-    fn = {"one_pass": kattn.attention_fwd_one_pass,
+    lk = 300 if route == "cluster" else 9
+    qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv[:, :9, :128], qkv[..., 128:256], qkv[..., 256:]
+    fn = {"one_pass": kattn.attention_fwd_one_pass, "cluster": kattn.attention_fwd_cluster,
           "two_pass": kattn.attention_fwd_two_pass}[route]
-    counts = (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
-              kattn.attention_fwd_two_pass.launches)
+
+    def counts():
+        return (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
+                kattn.attention_fwd_cluster.launches, kattn.attention_fwd_two_pass.launches)
+    before = counts()
     out, p = fn(q, k, v, save_p=True)
     ref, p_ref = kattn.attention_fwd_plain(q, k, v)
     assert torch.equal(out, ref) and torch.equal(p, p_ref)
     assert fn(q, k, v)[1] is None
-    assert counts == (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
-                      kattn.attention_fwd_two_pass.launches)
+    assert counts() == before
 
 
 def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     """`bwd_route` by shape alone: every bf16 backward of the B = 96 step
     (Lk 196, 204, 8, 48, 56, 32), of the B = 512 step and of ViT-B/32 (49,
     57) goes to the one-pass kernel, as does ViT-L/14's 256; the longer rows
-    (ViT-L/14's cross 264, 448 px's 784 and 792) and every float32 call go
-    to the two-pass kernels."""
+    up to BWD_CLUSTER_LIMIT (ViT-L/14's cross 264, 448 px's 784 and 792,
+    294, 257) to the cluster kernel; rows past BWD_CLUSTER_LIMIT and every
+    float32 call to the two-pass kernels."""
     from segclip_tpu_torch.config import ModelConfig
-    from segclip_tpu_torch.ops.kernels.attention import BWD_ONE_PASS_LIMIT, bwd_route
+    from segclip_tpu_torch.ops.kernels.attention import (BWD_CLUSTER_LIMIT,
+                                                         BWD_ONE_PASS_LIMIT, bwd_route)
     smoke = _chip_smoke()
     step = {c[3] for c in smoke.step_shapes("train", ModelConfig(), 96)[0]}
     b512 = {c[3] for c in smoke.step_shapes("b512", smoke.large_config("b512", True), 512)[0]}
@@ -684,9 +698,11 @@ def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     assert BWD_ONE_PASS_LIMIT >= 204
     for lk in step | b512 | b32 | {256, BWD_ONE_PASS_LIMIT}:
         assert bwd_route(torch.bfloat16, lk) == "one_pass", lk
-    for lk in (264, 784, 792, BWD_ONE_PASS_LIMIT + 1):
+    for lk in (264, 784, 792, 294, 257, BWD_ONE_PASS_LIMIT + 1, BWD_CLUSTER_LIMIT):
+        assert bwd_route(torch.bfloat16, lk) == "cluster", lk
+    for lk in (BWD_CLUSTER_LIMIT + 1, 2 * BWD_CLUSTER_LIMIT):
         assert bwd_route(torch.bfloat16, lk) == "two_pass", lk
-    for lk in step | {256, 784}:
+    for lk in step | {256, 264, 784, BWD_CLUSTER_LIMIT, BWD_CLUSTER_LIMIT + 1}:
         assert bwd_route(torch.float32, lk) == "two_pass", lk
 
 
@@ -725,23 +741,76 @@ def test_bwd_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
     assert "named_sync" in hopper and "named_arrive" in hopper
 
 
-@pytest.mark.parametrize("route", ["routed", "one_pass", "two_pass"])
+@pytest.mark.parametrize("source, constant, entry", [
+    ("attention_fwd.cu", "CLUSTER_LIMIT", "segclip_attention_fwd_cluster_limit"),
+    ("attention_bwd.cu", "BWD_CLUSTER_LIMIT", "segclip_attention_bwd_cluster_limit")])
+def test_cluster_limits_mirror_the_cuda_constants(source, constant, entry):
+    """CLUSTER_LIMIT and BWD_CLUSTER_LIMIT in the wrapper are the constants
+    of csrc/attention_fwd.cu and csrc/attention_bwd.cu (read from the
+    source), which the library reports through its own entry points; each
+    covers 448 px's rows (784, 792) with at most 8 blocks a cluster (the
+    portable maximum), and takes over where the one-pass limit ends."""
+    import re
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    text = (build.CSRC / source).read_text()
+    limit = getattr(kattn, constant)
+    assert re.findall(rf"constexpr int {constant} = (\d+);", text) == [str(limit)]
+    assert f"int {entry}() {{ return {constant}; }}" in text
+    assert limit >= 1024 and kattn.ONE_PASS_LIMIT == kattn.BWD_ONE_PASS_LIMIT == 256
+    blocks, slab = re.findall(r"constexpr int (?:BWD_)?CLUSTER_MAX = (\d+);", text), re.findall(
+        r"constexpr int (?:SLAB_MAX|BWD_SLAB) = (\d+);", text)
+    assert len(blocks) == len(slab) == 1 and int(blocks[0]) <= 8
+    assert int(blocks[0]) * int(slab[0]) * 64 >= limit
+
+
+@pytest.mark.parametrize("source, needles", [
+    ("attention_fwd.cu", ("attention_fwd_cluster_kernel", "CLUSTER_LIMIT", "_fwd_kernel",
+                          "thread-block cluster", "slab", "DSMEM", "multicast", "bytes",
+                          "0.140 ms", "row max", "row sum", "rank order", "TMA", "wgmma")),
+    ("attention_bwd.cu", ("attention_bwd_cluster_kernel", "BWD_CLUSTER_LIMIT", "_bwd_kernel",
+                          "thread-block cluster", "slab", "DSMEM", "multicast", "bytes",
+                          "0.166 ms", "P is read once", "rank order", "atomics", "TMA",
+                          "wgmma"))])
+def test_cluster_source_headers_name_their_tpu_kernel_bound_and_design(source, needles):
+    """Each source's header says what the cluster kernel replaces, what
+    bounds it on the card at 448 px's 24×784 (bytes, the time at 3.35
+    TB/s) and what its design does (one cluster per (batch, head), a key
+    slab per block, statistics and sums through distributed shared memory
+    in rank order, Q (and dO) multicast by TMA, wgmma); the Hopper header
+    has the cluster building blocks."""
+    from segclip_tpu_torch.kernels import build
+    text = (build.CSRC / source).read_text()
+    header = text[:text.index("#include")]
+    for needle in needles:
+        assert needle in header, needle
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    for needle in ("multicast::cluster", "barrier.cluster.arrive.relaxed",
+                   "barrier.cluster.wait.acquire", "mapa.shared::cluster", "st.async",
+                   "cp.async.bulk.shared::cluster.shared::cta",
+                   "cudaOccupancyMaxActiveClusters", "cudaLaunchAttributeClusterDimension"):
+        assert needle in hopper, needle
+
+
+@pytest.mark.parametrize("route", ["routed", "one_pass", "cluster", "two_pass"])
 def test_backward_routes_take_the_plain_version_on_the_cpu(route):
     """The routed backward and each route's function, given CPU tensors,
     return the plain version's gradients and launch nothing (no counter
-    moves)."""
+    moves); the cluster function at rows past the one-pass limit, where it
+    runs on the card."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     rng = np.random.default_rng(6)
-    qkv = _t(rng.normal(size=(2, 9, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
-    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    lk = 300 if route == "cluster" else 9
+    qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv[:, :9, :128], qkv[..., 128:256], qkv[..., 256:]
     _, p = kattn.attention_fwd(q, k, v, save_p=True)
     do = _t(rng.normal(size=(2, 9, 128)).astype(np.float32)).to(torch.bfloat16)
     fn = {"routed": kattn.attention_bwd, "one_pass": kattn.attention_bwd_one_pass,
-          "two_pass": kattn.attention_bwd_two_pass}[route]
+          "cluster": kattn.attention_bwd_cluster, "two_pass": kattn.attention_bwd_two_pass}[route]
 
     def counts():
         return (kattn.attention_bwd.launches, kattn.attention_bwd_one_pass.launches,
-                kattn.attention_bwd_two_pass.launches)
+                kattn.attention_bwd_cluster.launches, kattn.attention_bwd_two_pass.launches)
     before = counts()
     grads = fn(p, do, q, k, v)
     for g, r in zip(grads, kattn.attention_bwd_plain(p, do, q, k, v)):
