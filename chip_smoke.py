@@ -22,16 +22,20 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      one-pass or the cluster forward takes (Lk ≤ their limits), the
      two-pass forward too, and at every bf16 shape the one-pass or the
      cluster backward takes, the two-pass backward too, each on the same
-     inputs and held to the same rules, each call's route read from the
-     route counters; the host time per forward and per backward call
-     (enqueue only) of each route; and the repaired fault: on
+     inputs and held to the same rules; every float32 forward of up to 1024
+     keys on the TF32x3 kernel (fp32-accurate split products on TF32
+     wgmma), and at F32_TIMED's shapes PR 1's SIMT two-pass kernel beside
+     it; each call's route read from the route counters; the host time per
+     forward and per backward call (enqueue only) of each route; and the
+     repaired fault: on
      CUDA, the outputs of `attention` and `group_assign` require grad when
      their inputs do;
   2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
      seeded random init; a 20-class text bank; five requests through
      ZeroShotSegmenter (224×224 whole, 224×448 slide, a 300×500 image in
      slide mode answered at its original size, 224×336 whole, whose 294
-     patches take the cluster kernel, one group map); the kernels' launch
+     patches take the cluster kernel, 448×672 whole, whose 1176 patches
+     take the two-pass kernel, one group map); the kernels' launch
      counters must show every attention and grouping call of the path went
      through the kernels;
   3. the eval path against its plain self: one request at float32 on the
@@ -144,7 +148,8 @@ kernel names), at the phase-1 shapes, each beside its bound
 (segclip_tpu_torch/ops/kernels/bounds.py) and, where a one-pass or a
 cluster kernel (forward or backward) ran, the two-pass kernel's time on the
 same inputs, which must be the longer (the two measured in turns, three
-rounds each, medians compared); a kernel time
+rounds each, medians compared), and at F32_TIMED's float32 shapes the SIMT
+kernel's beside the TF32x3 kernel's (the longer at F32_GATED's); a kernel time
 under its bound is profiled again and fails the run if it stays there (unless
 the work fits in the L2 cache); a profile of three warm requests,
 of one training step, of one B = 512 step with remat, of one ViT-B/32
@@ -153,24 +158,33 @@ each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the co
 instructions (HMMA, HGMMA) and TMA instructions in each kernel; the bf16
 attention kernels and the bf16 grouping kernel must have tensor-core
 instructions, and every instance of the one-pass and the cluster forward
-and backward HGMMA and TMA ones too. The forward's and the backward's
-launches by route (one-pass, cluster, two-pass) are printed per phase of
-the main path (phases 2-14; phase 9's ranks and phase 10's studies report
-their own); all six kernels must have launched, the cluster ones in phase 2
-(the 224×336 request) and phase 12 (448 px, ViT-L/14's cross blocks), and
-the float32 phases only the two-pass ones. The profiles list the port's own
-kernels (those in the `segclip_kernels` namespace) apart from PyTorch's.
+and backward and of the float32 TF32x3 forward HGMMA and TMA ones too (the
+TF32x3 instances no ptxas spills). The forward's and the backward's
+launches by route (one-pass, cluster, TF32x3, two-pass) are printed per
+phase of the main path (phases 2-14; phase 9's ranks and phase 10's studies
+report their own); all seven kernels must have launched, the cluster ones
+in phase 2 (the 224×336 request) and phase 12 (448 px, ViT-L/14's cross
+blocks), every float32 forward on the TF32x3 kernel (the two-pass forward
+only on phase 2's bf16 rows past 1024 keys) and every float32 backward on
+the two-pass kernels. The profiles list the port's own kernels (those in
+the `segclip_kernels` namespace) apart from PyTorch's.
 
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
 10's subprocess: one study with the launch counters read around it.
 `python3 chip_smoke.py profile-step 448` profiles one warm training step
-of a LARGE_CONFIGS entry alone (it runs on older trees of the port too).
+of a LARGE_CONFIGS entry alone, and `python3 chip_smoke.py float32-paths`
+times and profiles phase 3's float32 request, phase 8's float32 batched
+decode and phase 5's float32 step alone (both run on older trees of the
+port too).
 
 Exits non-zero when there is no CUDA card or any check fails. Prints the
 card's name and power limit, whether cv2 is importable, one JSON line of
 kernel results ("ms", "plain_ms", "library_ms", "bound_ms" at each
 kernel's main shape: the one-pass forward ("attention_fwd_one_pass", with
-"two_pass_ms" and "host_us") at 96x196 with P, the cluster forward
+"two_pass_ms" and "host_us") at 96x196 with P, the float32 TF32x3 forward
+("attention_fwd_tf32x3", with "two_pass_ms", the SIMT kernel's time in turns
+beside it, "host_us", "p_max_abs_err"; "library_ms" SDPA at float32 with
+TF32 off) at 96x196 with P, the cluster forward
 ("attention_fwd", with "two_pass_ms" and "host_us") and PR 3's two-pass
 forward ("attention_fwd_two_pass", timed in turns beside it) at 448 px's
 24x784 with P, the one-pass backward ("attention_bwd_one_pass", with
@@ -219,6 +233,7 @@ VOC_BG_THRESH = 0.80
 
 ATTN_SRC = "segclip_tpu_torch/csrc/attention_fwd.cu"
 ATTN_BWD_SRC = "segclip_tpu_torch/csrc/attention_bwd.cu"
+ATTN_TF32_SRC = "segclip_tpu_torch/csrc/attention_fwd_tf32x3.cu"
 GROUP_SRC = "segclip_tpu_torch/csrc/group_assign.cu"
 ATTN_TPU = "segclip_tpu/ops/pallas/attention.py:60"
 ATTN_BWD_TPU = "segclip_tpu/ops/pallas/attention.py:96"
@@ -231,6 +246,7 @@ GROUP_ST_TPU = "segclip_tpu/ops/pallas/grouping.py:45 (training=True, entry :158
 SHARDED_IMAGES = ((224, 224), (224, 300), (300, 224), (224, 448),
                   (224, 467), (224, 299), (299, 224), (224, 700))
 SHARDED_PER_CALL = 4
+WARM_REQUESTS = 7           # phase 2's warm runs of each request, after its counted one
 SHARDED_MAX_WINDOWS = 11
 # Attention shapes of the path: (name, B, Lq, Lk, heads, bias, kind).
 ATTN_CASES = (
@@ -259,6 +275,9 @@ ATTN_CASES = (
     ("b32 cross 1x8x57", 1, 8, 57, 12, None, "cross"),
     ("b32 cross 2x8x57", 2, 8, 57, 12, None, "cross"),
     ("group stage 1x8x8 (whole)", 1, 8, 8, 12, None, "self"),
+    # phase 2's 448x672 whole request: rows past CLUSTER_LIMIT
+    ("vision 1x1176 (whole 448x672)", 1, 1176, 1176, 12, None, "self"),
+    ("cross 1x8x1184 (whole 448x672, 1176 patches)", 1, 8, 1184, 12, None, "cross"),
 )
 # Attention shapes of the training step at B = 96: forward with P saved
 # and backward. The grouping path's vision blocks, cross blocks and group
@@ -304,6 +323,7 @@ GROUP_CASES = (
     ("eval 2x8x196x768 (slide)", 2, 8, 196, 768),
     ("eval 1x8x196x768 (whole 224x224)", 1, 8, 196, 768),
     ("eval 1x8x294x768 (whole 224x336)", 1, 8, 294, 768),
+    ("eval 1x8x1176x768 (whole 448x672)", 1, 8, 1176, 768),
     ("sharded eval 11x8x196x768", SHARDED_MAX_WINDOWS, 8, 196, 768),
     ("studies 16x8x196x768 (classprobe)", 16, 8, 196, 768),
     ("b32 eval 2x8x49x768 (slide)", 2, 8, 49, 768),
@@ -397,6 +417,17 @@ TRAIN_GRAD_TOL = 1e-4
 # Phase 3: float32 whole-image logits on the card and on the CPU.
 E2E_PIXEL_TOL = 1e-3        # a pixel agrees if every class logit is within this
 E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
+# The float32 shapes at which the TF32x3 forward is timed against PR 1's
+# SIMT kernel (in turns, ROUTE_ROUNDS rounds) and SDPA in the device-time
+# section: the B = 96 step's (and a TP rank's vision blocks, H = 6), the
+# 224x224 slide and 224x336 whole requests', and the drift replay's one-head
+# MAE blocks (L = 3); at F32_GATED the TF32x3 kernel must be the faster.
+F32_TIMED = ("train vision 96x196", "train TP vision 96x196 H6", "train cross 96x8x204",
+             "train MAE vision 96x48", "train MAE cross 96x8x56", "train text 96x32 causal",
+             "train group stage 96x8x8", "vision 2x196 (slide, 2 windows)", "cross 2x8x204",
+             "text 20x77 causal", "vision 1x294 (whole 224x336)",
+             "cross 1x8x302 (whole 224x336, 294 patches)", "drift MAE vision")
+F32_GATED = ("train vision 96x196", "train cross 96x8x204", "vision 2x196 (slide, 2 windows)")
 PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
 L2_BYTES = 50e6             # the H100's L2 cache
 HOST_ROUNDS = 5             # rounds of host_us per forward route
@@ -568,34 +599,41 @@ def check_route(case, dtype, before: dict, backward: bool = False) -> str:
     `bwd_route`) names for its dtype and Lk with the library's limit."""
     from segclip_tpu_torch.ops.kernels.attention import (
         bwd_cluster_limit, bwd_one_pass_limit, bwd_route, cluster_limit, fwd_route,
-        one_pass_limit)
+        one_pass_limit, tf32x3_limit)
     if backward:
         route = bwd_route(dtype, case[3], bwd_one_pass_limit(), bwd_cluster_limit())
-        prefix = "bwd_"
+        prefix, keys = "bwd_", BWD_ROUTES
     else:
-        route, prefix = fwd_route(dtype, case[3], one_pass_limit(), cluster_limit()), ""
+        route = fwd_route(dtype, case[3], one_pass_limit(), cluster_limit(), tf32x3_limit())
+        prefix, keys = "", ROUTES
     now = read_routes()
-    moved = {k: now[prefix + k] - before[prefix + k] for k in ROUTES}
-    check(moved == {k: int(route == k) for k in ROUTES},
+    moved = {k: now[prefix + k] - before[prefix + k] for k in keys}
+    check(moved == {k: int(route == k) for k in keys},
           f"attention {'backward' if backward else 'forward'} {case[0]} {dtype}: routes "
           f"moved {moved}, expected one {route} launch")
     return route
 
 
 def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 50) -> tuple:
-    """At a bf16 shape the one-pass or the cluster kernel takes: the
-    two-pass kernel on the same inputs, held to the plain version by the
-    same rules (max |err| and the >1-ulp share of out, and of P when saved).
-    Returns its call, a note with its time per call by CUDA events, and its
-    max |err|."""
+    """At a shape the one-pass, the cluster or the TF32x3 kernel takes: the
+    two-pass kernel (PR 3's bf16 kernel, PR 1's float32 SIMT kernel) on the
+    same inputs, held to the plain version by the same rules (bf16: max
+    |err| and the >1-ulp share of out, and of P when saved; float32: max
+    |err| of out, and of P when saved). Returns its call, a note with its
+    time per call by CUDA events, and its max |err|."""
     from segclip_tpu_torch.ops.kernels.attention import attention_fwd_two_pass
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
     fn = functools.partial(attention_fwd_two_pass, *inputs, save_p=save_p)
     out, p = fn()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    check(err <= ATTN_TOL[out.dtype], f"two-pass {case[0]}: err {err}")
+    if out.dtype == torch.float32:
+        p_err = (p - p_ref).abs().max().item() if save_p else 0.0
+        check(p_err <= P_TOL_F32, f"two-pass {case[0]}: P err {p_err}")
+        return fn, (f"; two-pass err {err:.3e}" + (f", P err {p_err:.3e}" if save_p else "")
+                    + f", {call_ms(fn, reps=reps):.4f} ms"), err
     shares = [bf16_share(out, ref)] + ([bf16_share(p, p_ref)] if save_p else [])
-    check(err <= ATTN_TOL[torch.bfloat16], f"two-pass {case[0]}: err {err}")
     for (sh, _), what in zip(shares, ("out", "P")):
         check(sh <= ATTN_BF16_SHARE, f"two-pass {case[0]} bf16 {what}: share {sh}")
     return fn, (f"; two-pass err {err:.3e}, >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
@@ -621,6 +659,10 @@ def bwd_two_pass_beside(case, inputs: tuple, refs, reps: int = 50) -> tuple:
     err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
     return fn, ("; two-pass bwd >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
                 + f", {call_ms(fn, reps=reps):.4f} ms"), err
+
+
+def f32_timed(name: str) -> bool:
+    return any(name.startswith(n) for n in F32_TIMED)
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -673,7 +715,7 @@ def phase_kernels(dev) -> tuple:
             plain = functools.partial(attention_plain, q, k, v, b2, bb)
             call, plain_call = call_ms(kernel), call_ms(plain)
             two_pass, two_note = None, ""
-            if route != "two_pass":
+            if route != "two_pass" and (dtype == torch.bfloat16 or f32_timed(case[0])):
                 two_pass, two_note, _ = two_pass_beside(case, (q, k, v, b2, bb), False, ref, None)
             _, b, lq, lk, h, bias, _ = case
             work = bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=False,
@@ -692,6 +734,7 @@ def phase_kernels(dev) -> tuple:
             check(err <= tol, f"attention {case[0]} {dtype}: err {err} > {tol}")
             timings.append(dict(name=f"attention {case[0]} {str(dtype)[6:]}", kernel=kernel,
                                 plain=plain, work=(*work, dtype), two_pass=two_pass,
+                                gate=dtype == torch.bfloat16 or case[0] in F32_GATED,
                                 library=sdpa_library(q, k, v, b2, bb)))
             if case is ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention"] = dict(max_abs_err=err, timing=len(timings) - 1)
@@ -750,7 +793,9 @@ def host_costs(dev, gen, summary) -> None:
     nothing waited for) at the B = 96 vision shape, through each routed
     wrapper and through the one-pass and two-pass routes' own functions, and
     at 448 px's 24×784 through the cluster route's; into summary["host_us"]
-    and summary["bwd_host_us"] (the cluster route's under "cluster")."""
+    and summary["bwd_host_us"] (the cluster route's under "cluster"); and at
+    the B = 96 vision shape in float32, per forward call with P through the
+    TF32x3 and the two-pass route's functions, into summary["f32_host_us"]."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     shapes = {"one_pass": TRAIN_ATTN_CASES[0],
               "cluster": step_shapes("448", large_config("448", False), LARGE_CONFIGS["448"][2])[0][0]}
@@ -779,6 +824,17 @@ def host_costs(dev, gen, summary) -> None:
             print(f"  host time per {what} at {case[0]} (enqueue only; median of "
                   f"{HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
                       f"{k} {v:.1f} us" for k, v in found.items()))
+    q, k, v, b2, bb = attention_inputs(TRAIN_ATTN_CASES[0], torch.float32, dev, gen)
+    calls = {r: functools.partial(getattr(kattn, f"attention_fwd_{r}"), q, k, v, b2, bb,
+                                  save_p=True) for r in ("tf32x3", "two_pass")}
+    times = {name: [] for name in calls}
+    for i in range(HOST_ROUNDS):
+        for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+            times[name].append(host_us(calls[name]))
+    summary["f32_host_us"] = {name: statistics.median(t) for name, t in times.items()}
+    print(f"  host time per float32 forward call with P at {TRAIN_ATTN_CASES[0][0]} (enqueue "
+          f"only, in turns): " + ", ".join(f"{k} {v:.1f} us"
+                                           for k, v in summary["f32_host_us"].items()))
 
 
 def bf16_share(out, ref) -> tuple:
@@ -847,7 +903,7 @@ def training_kernels(dev, gen, summary, timings) -> None:
             bwd_plain = functools.partial(attention_bwd_plain, p, do, q, k, v)
             times = [call_ms(f, reps=reps) for f in (fwd, fwd_plain, bwd, bwd_plain)]
             two_pass, two_note, bwd_two, bwd_note, two_err, bwd_two_err = None, "", None, "", 0, 0
-            if route != "two_pass":
+            if route != "two_pass" and (dtype == torch.bfloat16 or f32_timed(case[0])):
                 two_pass, two_note, two_err = two_pass_beside(case, (q, k, v, b2, bb), True, ref,
                                                               p_ref, reps)
             if bwd_route != "two_pass":
@@ -859,13 +915,13 @@ def training_kernels(dev, gen, summary, timings) -> None:
                   f"{times[1]:.4f} ms, bwd {times[2]:.4f} / {times[3]:.4f} ms{two_note}{bwd_note}")
             if case in TRAIN_DP_ATTN_CASES or (case in TRAIN_TP_ATTN_CASES
                                                and case[1] != TRAIN_BATCH) or (
-                    case in large_attn and not (case[0] in profiled
-                                                and dtype == torch.bfloat16)):
-                continue               # checked above; profiled at B = 96 and LARGE_PROFILED
+                    case in large_attn and not (case[0] in profiled and dtype == torch.bfloat16)
+                    and not (dtype == torch.float32 and f32_timed(case[0]))):
+                continue               # checked above; profiled at B = 96, LARGE_PROFILED, F32_TIMED
             _, b, lq, lk, h, bias, _ = case
             timings.append(dict(
                 name=f"attention fwd+P {case[0]} {dname}", kernel=fwd, plain=fwd_plain,
-                two_pass=two_pass,
+                two_pass=two_pass, gate=dtype == torch.bfloat16 or case[0] in F32_GATED,
                 work=(*bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=True,
                                                  bias2d=b2 is not None,
                                                  biasb=bb is not None), dtype),
@@ -873,6 +929,10 @@ def training_kernels(dev, gen, summary, timings) -> None:
             if case is TRAIN_ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention_fwd_train"] = dict(max_abs_err=out_err,
                                                       timing=len(timings) - 1)
+            if case is TRAIN_ATTN_CASES[0] and dtype == torch.float32:
+                summary["attention_fwd_tf32x3"] = dict(max_abs_err=out_err, p_err=p_err,
+                                                       two_pass_err=two_err,
+                                                       timing=len(timings) - 1)
             if case == b32_attn[0] and dtype == torch.bfloat16:
                 summary["b32_attention_fwd"] = dict(max_abs_err=out_err,
                                                     timing=len(timings) - 1)
@@ -983,9 +1043,10 @@ def reset_counters() -> None:
     plain_route.calls = 0
 
 
-ROUTES = ("one_pass", "cluster", "two_pass")
+ROUTES = ("one_pass", "cluster", "tf32x3", "two_pass")
+BWD_ROUTES = ("one_pass", "cluster", "two_pass")
 ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "cluster": "attention_fwd_cluster",
-                   "two_pass": "attention_fwd_two_pass",
+                   "tf32x3": "attention_fwd_tf32x3", "two_pass": "attention_fwd_two_pass",
                    "bwd_one_pass": "attention_bwd_one_pass",
                    "bwd_cluster": "attention_bwd_cluster",
                    "bwd_two_pass": "attention_bwd_two_pass"}
@@ -1001,7 +1062,7 @@ def reset_routes() -> None:
 
 def read_routes() -> dict:
     """Launches by route in this process: forward {"one_pass", "cluster",
-    "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
+    "tf32x3", "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
     "bwd_two_pass"}."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     return {key: getattr(kattn, fn).launches for key, fn in ROUTE_FUNCTIONS.items()}
@@ -1042,6 +1103,7 @@ def phase_slice(dev, cfg) -> tuple:
     img_224x448 = rng.standard_normal((224, 448, 3), dtype=np.float32)
     img_300x500 = rng.standard_normal((224, 373, 3), dtype=np.float32)  # short side 224
     img_224x336 = rng.standard_normal((224, 336, 3), dtype=np.float32)
+    img_448x672 = rng.standard_normal((448, 672, 3), dtype=np.float32)
     num_classes = len(VOC_CLASSES) + 1
 
     reset_counters()
@@ -1065,6 +1127,10 @@ def phase_slice(dev, cfg) -> tuple:
         # 294 patches: the vision and cross blocks' rows (Lk 294, 302) take
         # the cluster kernel
         ("224x336 whole", lambda: seg.predict(img_224x336, (224, 336), "whole"), (224, 336),
+         num_classes),
+        # 1176 patches: the vision and cross blocks' rows (Lk 1176, 1184) are
+        # past CLUSTER_LIMIT and take the two-pass kernel
+        ("448x672 whole", lambda: seg.predict(img_448x672, (448, 672), "whole"), (448, 672),
          num_classes),
         ("224x224 group_map", lambda: seg.group_map(img_224), (224, 224), cfg.group_num),
     )
@@ -1092,15 +1158,21 @@ def phase_slice(dev, cfg) -> tuple:
     check(wide["cluster"] == long_rows and wide["one_pass"] == 14 - long_rows
           and wide["two_pass"] == 0, f"224x336 whole: attention by route {wide}; expected "
           f"{long_rows} (the first stage and cross blocks) on the cluster kernel")
+    large = request_routes["448x672 whole"]
+    check(large["two_pass"] == long_rows and large["one_pass"] == 14 - long_rows
+          and large["cluster"] == large["tf32x3"] == 0, f"448x672 whole: attention by route "
+          f"{large}; expected {long_rows} (the first stage and cross blocks) on the two-pass kernel")
 
     for name, fn, _, _ in requests:                   # warm latency, uncounted
-        warm = sorted(timed(fn)[1] for _ in range(7))
-        print(f"  {name}: warm median {warm[3]:.2f} ms (min {warm[0]:.2f}, "
-              f"max {warm[-1]:.2f}, 7 runs)")
+        warm = sorted(timed(fn)[1] for _ in range(WARM_REQUESTS))
+        print(f"  {name}: warm median {warm[WARM_REQUESTS // 2]:.2f} ms (min {warm[0]:.2f}, "
+              f"max {warm[-1]:.2f}, {WARM_REQUESTS} runs)")
     for logits in (seg.whole(img_224), seg.slide(img_300x500)):
         check(np.isfinite(logits).all(), "non-finite logits")
     print(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    return model, seg, requests, counts, per_request, wide["cluster"]
+    # the phase's two-pass forwards: the 448x672 request's, counted once and warm
+    return (model, seg, requests, counts, per_request, wide["cluster"],
+            large["two_pass"] * (1 + WARM_REQUESTS))
 
 
 def train_path_counts(cfg) -> dict:
@@ -1262,9 +1334,9 @@ def phase_train(dev) -> tuple:
         counts = read_counters()
         routes = {k: n - routes[k] for k, n in read_routes().items()}
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
-        check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "two_pass": 0,
-                         "bwd_one_pass": expected["attention_bwd"], "bwd_cluster": 0,
-                         "bwd_two_pass": 0},
+        check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "tf32x3": 0,
+                         "two_pass": 0, "bwd_one_pass": expected["attention_bwd"],
+                         "bwd_cluster": 0, "bwd_two_pass": 0},
               f"step {i}: launches by route {routes}, expected every one of the "
               f"{expected['attention_fwd']} forwards and {expected['attention_bwd']} backwards "
               "on the one-pass kernels")
@@ -1673,8 +1745,9 @@ def phase_device_time(seg, requests, timings, train_step, large_step, b32_step,
     from segclip_tpu_torch.ops.kernels.bounds import bound_ms
     print("device time (torch.profiler; ms per call: kernel / plain / library "
           "[SDPA backend]; bound from bounds.py at 3.35 TB/s, 989 TFLOP/s bf16, "
-          "67 TFLOP/s f32; the bwd rows' library is SDPA forward + backward, set "
-          "against the kernels' fwd+P + bwd pair)")
+          "495/3 TFLOP/s f32 (three TF32 products per fp32-accurate product); the bwd "
+          "rows' library is SDPA forward + backward, set against the kernels' fwd+P + bwd "
+          "pair; float32 library rows with TF32 off)")
     rows = []
     for t in timings:
         row = dict(plain_ms=device_ms(t["plain"])[0], library_ms=None, library_backend=None,
@@ -1698,7 +1771,7 @@ def phase_device_time(seg, requests, timings, train_step, large_step, b32_step,
         print(f"  {t['name']:58s} {row['ms']:.4f} / {row['plain_ms']:.4f} / {lib}; "
               f"bound {row['bound_ms']:.4f} ({row['bound_by']}), kernel at "
               f"{row['bound_ms'] / row['ms']:.1%} of it{pair}{two}")
-        if row["two_pass_ms"] is not None:
+        if row["two_pass_ms"] is not None and t.get("gate", True):
             check(row["ms"] < row["two_pass_ms"], f"{t['name']}: the routed kernel "
                   f"({row['ms']:.4f} ms) is not faster than the two-pass ({row['two_pass_ms']:.4f})")
         rows.append(row)
@@ -1733,9 +1806,10 @@ def kernel_name(mangled: str) -> str:
     return f"{name}<{', '.join(args)}>" if args else name
 
 
-def print_ptxas(log: str) -> None:
-    """One line per kernel: registers, shared memory and spills (ptxas -v)."""
-    name, notes = None, []
+def print_ptxas(log: str) -> dict:
+    """One line per kernel: registers, shared memory and spills (ptxas -v).
+    Returns each kernel's spill bytes (stores + loads)."""
+    name, notes, spilled = None, [], {}
     for line in log.splitlines() + ["Compiling entry function 'end'"]:
         if "Compiling entry function" in line:
             if name:
@@ -1743,6 +1817,10 @@ def print_ptxas(log: str) -> None:
             name, notes = line.split("'")[1], []
         elif name and ("Used " in line or "spill" in line):
             notes.append(line.split(":", 1)[-1].strip())
+            found = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            if found:
+                spilled[kernel_name(name)] = spilled.get(kernel_name(name), 0) + sum(map(int, found))
+    return spilled
 
 
 def tensor_core_counts(library) -> dict:
@@ -1750,7 +1828,8 @@ def tensor_core_counts(library) -> dict:
     (UTMALDG, UTMASTG, UBLKCP) instructions in each kernel's SASS, printed;
     the bf16 attention kernels and the bf16 grouping kernel's 16-byte path
     must have tensor-core instructions, and every instance of the one-pass
-    and the cluster kernels, forward and backward, HGMMA and TMA ones.
+    and the cluster kernels, forward and backward, and of the float32 TF32x3
+    forward HGMMA and TMA ones.
     Returns the tensor-core instructions of each kernel of the kernels JSON
     line, by its name there (empty without cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1782,7 +1861,8 @@ def tensor_core_counts(library) -> dict:
     for prefix, instances in (("attention_fwd_one_pass_kernel", 4),
                               ("attention_bwd_one_pass_kernel", 4),
                               ("attention_fwd_cluster_kernel", 3),
-                              ("attention_bwd_cluster_kernel", 1)):
+                              ("attention_bwd_cluster_kernel", 1),
+                              ("attention_fwd_tf32x3_kernel", 4)):
         hopper[prefix] = [k for k in counts if k.startswith(prefix)]
         check(len(hopper[prefix]) == instances, f"{prefix} instances in the SASS: {hopper[prefix]}")
         for kernel in hopper[prefix]:
@@ -1792,6 +1872,7 @@ def tensor_core_counts(library) -> dict:
             "attention_fwd_two_pass": counts["attention_fwd_bf16_kernel"],
             "attention_fwd_one_pass": sum(
                 counts[k] for k in hopper["attention_fwd_one_pass_kernel"]),
+            "attention_fwd_tf32x3": sum(counts[k] for k in hopper["attention_fwd_tf32x3_kernel"]),
             "attention_bwd": sum(counts[k] for k in hopper["attention_bwd_cluster_kernel"]),
             "attention_bwd_two_pass": counts["attention_bwd_dq_bf16_kernel"]
             + counts["attention_bwd_dkv_bf16_kernel"],
@@ -3366,11 +3447,71 @@ def profile_step(name: str) -> int:
     return 0
 
 
+def float32_paths() -> int:
+    """`python3 chip_smoke.py float32-paths`: the float32 paths alone, as a
+    user runs them, with nothing checked: phase 3's 224x224 whole request
+    (warm median of 7 requests, then one profiled: device busy, the port's
+    kernels), phase 8's eight images at SHARDED_PER_CALL per predict_batch
+    call (img/s, median of 3 passes; slide windows as the VOC evaluator
+    takes them), and phase 5's float32 step at B = 2 (3 warm steps, then one
+    profiled), from ViT-B/16 seeded inits. Uses only what the port had
+    before the TF32x3 kernel, so that the same script measures an older
+    tree too."""
+    from segclip_tpu_torch.cli.eval_zeroshot import build_segmenter
+    from segclip_tpu_torch.config import Config, ModelConfig
+    from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+    from segclip_tpu_torch.utils.device import resolve_device
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    build.load()
+    dev = resolve_device("cuda")                      # TF32 off
+    cfg = ModelConfig(compute_dtype="float32")
+    model = init_segclip(cfg, seed=0, device=dev).eval()
+    seg = build_segmenter(model, cfg, DATASET_SPECS["voc"])
+    rng = np.random.default_rng(1)
+    img = rng.standard_normal((224, 224, 3), dtype=np.float32)
+    with torch.no_grad():
+        walls = sorted(timed(lambda: seg.predict(img, (224, 224), "whole"))[1] for _ in range(8))[:7]
+        print(f"float32 224x224 whole request: warm median {walls[3]:.2f} ms (min {walls[0]:.2f}, "
+              f"max {walls[-1]:.2f})")
+        print_profile("float32 224x224 whole request", lambda: seg.predict(img, (224, 224), "whole"))
+        images = [rng.standard_normal((h, w, 3), dtype=np.float32) for h, w in SHARDED_IMAGES]
+
+        def batched():
+            for i in range(0, len(images), SHARDED_PER_CALL):
+                seg.predict_batch(images[i:i + SHARDED_PER_CALL], SHARDED_IMAGES[i:i + SHARDED_PER_CALL])
+        batched()
+        passes = sorted(timed(batched)[1] for _ in range(3))
+        print(f"float32 eight images at {SHARDED_PER_CALL} per decode call: "
+              f"{len(images) * 1e3 / passes[1]:.1f} img/s (median of 3 passes, "
+              f"{' '.join(f'{x:.1f}' for x in passes)} ms)")
+        print_profile(f"float32 eight images at {SHARDED_PER_CALL} per call", batched)
+    del seg, model
+    train_cfg = Config(model=cfg)
+    model = init_segclip(cfg, seed=0, device=dev)
+    step = make_train_step(model, create_optimizer(model, train_cfg, t_total=100), train_cfg)
+    state, batch = TrainState(step=0, seed=0), synthetic_batch(2, cfg, 0, dev)
+    walls = [timed(lambda: step(state, batch))[1] for _ in range(4)]
+    print(f"float32 step B=2: walls {' '.join(f'{w:.2f}' for w in walls)} ms (first cold)")
+    print_profile("float32 training step B=2", lambda: step(state, batch))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["study"]:                   # phase 10's subprocesses
         return study_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
     if sys.argv[1:2] == ["profile-step"]:
         return profile_step(sys.argv[2])
+    if sys.argv[1:2] == ["float32-paths"]:
+        return float32_paths()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3395,7 +3536,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
-    print_ptxas(build.build_log())
+    spilled = print_ptxas(build.build_log())
+    tf32x3 = {k: n for k, n in spilled.items() if k.startswith("attention_fwd_tf32x3_kernel")}
+    check(len(tf32x3) == 4 and not any(tf32x3.values()),
+          f"attention_fwd_tf32x3_kernel instances and their spill bytes: {tf32x3}")
     hmma = tensor_core_counts(build.build())
 
     summary, timings = phase_kernels(dev)
@@ -3409,7 +3553,8 @@ def main() -> int:
         marks.append((path, now))
 
     cfg = ModelConfig()
-    model, seg, requests, eval_counts, per_request, cluster_per_request = phase_slice(dev, cfg)
+    (model, seg, requests, eval_counts, per_request, cluster_per_request,
+     eval_two_pass) = phase_slice(dev, cfg)
     mark("eval")
     phase_plain_self(dev, model, cfg)
     mark("eval_f32")
@@ -3443,16 +3588,27 @@ def main() -> int:
     routes = {path: {k: n - prev[k] for k, n in now.items()}
               for (_, prev), (path, now) in zip(marks, marks[1:])}
     print("launches by route on the main path, per phase (forward; backward): " + "; ".join(
-        f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['two_pass']} two-pass; "
-        f"{r['bwd_one_pass']} one-pass / {r['bwd_cluster']} cluster / {r['bwd_two_pass']} "
-        "two-pass" for path, r in routes.items()))
+        f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['tf32x3']} tf32x3 / "
+        f"{r['two_pass']} two-pass; {r['bwd_one_pass']} one-pass / {r['bwd_cluster']} cluster "
+        f"/ {r['bwd_two_pass']} two-pass" for path, r in routes.items()))
     for path in ("eval", "remat_large"):      # the 224x336 request; 448 px and ViT-L/14
         check(routes[path]["cluster"] > 0, f"{path}: no forward on the cluster kernel")
     check(routes["remat_large"]["bwd_cluster"] > 0, "remat_large: no backward on the cluster kernel")
-    for path in ("eval_f32", "train_f32", "drift"):   # float32: the two-pass kernels only
+    for path in ("eval_f32", "train_f32", "drift"):   # float32 only: TF32x3 forward, two-pass backward
         r = routes[path]
-        check(r["two_pass"] > 0 and r["one_pass"] == r["cluster"] == r["bwd_one_pass"]
-              == r["bwd_cluster"] == 0, f"{path} (float32): launches by route {r}")
+        check(r["tf32x3"] > 0 and r["two_pass"] == r["one_pass"] == r["cluster"]
+              == r["bwd_one_pass"] == r["bwd_cluster"] == 0
+              and (r["bwd_two_pass"] > 0) == (path != "eval_f32"),
+              f"{path} (float32): launches by route {r}")
+    for path in ("eval_sharded", "train_dp_tp", "studies", "b32"):     # their float32 parts
+        check(routes[path]["tf32x3"] > 0, f"{path}: its float32 forwards did not take the "
+              f"TF32x3 kernel: {routes[path]}")
+    # every float32 forward of phases 2-14 on the TF32x3 kernel: the two-pass
+    # forward only for phase 2's bf16 rows past CLUSTER_LIMIT (448x672 whole)
+    elsewhere = {path: r["two_pass"] for path, r in routes.items() if r["two_pass"] and path != "eval"}
+    check(not elsewhere and routes["eval"]["two_pass"] == eval_two_pass,
+          f"two-pass forwards on the main path: {elsewhere}, eval {routes['eval']['two_pass']} "
+          f"(expected {eval_two_pass}, the 448x672 whole request's long rows)")
     for route in ROUTE_FUNCTIONS:
         check(sum(r[route] for r in routes.values()) > 0,
               f"the {ROUTE_FUNCTIONS[route]} kernel was never launched on the main path")
@@ -3463,6 +3619,7 @@ def main() -> int:
     for name, src, tpu, key, counter in (
             ("attention_fwd_one_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "one_pass"),
             ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_cluster", "cluster"),
+            ("attention_fwd_tf32x3", ATTN_TF32_SRC, ATTN_TPU, "attention_fwd_tf32x3", "tf32x3"),
             ("attention_fwd_two_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_cluster", "two_pass"),
             ("attention_bwd_one_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_one_pass",
              "bwd_one_pass"),
@@ -3482,7 +3639,9 @@ def main() -> int:
             one = counter.endswith("one_pass")
             step_launches = per_step[direction] if one else 0
             request_launches = (per_request[direction] if one else
-                                cluster_per_request if counter == "cluster" else 0)
+                                cluster_per_request if counter == "cluster" else
+                                eval_two_pass // (1 + WARM_REQUESTS) if counter == "two_pass"
+                                else 0)
         else:
             by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
                        "train_cli": cli_counts[counter],
@@ -3507,10 +3666,17 @@ def main() -> int:
         if name.startswith("attention_fwd"):
             entry["library_call"] = ("scaled_dot_product_attention forward, no P "
                                      f"({row['library_backend']})")
-            entry["host_us"] = summary["host_us"][counter]
+            entry["host_us"] = (summary["f32_host_us"][counter] if counter == "tf32x3"
+                                else summary["host_us"][counter])
+        if name == "attention_fwd_tf32x3":       # float32, TF32 off for the library call
+            entry["library_call"] = ("scaled_dot_product_attention forward at float32, TF32 "
+                                     f"off, no P ({row['library_backend']})")
+            entry.update(p_max_abs_err=summary[key]["p_err"],
+                         two_pass_max_abs_err=summary[key]["two_pass_err"],
+                         two_pass_host_us=summary["f32_host_us"]["two_pass"])
         if name.startswith("attention_bwd"):
             entry["host_us"] = summary["bwd_host_us"][counter[len("bwd_"):]]
-        if name.endswith("one_pass") or name in ("attention_fwd", "attention_bwd"):
+        if name.endswith(("one_pass", "tf32x3")) or name in ("attention_fwd", "attention_bwd"):
             entry["two_pass_ms"] = row["two_pass_ms"]
         if name == "group_assign_st":
             mae = summary["grouping_st_mae"]

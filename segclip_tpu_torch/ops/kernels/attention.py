@@ -8,22 +8,27 @@ What bounds them on the H100 and what their design does about it is in the
 headers of the CUDA sources: at bfloat16 the kernels run their products on
 tensor cores and are bound by the bytes of Q, K, V, dO and the saved P;
 they read the q|k|v column views of the packed projection in place (a row
-stride per operand), with no head transpose and no copy. At float32 they run
-fp32 FMAs (the parity path, no TF32).
+stride per operand), with no head transpose and no copy. The float32
+forward runs fp32-accurate split products on TF32 tensor cores
+(`csrc/attention_fwd_tf32x3.cu`: three TF32 products per fp32 product, as
+PyTorch's float32 SDPA computes them); the float32 backward and float32
+rows past TF32X3_LIMIT keys run fp32 FMAs (no TF32).
 
-The forward has three kernels, and `fwd_route` picks one by dtype and Lk
+The forward has four kernels, and `fwd_route` picks one by dtype and Lk
 alone: bfloat16 rows of at most ONE_PASS_LIMIT keys (every row of the B = 96
 step and of the 224×224 request) go to the one-pass kernel (TMA copies,
 `wgmma`, whole score rows on chip); bf16 rows of up to CLUSTER_LIMIT keys
 (448 px's 784 and 792, ViT-L/14's cross 264, a 224×336 request's 294) to
 the cluster kernel (one thread-block cluster per (batch, head), each block
 one slab of keys, the row statistics and O summed through distributed
-shared memory); longer bf16 rows and every float32 call to the two-pass
+shared memory); float32 rows of up to TF32X3_LIMIT keys (every float32 row
+of the model: float32 eval, the float32 step, the drift replay) to the
+TF32x3 kernel ("tf32x3"); longer rows of either dtype to the two-pass
 kernel. Nothing falls back: a launch that fails raises.
 `attention.launches` counts every forward launch, and
-`attention_fwd_one_pass.launches`, `attention_fwd_cluster.launches` and
-`attention_fwd_two_pass.launches` each route's; those three functions
-launch their kernel directly.
+`attention_fwd_one_pass.launches`, `attention_fwd_cluster.launches`,
+`attention_fwd_tf32x3.launches` and `attention_fwd_two_pass.launches` each
+route's; those four functions launch their kernel directly.
 
 The backward has three kernels too, and `bwd_route` picks one by dtype and
 Lk alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward
@@ -68,6 +73,9 @@ BWD_ONE_PASS_LIMIT = 256
 # which the library reports (`cluster_limit`, `bwd_cluster_limit`).
 CLUSTER_LIMIT = 1024
 BWD_CLUSTER_LIMIT = 1024
+# The longest float32 rows the TF32x3 forward takes: TF32X3_LIMIT of
+# csrc/attention_fwd_tf32x3.cu, which the library reports (`tf32x3_limit`).
+TF32X3_LIMIT = 1024
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -199,6 +207,25 @@ def cluster_limit() -> int:
     return fn()
 
 
+@lru_cache(maxsize=None)
+def _tf32x3_entry():
+    fn = build.load().segclip_attention_fwd_tf32x3
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def tf32x3_limit() -> int:
+    """The longest Lk the float32 TF32x3 kernel takes, as the library
+    reports it (`segclip_attention_fwd_tf32x3_limit`); TF32X3_LIMIT mirrors
+    it."""
+    fn = build.load().segclip_attention_fwd_tf32x3_limit
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def _routes3(dtype, lk, limit, cluster) -> str:
     if dtype != torch.bfloat16 or lk > cluster:
         return "two_pass"
@@ -206,11 +233,13 @@ def _routes3(dtype, lk, limit, cluster) -> str:
 
 
 def fwd_route(dtype: torch.dtype, lk: int, limit: int = ONE_PASS_LIMIT,
-              cluster: int = CLUSTER_LIMIT) -> str:
+              cluster: int = CLUSTER_LIMIT, tf32x3: int = TF32X3_LIMIT) -> str:
     """Which forward kernel takes a call on the card, by its dtype and Lk
     alone: "one_pass" for bfloat16 rows of at most `limit` keys, "cluster"
-    for bf16 rows of up to `cluster` keys, else "two_pass" (longer bf16
-    rows and every float32 call)."""
+    for bf16 rows of up to `cluster` keys, "tf32x3" for float32 rows of up
+    to `tf32x3` keys, else "two_pass" (longer rows of either dtype)."""
+    if dtype == torch.float32:
+        return "tf32x3" if lk <= tf32x3 else "two_pass"
     return _routes3(dtype, lk, limit, cluster)
 
 
@@ -336,9 +365,9 @@ def _unit_last_stride(*tensors) -> None:
 
 
 def _aligned16(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels' 16-byte copies (`cp.async`) can read `t`:
-    a unit last stride, and its base and the strides of every dim longer
-    than 1 multiples of 16 bytes."""
+    """Whether the bf16 and TF32x3 kernels' 16-byte copies (`cp.async`, TMA)
+    can read `t`: a unit last stride, and its base and the strides of every
+    dim longer than 1 multiples of 16 bytes."""
     size = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st * size % 16 == 0
@@ -347,8 +376,10 @@ def _aligned16(t: torch.Tensor) -> bool:
 
 def _check_aligned(*tensors) -> None:
     if any(not _aligned16(t) for t in tensors):
-        raise ValueError("bfloat16 q, k, v need 16-byte aligned bases and row "
-                         "and batch strides (multiples of 8 elements)")
+        dtype = tensors[0].dtype
+        raise ValueError(f"{str(dtype)[6:]} q, k, v need 16-byte aligned bases and row "
+                         f"and batch strides (multiples of {16 // tensors[0].element_size()} "
+                         "elements)")
 
 
 def _round8(n: int) -> int:
@@ -381,13 +412,14 @@ def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
     """One launch of a forward kernel on CUDA tensors (checked): "one_pass"
     (`segclip_attention_fwd_one_pass`, bf16, Lk ≤ the limit), "cluster"
     (`segclip_attention_fwd_cluster`, bf16, the limit < Lk ≤ the cluster
+    limit), "tf32x3" (`segclip_attention_fwd_tf32x3`, float32, Lk ≤ its
     limit) or "two_pass" (`segclip_attention_fwd`). Returns (out, P or
     None). The training step
     is host-bound, so the stream comes as a raw handle and the device is
     switched only when the tensors are not on the current one."""
     device = q.device
     _unit_last_stride(q, k, v)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 or route == "tf32x3":
         _check_aligned(q, k, v)
     bias2d = None if bias2d is None else bias2d.contiguous()
     biasb = None if biasb is None else biasb.contiguous()
@@ -405,6 +437,11 @@ def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
                              f"to {cluster_limit()} keys, got {q.dtype}, Lk = {lk}")
         cluster_shape("fwd", lk, b * heads, device.index)
         entry, dtype = _cluster_entry(), ()
+    elif route == "tf32x3":
+        if q.dtype != torch.float32 or lk > tf32x3_limit():
+            raise ValueError(f"the TF32x3 kernel takes float32 rows of at most "
+                             f"{tf32x3_limit()} keys, got {q.dtype}, Lk = {lk}")
+        entry, dtype = _tf32x3_entry(), ()
     else:
         entry, dtype = _fwd_entry(), (_DTYPES[q.dtype],)
     out = torch.empty((b, lq, dm), dtype=v.dtype, device=device)
@@ -460,6 +497,17 @@ def attention_fwd_cluster(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fwd_route_call("cluster", q, k, v, bias2d, biasb, scale, save_p)
 
 
+def attention_fwd_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias2d: Optional[torch.Tensor] = None,
+                         biasb: Optional[torch.Tensor] = None,
+                         scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The float32 TF32x3 forward kernel alone (Lk ≤ its limit; it raises
+    on anything else), as `attention_fwd` returns; the plain version on the
+    CPU. `attention_fwd` routes to it; chip_smoke.py times it directly."""
+    return _fwd_route_call("tf32x3", q, k, v, bias2d, biasb, scale, save_p)
+
+
 def attention_fwd_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias2d: Optional[torch.Tensor] = None,
                            biasb: Optional[torch.Tensor] = None,
@@ -472,7 +520,7 @@ def attention_fwd_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _ROUTES = {"one_pass": attention_fwd_one_pass, "cluster": attention_fwd_cluster,
-           "two_pass": attention_fwd_two_pass}
+           "tf32x3": attention_fwd_tf32x3, "two_pass": attention_fwd_two_pass}
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -491,8 +539,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, p = attention_fwd_plain(q, k, v, bias2d, biasb, scale)
         return out, (p if save_p else None)
     bf16 = q.dtype == torch.bfloat16
-    route = fwd_route(q.dtype, k.shape[1], one_pass_limit() if bf16 else ONE_PASS_LIMIT,
-                      cluster_limit() if bf16 else CLUSTER_LIMIT)
+    route = (fwd_route(q.dtype, k.shape[1], one_pass_limit(), cluster_limit()) if bf16
+             else fwd_route(q.dtype, k.shape[1], tf32x3=tf32x3_limit()))
     out, p = _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p)
     _ROUTES[route].launches += 1
     attention.launches += 1
@@ -668,6 +716,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention.launches = 0          # forward kernel launches, every route
 attention_fwd_one_pass.launches = 0     # forward launches of the one-pass kernel
 attention_fwd_cluster.launches = 0      # forward launches of the cluster kernel
+attention_fwd_tf32x3.launches = 0       # forward launches of the float32 TF32x3 kernel
 attention_fwd_two_pass.launches = 0     # forward launches of the two-pass kernels
 attention_bwd.launches = 0      # backward kernel launches, every route
 attention_bwd_one_pass.launches = 0     # backward launches of the one-pass kernel

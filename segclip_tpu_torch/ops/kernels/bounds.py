@@ -4,8 +4,12 @@ over the memory rate, or its operations over the peak rate of their type,
 whichever is larger.
 
 Rates are NVIDIA's published dense peaks at the full 700 W power limit:
-3.35 TB/s of HBM3, 989 TFLOP/s for bf16 products on tensor cores, 67
-TFLOP/s for float32 outside them (the float32 kernels run without TF32).
+3.35 TB/s of HBM3, 989 TFLOP/s for bf16 products on tensor cores, and for
+float32 495 / 3 = 165 TFLOP/s: an fp32-accurate product on the tensor cores
+takes three TF32 products (hi·hi + hi·lo + lo·hi, as PyTorch's float32
+scaled_dot_product_attention and the TF32x3 attention forward compute it)
+at 495 TFLOP/s dense TF32. That is the least time the card needs for
+float32 work; a kernel on fp32 FMAs (67 TFLOP/s) sits further from it.
 `chip_smoke.py` puts these bounds beside the measured times; a card set
 below 700 W cannot reach them.
 
@@ -21,7 +25,7 @@ from typing import Tuple
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 HEAD_DIM = 64
 
 

@@ -1031,3 +1031,144 @@ def test_bf16_cluster_reads_views_in_place_and_repeats_bit_for_bit(cuda):
         attention_bwd_cluster(torch.zeros(2, 1, 300, 300, device=cuda, dtype=torch.bfloat16),
                               torch.zeros(2, 300, 64, device=cuda, dtype=torch.bfloat16),
                               x[..., 1:65], x[..., 65:129], x[..., 129:193])
+
+
+# The float32 TF32x3 forward (csrc/attention_fwd_tf32x3.cu,
+# attention_fwd_tf32x3_kernel: one block per 64-row query tile of one (batch,
+# head), fp32-accurate split products on TF32 wgmma, TMA copies): every
+# float32 row of up to TF32X3_LIMIT keys, held to the plain version within the
+# float32 tolerances (2e-5, P 1e-5). The lengths meet every edge of its
+# 64-row tiles, 64-key pieces and 8-key steps, its whole-row (≤ 256 keys) and
+# chunked (257-1024) paths, and the path's rows (196, 204, 294, 302, 784).
+TF32_LENGTHS = (1, 3, 7, 8, 9, 63, 64, 65, 196, 204, 256, 257, 294, 302, 784, 1024)
+
+
+def _f32_case(cuda, b, lq, lk, h, bias=None, seed=0, cross=False):
+    """Column views of a packed projection: q|k|v for self attention, q and
+    a packed k|v for cross attention; the causal mask (−inf) or padding."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    d = h * 64
+    if cross or lq != lk:
+        q = torch.randn(b, lq, d, generator=gen, device=cuda)
+        kv = torch.randn(b, lk, 2 * d, generator=gen, device=cuda)
+        k, v = kv[..., :d], kv[..., d:]
+    else:
+        qkv = torch.randn(b, lq, 3 * d, generator=gen, device=cuda)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    bias2d = biasb = None
+    if bias == "causal":
+        bias2d = torch.full((lq, lk), float("-inf"), device=cuda).triu(1)
+    elif bias == "padding":
+        lens = torch.randint(1, lk + 1, (b, 1), generator=gen, device=cuda)
+        biasb = (torch.arange(lk, device=cuda)[None] >= lens).float() * -1e6
+    return q, k, v, bias2d, biasb
+
+
+def _tf32x3_matches_plain(cuda, q, k, v, bias2d=None, biasb=None):
+    """One call with P and one without: O and P within the float32
+    tolerances of the plain version, O the same bits both ways, P's columns
+    [Lk, Lk8) zeros. Returns (out, P)."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_fwd_tf32x3
+    before = attention_fwd_tf32x3.launches
+    out, p = attention_fwd_tf32x3(q, k, v, bias2d, biasb, save_p=True)
+    bare, none = attention_fwd_tf32x3(q, k, v, bias2d, biasb)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    torch.cuda.synchronize()
+    assert attention_fwd_tf32x3.launches == before + 2 and none is None
+    assert out.dtype == torch.float32 and out.shape == ref.shape and out.is_contiguous()
+    assert (out - ref).abs().max().item() <= ATTN_TOL[torch.float32]
+    assert (p - p_ref).abs().max().item() <= 1e-5
+    assert torch.equal(out, bare)
+    lk = k.shape[1]
+    lk8 = (lk + 7) // 8 * 8
+    full = p.as_strided((*p.shape[:3], lk8), p.stride())
+    assert torch.equal(full[..., lk:], torch.zeros_like(full[..., lk:]))
+    return out, p
+
+
+@pytest.mark.parametrize("h", [1, 4, 6, 12, 16])
+@pytest.mark.parametrize("l", TF32_LENGTHS)
+def test_tf32x3_self_attention_matches_plain(cuda, l, h):
+    _tf32x3_matches_plain(cuda, *_f32_case(cuda, 2, l, l, h, seed=l * 100 + h)[:3])
+
+
+@pytest.mark.parametrize("lk", TF32_LENGTHS)
+@pytest.mark.parametrize("lq", TF32_LENGTHS)
+def test_tf32x3_cross_lengths_match_plain(cuda, lq, lk):
+    _tf32x3_matches_plain(cuda, *_f32_case(cuda, 2, lq, lk, 2, seed=lq * 2000 + lk,
+                                           cross=True)[:3])
+
+
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+@pytest.mark.parametrize("b, l, h", [(4, 77, 8), (96, 32, 8), (2, 196, 12), (2, 300, 2)])
+def test_tf32x3_biases_match_plain(cuda, bias, b, l, h):
+    _tf32x3_matches_plain(cuda, *_f32_case(cuda, b, l, l, h, bias, seed=l))
+
+
+@pytest.mark.parametrize("lk", [70, 700])
+def test_tf32x3_fully_masked_row_is_nan_like_the_plain_version(cuda, lk):
+    from segclip_tpu_torch.ops.kernels.attention import attention_fwd_tf32x3
+    q, k, v, _, _ = _f32_case(cuda, 1, 70, lk, 1, seed=lk, cross=True)
+    bias2d = torch.zeros(70, lk, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    out, p = attention_fwd_tf32x3(q, k, v, bias2d, save_p=True)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d)
+    assert torch.isnan(out[0, 66]).all() and torch.isnan(ref[0, 66]).all()
+    assert torch.isnan(p[0, 0, 66]).all() and torch.isnan(p_ref[0, 0, 66]).all()
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    assert (out[:, keep] - ref[:, keep]).abs().max().item() <= ATTN_TOL[torch.float32]
+    assert (p[:, :, keep] - p_ref[:, :, keep]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("lq, lk", [(196, 196), (8, 204), (294, 294), (8, 302)])
+def test_tf32x3_rows_do_not_depend_on_the_batch(cuda, lq, lk):
+    """Each (batch, head) row of a batch of 8 is the same bits as the row of
+    that element alone (the float32 batched-decode contract), and two calls
+    give the same bits."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_fwd_tf32x3
+    q, k, v, _, _ = _f32_case(cuda, 8, lq, lk, 12, seed=lk, cross=lq != lk)
+    out, p = attention_fwd_tf32x3(q, k, v, save_p=True)
+    again = attention_fwd_tf32x3(q, k, v, save_p=True)
+    assert torch.equal(out, again[0]) and torch.equal(p, again[1])
+    for i in range(8):
+        one, p_one = attention_fwd_tf32x3(q[i:i + 1], k[i:i + 1], v[i:i + 1], save_p=True)
+        assert torch.equal(one, out[i:i + 1]) and torch.equal(p_one, p[i:i + 1])
+
+
+def test_tf32x3_reads_packed_views_in_place_and_refuses_misaligned_operands(cuda):
+    """q|k|v column views of a packed projection give the bits of contiguous
+    copies (read by their row strides, no copy); the two-pass float32
+    backward reads the padded P as it is; misaligned operands are refused."""
+    from segclip_tpu_torch.ops.kernels.attention import _kernel_p, attention_fwd_tf32x3
+    q, k, v, _, _ = _f32_case(cuda, 4, 196, 196, 12, seed=3)
+    assert q.stride(1) == 3 * q.shape[-1]
+    out, p = attention_fwd_tf32x3(q, k, v, save_p=True)
+    copies = attention_fwd_tf32x3(q.contiguous(), k.contiguous(), v.contiguous(), save_p=True)
+    assert torch.equal(out, copies[0]) and torch.equal(p, copies[1])
+    assert _kernel_p(p) is p and p.stride() == (12 * 196 * 200, 196 * 200, 200, 1)
+    do = torch.randn_like(out)
+    grads = attention_bwd(p, do, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(grads, attention_bwd(p.contiguous(), do, q, k, v)))
+    x = torch.randn(2, 9, 3 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fwd_tf32x3(x[..., 1:65], x[..., 65:129], x[..., 129:193])
+    with pytest.raises(ValueError, match="16-byte"):
+        attention(x[..., 1:65], x[..., 65:129], x[..., 129:193])
+
+
+@pytest.mark.parametrize("lk", [1024, 1025])
+def test_float32_forward_route_at_the_limit(cuda, lk):
+    """`attention_fwd` sends float32 rows of up to TF32X3_LIMIT keys to the
+    TF32x3 kernel and longer ones to the SIMT two-pass kernel."""
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_tf32x3,
+                                                         attention_fwd_two_pass, tf32x3_limit)
+    assert tf32x3_limit() == 1024
+    q, k, v, _, _ = _f32_case(cuda, 1, 40, lk, 2, seed=lk, cross=True)
+    routes = (attention_fwd_tf32x3.launches, attention_fwd_two_pass.launches)
+    out, p = attention_fwd(q, k, v, save_p=True)
+    moved = (attention_fwd_tf32x3.launches - routes[0], attention_fwd_two_pass.launches - routes[1])
+    assert moved == ((1, 0) if lk <= 1024 else (0, 1))
+    ref, p_ref = attention_fwd_plain(q, k, v)
+    assert (out - ref).abs().max().item() <= ATTN_TOL[torch.float32]
+    assert (p - p_ref).abs().max().item() <= 1e-5

@@ -514,7 +514,9 @@ def test_kernel_bounds_at_the_training_shape():
     """bounds.py reproduces the byte and FLOP counts of the 96×196, H = 12
     bf16 attention: forward with P 204.1 MB / 11.3 GFLOP (0.0609 ms at
     3.35 TB/s), backward 290.8 MB / 22.7 GFLOP (0.0868 ms), both bound by
-    bytes; fp32 work at 67 TFLOP/s."""
+    bytes; fp32 work at 495 / 3 TFLOP/s (three TF32 products per
+    fp32-accurate product), so the float32 forward with P, 408.2 MB / 11.3
+    GFLOP, is bound by bytes at 0.1219 ms."""
     from segclip_tpu_torch.ops.kernels import bounds
     nbytes, flops = bounds.attention_fwd_work(96, 196, 196, 12, torch.bfloat16, save_p=True)
     assert round(nbytes / 1e6, 1) == 204.1 and round(flops / 1e9, 1) == 11.3
@@ -528,7 +530,11 @@ def test_kernel_bounds_at_the_training_shape():
     assert eval_bytes == 2 * 768 * 4 * 2 * 196
     gb, gf = bounds.group_assign_work(96, 8, 196, 768, torch.bfloat16, training=True)
     assert gb == 2 * (2 * 96 * 8 * 768 + 2 * 96 * 196 * 768) + 4 * 4 * 96 * 8 * 196
-    assert bounds.bound_ms(0, 67e9, torch.float32) == (1.0, "operations")
+    assert bounds.bound_ms(0, 165e9, torch.float32) == (1.0, "operations")
+    nbytes, flops = bounds.attention_fwd_work(96, 196, 196, 12, torch.float32, save_p=True)
+    assert round(nbytes / 1e6, 1) == 408.2 and round(flops / 1e9, 1) == 11.3
+    ms, by = bounds.bound_ms(nbytes, flops, torch.float32)
+    assert by == "bytes" and round(ms, 4) == 0.1219
 
 
 # Kernel names as torch.profiler reports them on the card: PyTorch's own
@@ -596,8 +602,10 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     56, 32) and of the 224×224 request (196, 204, 8, and the text bank's 77)
     goes to the one-pass kernel, as do ViT-L/14's 256 and ViT-B/32's 49 and
     57; the longer rows up to CLUSTER_LIMIT (ViT-L/14's cross 264, a 224×336
-    image's 294, 448 px's 784 and 792, 257) to the cluster kernel; rows past
-    CLUSTER_LIMIT and every float32 call to the two-pass kernel."""
+    image's 294, 448 px's 784 and 792, 257) to the cluster kernel; bf16 rows
+    past CLUSTER_LIMIT (a 448×672 image's 1176 and 1184) to the two-pass
+    kernel; every float32 row of the path (up to TF32X3_LIMIT) to the TF32x3
+    kernel, longer float32 rows to the two-pass kernel."""
     from segclip_tpu_torch.config import ModelConfig
     from segclip_tpu_torch.ops.kernels.attention import (CLUSTER_LIMIT, ONE_PASS_LIMIT,
                                                          fwd_route)
@@ -605,7 +613,7 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     step = smoke.step_shapes("train", ModelConfig(), 96)[0]
     assert sorted({c[3] for c in step}) == [8, 32, 48, 56, 196, 204]
     request = {c[3] for c in smoke.ATTN_CASES if c[1] <= 2 and "294" not in c[0]
-               and "b32" not in c[0]} | {ModelConfig().context_length}
+               and "1176" not in c[0] and "b32" not in c[0]} | {ModelConfig().context_length}
     assert request == {8, 77, 196, 204}
     b32 = {c[3] for c in smoke.step_shapes("b32", smoke.b32_config(), 96)[0]}
     l14 = {c[3] for c in smoke.step_shapes("l14", smoke.large_config("l14", False), 32)[0]}
@@ -615,9 +623,11 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
         assert fwd_route(torch.bfloat16, lk) == "one_pass", lk
     for lk in (264, 294, 784, 792, 257, ONE_PASS_LIMIT + 1, CLUSTER_LIMIT):
         assert fwd_route(torch.bfloat16, lk) == "cluster", lk
-    for lk in (CLUSTER_LIMIT + 1, 2 * CLUSTER_LIMIT):
+    for lk in (CLUSTER_LIMIT + 1, 2 * CLUSTER_LIMIT, 1176, 1184):
         assert fwd_route(torch.bfloat16, lk) == "two_pass", lk
-    for lk in (8, 196, 256, 264, 784, CLUSTER_LIMIT, CLUSTER_LIMIT + 1):
+    for lk in (8, 196, 256, 264, 784, CLUSTER_LIMIT):
+        assert fwd_route(torch.float32, lk) == "tf32x3", lk
+    for lk in (CLUSTER_LIMIT + 1, 1176):
         assert fwd_route(torch.float32, lk) == "two_pass", lk
 
 
@@ -653,22 +663,25 @@ def test_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
     assert '#include "hopper.cuh"' in text
 
 
-@pytest.mark.parametrize("route", ["one_pass", "cluster", "two_pass"])
+@pytest.mark.parametrize("route", ["one_pass", "cluster", "tf32x3", "two_pass"])
 def test_forward_routes_take_the_plain_version_on_the_cpu(route):
     """Each route's function, given CPU tensors, returns the plain version's
     output and P and launches nothing (no counter moves); the cluster
-    function at rows past the one-pass limit, where it runs on the card."""
+    function at rows past the one-pass limit, where it runs on the card, and
+    the TF32x3 function at float32."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     rng = np.random.default_rng(5)
     lk = 300 if route == "cluster" else 9
-    qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
+    qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32))
+    qkv = qkv if route == "tf32x3" else qkv.to(torch.bfloat16)
     q, k, v = qkv[:, :9, :128], qkv[..., 128:256], qkv[..., 256:]
     fn = {"one_pass": kattn.attention_fwd_one_pass, "cluster": kattn.attention_fwd_cluster,
-          "two_pass": kattn.attention_fwd_two_pass}[route]
+          "tf32x3": kattn.attention_fwd_tf32x3, "two_pass": kattn.attention_fwd_two_pass}[route]
 
     def counts():
         return (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
-                kattn.attention_fwd_cluster.launches, kattn.attention_fwd_two_pass.launches)
+                kattn.attention_fwd_cluster.launches, kattn.attention_fwd_tf32x3.launches,
+                kattn.attention_fwd_two_pass.launches)
     before = counts()
     out, p = fn(q, k, v, save_p=True)
     ref, p_ref = kattn.attention_fwd_plain(q, k, v)
