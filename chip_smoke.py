@@ -25,9 +25,11 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      inputs and held to the same rules; every float32 forward of up to 1024
      keys on the TF32x3 kernel (fp32-accurate split products on TF32
      wgmma), and at F32_TIMED's shapes PR 1's SIMT two-pass kernel beside
-     it; each call's route read from the route counters; the host time per
-     forward and per backward call (enqueue only) of each route; and the
-     repaired fault: on
+     it; every float32 backward of up to 256 keys on the TF32x3 backward
+     (a cluster per (batch, head) over 64-key slabs), and at F32_TIMED's
+     training shapes the SIMT pair beside it; each call's route read
+     from the route counters; the host time per forward and per backward
+     call (enqueue only) of each route; and the repaired fault: on
      CUDA, the outputs of `attention` and `group_assign` require grad when
      their inputs do;
   2. the eval slice: ViT-B/16 at the default ModelConfig (bfloat16) from a
@@ -114,8 +116,9 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      step with remat on the card against phase 5's CPU step; B = 256 both
      ways and B = 512 with remat (under the card's memory; B = 512 without
      remat estimated, not run); ViT-L/14 at B = 32 both ways and ViT-B/16
-     at 448 px, B = 24 (finite losses that fall); each step's kernel shapes
-     among phase 1's; run M's recipe (scripts/runM_batch192.sh, B = 192,
+     at 448 px, B = 24 (finite losses that fall); one float32 ViT-L/14 step
+     at B = 2, whose cross blocks (264 keys) take the SIMT pair backward;
+     each step's kernel shapes among phase 1's; run M's recipe (scripts/runM_batch192.sh, B = 192,
      remat) through cli.train in two --do-resume calls of one epoch on a
      192-scene corpus (launches, model.pt in the tp = 1 layout evaluating
      to the logged mIoU); and, in phase 9's ranks, the dp1 × tp2 bf16 steps
@@ -149,7 +152,8 @@ kernel names), at the phase-1 shapes, each beside its bound
 cluster kernel (forward or backward) ran, the two-pass kernel's time on the
 same inputs, which must be the longer (the two measured in turns, three
 rounds each, medians compared), and at F32_TIMED's float32 shapes the SIMT
-kernel's beside the TF32x3 kernel's (the longer at F32_GATED's); a kernel time
+kernels' beside the TF32x3 kernels' (the longer at F32_GATED's forwards and
+F32_BWD_GATED's backwards); a kernel time
 under its bound is profiled again and fails the run if it stays there (unless
 the work fits in the L2 cache); a profile of three warm requests,
 of one training step, of one B = 512 step with remat, of one ViT-B/32
@@ -158,16 +162,18 @@ each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the co
 instructions (HMMA, HGMMA) and TMA instructions in each kernel; the bf16
 attention kernels and the bf16 grouping kernel must have tensor-core
 instructions, and every instance of the one-pass and the cluster forward
-and backward and of the float32 TF32x3 forward HGMMA and TMA ones too (the
-TF32x3 instances no ptxas spills). The forward's and the backward's
-launches by route (one-pass, cluster, TF32x3, two-pass) are printed per
-phase of the main path (phases 2-14; phase 9's ranks and phase 10's studies
-report their own); all seven kernels must have launched, the cluster ones
-in phase 2 (the 224×336 request) and phase 12 (448 px, ViT-L/14's cross
-blocks), every float32 forward on the TF32x3 kernel (the two-pass forward
-only on phase 2's bf16 rows past 1024 keys) and every float32 backward on
-the two-pass kernels. The profiles list the port's own kernels (those in
-the `segclip_kernels` namespace) apart from PyTorch's.
+and backward and of the float32 TF32x3 forward and backward HGMMA and TMA
+ones too (the TF32x3 instances no ptxas spills). The forward's and the
+backward's launches by route (one-pass, cluster, TF32x3, two-pass) are
+printed per phase of the main path (phases 2-14; phase 9's ranks and phase
+10's studies report their own); all eight kernels must have launched, the
+cluster ones in phase 2 (the 224×336 request) and phase 12 (448 px,
+ViT-L/14's cross blocks), every float32 forward on the TF32x3 kernel (the
+two-pass forward only on phase 2's bf16 rows past 1024 keys) and every
+float32 backward of at most 256 keys on the TF32x3 backward (the SIMT pair
+only on phase 12's float32 ViT-L/14 cross rows). The profiles list the
+port's own kernels (those in the `segclip_kernels` namespace) apart from
+PyTorch's.
 
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
 10's subprocess: one study with the launch counters read around it.
@@ -191,8 +197,11 @@ forward ("attention_fwd_two_pass", timed in turns beside it) at 448 px's
 "two_pass_ms", "host_us" and "pair_ms", the forward with P plus the
 backward, beside SDPA's forward + backward) at 96x196, the cluster
 backward ("attention_bwd", with "two_pass_ms" and "pair_ms") and the
-two-pass backward ("attention_bwd_two_pass") at 24x784, whose launches
-are counted by route per phase as above; the Gumbel grouping's at
+two-pass backward ("attention_bwd_two_pass") at 24x784, the float32 TF32x3
+backward ("attention_bwd_tf32x3", with "two_pass_ms", the SIMT pair in
+turns beside it, "pair_ms", the TF32x3 forward with P plus the backward,
+beside SDPA's float32 forward + backward, and "host_us") at 96x196, whose
+launches are counted by route per phase as above; the Gumbel grouping's at
 the MAE shape as
 "mae_*"; launches per training step
 and per eval request, and by path: "eval" (phase 2), "train" (phase 4),
@@ -203,7 +212,8 @@ both ranks of its CLI run included), "train_dp" (phase 9, both ranks),
 run, both ranks), "studies" (phase 10, every study), "train_remat" (phase
 12's B = 96 and 256 runs, both ways), "train_b512", "train_l14",
 "train_448" and "train_cli_runM" (phase 12), "eval_b32", "train_b32" and
-"train_cli_b32" (phase 13), "drift" (phase 14)), each kernel's figures at
+"train_cli_b32" (phase 13), "drift" (phase 14); "train_l14_f32", phase 12's
+float32 ViT-L/14 step), each kernel's figures at
 its ViT-B/32 training (or slide eval) shape as "b32_*", and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -234,6 +244,7 @@ VOC_BG_THRESH = 0.80
 ATTN_SRC = "segclip_tpu_torch/csrc/attention_fwd.cu"
 ATTN_BWD_SRC = "segclip_tpu_torch/csrc/attention_bwd.cu"
 ATTN_TF32_SRC = "segclip_tpu_torch/csrc/attention_fwd_tf32x3.cu"
+ATTN_BWD_TF32_SRC = "segclip_tpu_torch/csrc/attention_bwd_tf32x3.cu"
 GROUP_SRC = "segclip_tpu_torch/csrc/group_assign.cu"
 ATTN_TPU = "segclip_tpu/ops/pallas/attention.py:60"
 ATTN_BWD_TPU = "segclip_tpu/ops/pallas/attention.py:96"
@@ -351,6 +362,10 @@ LARGE_CONFIGS = {
     "448": ("ViT-B/16", {"image_resolution": 448}, 24),
 }
 LARGE_PROFILED = ("b512", "l14", "448")
+# Phase 12's float32 ViT-L/14 step (the reference's precision at the large
+# preset): its batch; its cross blocks (8 + 256 keys) are the main path's
+# float32 rows past the TF32x3 backward's limit.
+L14_F32_BATCH = 2
 # Phase 13: ViT-B/32 (CLIP_ARCH_PRESETS: patch 32, a 7 × 7 grid at 224 px),
 # what `cli.train --clip-arch ViT-B/32` trains, from a seeded init at
 # TRAIN_BATCH; phase 1 checks its training shapes and profiles those of its
@@ -428,6 +443,9 @@ F32_TIMED = ("train vision 96x196", "train TP vision 96x196 H6", "train cross 96
              "text 20x77 causal", "vision 1x294 (whole 224x336)",
              "cross 1x8x302 (whole 224x336, 294 patches)", "drift MAE vision")
 F32_GATED = ("train vision 96x196", "train cross 96x8x204", "vision 2x196 (slide, 2 windows)")
+# The float32 backward shapes at which the TF32x3 backward must beat the
+# SIMT pair (F32_TIMED's training shapes time both, in turns).
+F32_BWD_GATED = ("train vision 96x196", "train cross 96x8x204", "train TP vision 96x196 H6")
 PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
 L2_BYTES = 50e6             # the H100's L2 cache
 HOST_ROUNDS = 5             # rounds of host_us per forward route
@@ -598,10 +616,11 @@ def check_route(case, dtype, before: dict, backward: bool = False) -> str:
     counters moved since `before`, which must be the one `fwd_route` (or
     `bwd_route`) names for its dtype and Lk with the library's limit."""
     from segclip_tpu_torch.ops.kernels.attention import (
-        bwd_cluster_limit, bwd_one_pass_limit, bwd_route, cluster_limit, fwd_route,
-        one_pass_limit, tf32x3_limit)
+        bwd_cluster_limit, bwd_one_pass_limit, bwd_route, bwd_tf32x3_limit, cluster_limit,
+        fwd_route, one_pass_limit, tf32x3_limit)
     if backward:
-        route = bwd_route(dtype, case[3], bwd_one_pass_limit(), bwd_cluster_limit())
+        route = bwd_route(dtype, case[3], bwd_one_pass_limit(), bwd_cluster_limit(),
+                          bwd_tf32x3_limit())
         prefix, keys = "bwd_", BWD_ROUTES
     else:
         route = fwd_route(dtype, case[3], one_pass_limit(), cluster_limit(), tf32x3_limit())
@@ -641,11 +660,12 @@ def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 5
 
 
 def bwd_two_pass_beside(case, inputs: tuple, refs, reps: int = 50) -> tuple:
-    """At a bf16 shape the one-pass or the cluster backward takes: the
-    two-pass kernels on the same P, dO, q, k, v, held to the plain version by
-    the same rules (finite, and the >1-ulp share of dQ, dK and dV). Returns
-    its call, a note with its time per call by CUDA events, and its max
-    |err| over dQ, dK and dV."""
+    """At a shape the one-pass, the cluster or the TF32x3 backward takes: the
+    two-pass kernels (the bf16 mma.sync pair, the float32 SIMT pair) on the same
+    P, dO, q, k, v, held to the plain version by the same rules (finite;
+    bf16: the >1-ulp share of dQ, dK and dV; float32: each within
+    BWD_REL_TOL_F32·(1 + max|ref|)). Returns its call, a note with its time
+    per call by CUDA events, and its max |err| over dQ, dK and dV."""
     from segclip_tpu_torch.ops.kernels.attention import attention_bwd_two_pass
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
     fn = functools.partial(attention_bwd_two_pass, *inputs)
@@ -653,10 +673,14 @@ def bwd_two_pass_beside(case, inputs: tuple, refs, reps: int = 50) -> tuple:
     torch.cuda.synchronize()
     check(all(torch.isfinite(g).all().item() for g in grads),
           f"two-pass backward {case[0]}: non-finite")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
+    if grads[0].dtype == torch.float32:
+        rel = [(g - r).abs().max().item() / (1 + r.abs().max().item()) for g, r in zip(grads, refs)]
+        check(max(rel) <= BWD_REL_TOL_F32, f"SIMT backward {case[0]}: rel err {rel}")
+        return fn, (f"; SIMT bwd rel err {max(rel):.2e}, {call_ms(fn, reps=reps):.4f} ms"), err
     shares = [bf16_share(g, r) for g, r in zip(grads, refs)]
     for (sh, _), what in zip(shares, ("dQ", "dK", "dV")):
         check(sh <= ATTN_BF16_SHARE, f"two-pass backward {case[0]} bf16 {what}: share {sh}")
-    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
     return fn, ("; two-pass bwd >1 ulp " + "/".join(f"{sh:.1e}" for sh, _ in shares)
                 + f", {call_ms(fn, reps=reps):.4f} ms"), err
 
@@ -795,7 +819,9 @@ def host_costs(dev, gen, summary) -> None:
     at 448 px's 24×784 through the cluster route's; into summary["host_us"]
     and summary["bwd_host_us"] (the cluster route's under "cluster"); and at
     the B = 96 vision shape in float32, per forward call with P through the
-    TF32x3 and the two-pass route's functions, into summary["f32_host_us"]."""
+    TF32x3 and the two-pass route's functions, into summary["f32_host_us"],
+    and per float32 backward call through the TF32x3 backward's and the SIMT
+    pair's, into summary["f32_bwd_host_us"]."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     shapes = {"one_pass": TRAIN_ATTN_CASES[0],
               "cluster": step_shapes("448", large_config("448", False), LARGE_CONFIGS["448"][2])[0][0]}
@@ -825,16 +851,21 @@ def host_costs(dev, gen, summary) -> None:
                   f"{HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
                       f"{k} {v:.1f} us" for k, v in found.items()))
     q, k, v, b2, bb = attention_inputs(TRAIN_ATTN_CASES[0], torch.float32, dev, gen)
-    calls = {r: functools.partial(getattr(kattn, f"attention_fwd_{r}"), q, k, v, b2, bb,
-                                  save_p=True) for r in ("tf32x3", "two_pass")}
-    times = {name: [] for name in calls}
-    for i in range(HOST_ROUNDS):
-        for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
-            times[name].append(host_us(calls[name]))
-    summary["f32_host_us"] = {name: statistics.median(t) for name, t in times.items()}
-    print(f"  host time per float32 forward call with P at {TRAIN_ATTN_CASES[0][0]} (enqueue "
-          f"only, in turns): " + ", ".join(f"{k} {v:.1f} us"
-                                           for k, v in summary["f32_host_us"].items()))
+    _, p = kattn.attention_fwd(q, k, v, b2, bb, save_p=True)
+    do = torch.randn(q.shape, generator=gen, device=dev)
+    for key, what, fn, args in (
+            ("f32_host_us", "forward call with P", "attention_fwd_{}", (q, k, v, b2, bb)),
+            ("f32_bwd_host_us", "backward call", "attention_bwd_{}", (p, do, q, k, v))):
+        calls = {r: functools.partial(getattr(kattn, fn.format(r)), *args,
+                                      **({"save_p": True} if key == "f32_host_us" else {}))
+                 for r in ("tf32x3", "two_pass")}
+        times = {name: [] for name in calls}
+        for i in range(HOST_ROUNDS):
+            for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+                times[name].append(host_us(calls[name]))
+        summary[key] = {name: statistics.median(t) for name, t in times.items()}
+        print(f"  host time per float32 {what} at {TRAIN_ATTN_CASES[0][0]} (enqueue only, in "
+              f"turns): " + ", ".join(f"{k} {v:.1f} us" for k, v in summary[key].items()))
 
 
 def bf16_share(out, ref) -> tuple:
@@ -857,16 +888,20 @@ def training_kernels(dev, gen, summary, timings) -> None:
     drift = drift_fixture()
     configs = [(name, large_config(name, True), b) for name, (_, _, b) in LARGE_CONFIGS.items()]
     configs += [("b32", b32_config(), TRAIN_BATCH),
-                ("drift", drift["cfg"].model, drift["batch"]["image"].shape[0])]
+                ("drift", drift["cfg"].model, drift["batch"]["image"].shape[0]),
+                ("l14 float32", l14_f32_config(), L14_F32_BATCH)]
     shapes = {name: step_shapes(name, cfg, b) for name, cfg, b in configs}
     for name, (attn, gumbel) in shapes.items():
         large_attn, large_gumbel = large_attn + attn, large_gumbel + gumbel
         if name in LARGE_PROFILED + ("b32",):       # the vision and cross blocks, both paths
             profiled.update(c[0] for c in attn[:2] + gumbel)
     b32_attn, b32_gumbel = shapes["b32"]
+    f32_only = {c[0] for group in shapes["l14 float32"] for c in group}   # runs only in float32
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
         for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES + large_attn:
+            if dtype == torch.bfloat16 and case[0] in f32_only:
+                continue
             reps = LARGE_REPS if case in large_attn else 50
             q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
             routes = read_routes()
@@ -906,7 +941,7 @@ def training_kernels(dev, gen, summary, timings) -> None:
             if route != "two_pass" and (dtype == torch.bfloat16 or f32_timed(case[0])):
                 two_pass, two_note, two_err = two_pass_beside(case, (q, k, v, b2, bb), True, ref,
                                                               p_ref, reps)
-            if bwd_route != "two_pass":
+            if bwd_route != "two_pass" and (dtype == torch.bfloat16 or f32_timed(case[0])):
                 bwd_two, bwd_note, bwd_two_err = bwd_two_pass_beside(case, (p, do, q, k, v),
                                                                      grads_ref, reps)
             print(f"  attention {case[0]:34s} {dname:8s} fwd ({route}) err {out_err:.3e}, P err "
@@ -942,8 +977,13 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                                         timing=len(timings) - 1)
             timings.append(dict(
                 name=f"attention bwd {case[0]} {dname}", kernel=bwd, plain=bwd_plain,
-                two_pass=bwd_two, work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
+                two_pass=bwd_two, gate=dtype == torch.bfloat16 or case[0] in F32_BWD_GATED,
+                work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
                 library=sdpa_library(q, k, v, b2, bb, do), pair=len(timings) - 1))
+            if case is TRAIN_ATTN_CASES[0] and dtype == torch.float32:
+                summary["attention_bwd_tf32x3"] = dict(
+                    max_abs_err=max((g - r).abs().max().item() for g, r in zip(grads, grads_ref)),
+                    rel_err=max(rel), two_pass_err=bwd_two_err, timing=len(timings) - 1)
             keys = {TRAIN_ATTN_CASES[0]: "attention_bwd_one_pass", b32_attn[0]: "b32_attention_bwd",
                     shapes["448"][0][0]: "attention_bwd_cluster"}   # Lk 784: cluster
             if dtype == torch.bfloat16 and case in keys:
@@ -952,6 +992,8 @@ def training_kernels(dev, gen, summary, timings) -> None:
                                            two_pass_err=bwd_two_err, timing=len(timings) - 1)
 
         for name, n, g, l, d in GROUP_ST_CASES + large_gumbel:
+            if dtype == torch.bfloat16 and name in f32_only:
+                continue
             reps = LARGE_REPS if name in {c[0] for c in large_gumbel} else 50
             q = torch.randn(n, g, d, generator=gen, device=dev).to(dtype)
             k = torch.randn(n, l, d, generator=gen, device=dev).to(dtype)
@@ -1044,11 +1086,12 @@ def reset_counters() -> None:
 
 
 ROUTES = ("one_pass", "cluster", "tf32x3", "two_pass")
-BWD_ROUTES = ("one_pass", "cluster", "two_pass")
+BWD_ROUTES = ("one_pass", "cluster", "tf32x3", "two_pass")
 ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "cluster": "attention_fwd_cluster",
                    "tf32x3": "attention_fwd_tf32x3", "two_pass": "attention_fwd_two_pass",
                    "bwd_one_pass": "attention_bwd_one_pass",
                    "bwd_cluster": "attention_bwd_cluster",
+                   "bwd_tf32x3": "attention_bwd_tf32x3",
                    "bwd_two_pass": "attention_bwd_two_pass"}
 
 
@@ -1063,7 +1106,7 @@ def reset_routes() -> None:
 def read_routes() -> dict:
     """Launches by route in this process: forward {"one_pass", "cluster",
     "tf32x3", "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
-    "bwd_two_pass"}."""
+    "bwd_tf32x3", "bwd_two_pass"}."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     return {key: getattr(kattn, fn).launches for key, fn in ROUTE_FUNCTIONS.items()}
 
@@ -1215,6 +1258,11 @@ def b32_config():
     return model_config_for(B32_ARCH)
 
 
+def l14_f32_config():
+    """Phase 12's ViT-L/14 at float32 (the reference's precision), no remat."""
+    return dataclasses.replace(large_config("l14", False), compute_dtype="float32")
+
+
 def drift_fixture(path: str = DRIFT_FIXTURE) -> dict:
     """The recorded trajectory: "cfg" (the port's Config of the JAX run),
     "t_total", "seed", "sd" (the JAX init in the reference layout), "batch",
@@ -1336,7 +1384,7 @@ def phase_train(dev) -> tuple:
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
         check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "tf32x3": 0,
                          "two_pass": 0, "bwd_one_pass": expected["attention_bwd"],
-                         "bwd_cluster": 0, "bwd_two_pass": 0},
+                         "bwd_cluster": 0, "bwd_tf32x3": 0, "bwd_two_pass": 0},
               f"step {i}: launches by route {routes}, expected every one of the "
               f"{expected['attention_fwd']} forwards and {expected['attention_bwd']} backwards "
               "on the one-pass kernels")
@@ -1828,8 +1876,8 @@ def tensor_core_counts(library) -> dict:
     (UTMALDG, UTMASTG, UBLKCP) instructions in each kernel's SASS, printed;
     the bf16 attention kernels and the bf16 grouping kernel's 16-byte path
     must have tensor-core instructions, and every instance of the one-pass
-    and the cluster kernels, forward and backward, and of the float32 TF32x3
-    forward HGMMA and TMA ones.
+    and the cluster kernels and of the float32 TF32x3 kernels, forward and
+    backward, HGMMA and TMA ones.
     Returns the tensor-core instructions of each kernel of the kernels JSON
     line, by its name there (empty without cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1862,7 +1910,8 @@ def tensor_core_counts(library) -> dict:
                               ("attention_bwd_one_pass_kernel", 4),
                               ("attention_fwd_cluster_kernel", 3),
                               ("attention_bwd_cluster_kernel", 1),
-                              ("attention_fwd_tf32x3_kernel", 4)):
+                              ("attention_fwd_tf32x3_kernel", 4),
+                              ("attention_bwd_tf32x3_kernel", 1)):
         hopper[prefix] = [k for k in counts if k.startswith(prefix)]
         check(len(hopper[prefix]) == instances, f"{prefix} instances in the SASS: {hopper[prefix]}")
         for kernel in hopper[prefix]:
@@ -1874,6 +1923,7 @@ def tensor_core_counts(library) -> dict:
                 counts[k] for k in hopper["attention_fwd_one_pass_kernel"]),
             "attention_fwd_tf32x3": sum(counts[k] for k in hopper["attention_fwd_tf32x3_kernel"]),
             "attention_bwd": sum(counts[k] for k in hopper["attention_bwd_cluster_kernel"]),
+            "attention_bwd_tf32x3": sum(counts[k] for k in hopper["attention_bwd_tf32x3_kernel"]),
             "attention_bwd_two_pass": counts["attention_bwd_dq_bf16_kernel"]
             + counts["attention_bwd_dkv_bf16_kernel"],
             "attention_bwd_one_pass": sum(
@@ -3039,8 +3089,9 @@ class ShapeProbe:
 
 
 def train_run(dev, name: str, mcfg, b: int, steps: int, keep: bool = False) -> dict:
-    """1 + `steps` bf16 steps of `make_train_step` (phase 4's optimizer
-    settings) at `mcfg` on phase 4's synthetic batch at size b: the losses,
+    """1 + `steps` steps of `make_train_step` (phase 4's optimizer settings)
+    at `mcfg` (bf16, or float32 where it says so) on phase 4's synthetic
+    batch at size b: the losses,
     each step's launches and time, the peak memory (and what earlier phases
     hold), the first step's gradients before the optimizer, and, with
     `keep`, the step itself for the profile. The first step's kernel shapes
@@ -3086,7 +3137,13 @@ def train_run(dev, name: str, mcfg, b: int, steps: int, keep: bool = False) -> d
     check(all(np.isfinite(out["loss"])) and not any(out["skipped"]),
           f"{name}: losses {out['loss']}, skipped {out['skipped']}")
     long_rows = {c[0] for c in step_shapes(name, mcfg, b)[0] if c[3] > 256}
-    if long_rows:         # bf16 rows past the one-pass limit: the cluster kernels, both ways
+    if mcfg.compute_dtype == "float32":   # the TF32x3 kernels; the SIMT pair for rows past 256
+        check(all(r["tf32x3"] > 0 and r["bwd_tf32x3"] > 0 and (r["bwd_two_pass"] > 0)
+                  == bool(long_rows) and r["one_pass"] == r["cluster"] == r["two_pass"]
+                  == r["bwd_one_pass"] == r["bwd_cluster"] == 0 for r in out["routes"]),
+              f"{name}: attention by route per step {out['routes']}; {sorted(long_rows)} "
+              "must take the SIMT pair backward, every other float32 call the TF32x3 kernels")
+    elif long_rows:       # bf16 rows past the one-pass limit: the cluster kernels, both ways
         check(all(r["cluster"] > 0 and r["bwd_cluster"] > 0 and r["two_pass"] == 0
                   and r["bwd_two_pass"] == 0 for r in out["routes"]),
               f"{name}: attention by route per step {out['routes']}; {sorted(long_rows)} "
@@ -3113,8 +3170,11 @@ def phase_remat(dev, smi: str) -> tuple:
     phase 9's ranks print under this phase's name): ViT-B/16 at B = 96 with
     and without remat (gradients before the optimizer compared), at B = 256
     both ways, ViT-L/14 at B = 32 both ways, ViT-B/16 at 448 px, B = 24,
-    and B = 512 with remat, kept for the profile. Returns the launch counts
-    by path and the B = 512 step."""
+    and B = 512 with remat, kept for the profile; and one float32 ViT-L/14
+    step at B = 2 (L14_F32_BATCH), whose cross blocks' 264 keys are past the
+    TF32x3 backward's limit and take the SIMT pair. Returns the launch
+    counts by path, the B = 512 step, the 448 px step and the float32
+    ViT-L/14 step's SIMT backward launches."""
     from segclip_tpu_torch.config import ModelConfig
 
     t_phase = time.perf_counter()
@@ -3190,8 +3250,12 @@ def phase_remat(dev, smi: str) -> tuple:
           f"through the runs without remat at {TRAIN_BATCH} and 256: {own[TRAIN_BATCH]:.0f}, "
           f"{own[256]:.0f}), not run")
     check(b512["peak_mib"] < total, f"B=512 peaks at {b512['peak_mib']} MiB of {total}")
+    f32 = train_run(dev, "l14 float32", l14_f32_config(), L14_F32_BATCH, 1)
+    report_run("ViT-L/14 float32", L14_F32_BATCH, False, f32)
+    add("train_l14_f32", f32)
+    simt = sum(r["bwd_two_pass"] for r in f32["routes"])
     print(f"  phase 12's steps took {time.perf_counter() - t_phase:.1f} s")
-    return counts, b512.pop("step"), large[("448", False)].pop("step")
+    return counts, b512.pop("step"), large[("448", False)].pop("step"), simt
 
 
 def runm_args(data: str, out: str) -> list:
@@ -3537,9 +3601,10 @@ def main() -> int:
     build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
     spilled = print_ptxas(build.build_log())
-    tf32x3 = {k: n for k, n in spilled.items() if k.startswith("attention_fwd_tf32x3_kernel")}
-    check(len(tf32x3) == 4 and not any(tf32x3.values()),
-          f"attention_fwd_tf32x3_kernel instances and their spill bytes: {tf32x3}")
+    tf32x3 = {k: n for k, n in spilled.items()
+              if k.startswith(("attention_fwd_tf32x3_kernel", "attention_bwd_tf32x3_kernel"))}
+    check(len(tf32x3) == 5 and not any(tf32x3.values()),
+          f"the TF32x3 kernels' instances and their spill bytes: {tf32x3}")
     hmma = tensor_core_counts(build.build())
 
     summary, timings = phase_kernels(dev)
@@ -3579,7 +3644,7 @@ def main() -> int:
                                                          "peak_mib": train_peak})
         mark("b32")
     phase_transports(dev, smi, transport_batches)
-    remat_counts, b512_step, px448_step = phase_remat(dev, smi)
+    remat_counts, b512_step, px448_step, l14_f32_simt = phase_remat(dev, smi)
     mark("remat_large")
     runm_counts = phase_runm(smi)
     mark("train_cli_runM")
@@ -3590,19 +3655,29 @@ def main() -> int:
     print("launches by route on the main path, per phase (forward; backward): " + "; ".join(
         f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['tf32x3']} tf32x3 / "
         f"{r['two_pass']} two-pass; {r['bwd_one_pass']} one-pass / {r['bwd_cluster']} cluster "
-        f"/ {r['bwd_two_pass']} two-pass" for path, r in routes.items()))
+        f"/ {r['bwd_tf32x3']} tf32x3 / {r['bwd_two_pass']} two-pass"
+        for path, r in routes.items()))
     for path in ("eval", "remat_large"):      # the 224x336 request; 448 px and ViT-L/14
         check(routes[path]["cluster"] > 0, f"{path}: no forward on the cluster kernel")
     check(routes["remat_large"]["bwd_cluster"] > 0, "remat_large: no backward on the cluster kernel")
-    for path in ("eval_f32", "train_f32", "drift"):   # float32 only: TF32x3 forward, two-pass backward
+    for path in ("eval_f32", "train_f32", "drift"):   # float32 only: the TF32x3 kernels
         r = routes[path]
         check(r["tf32x3"] > 0 and r["two_pass"] == r["one_pass"] == r["cluster"]
-              == r["bwd_one_pass"] == r["bwd_cluster"] == 0
-              and (r["bwd_two_pass"] > 0) == (path != "eval_f32"),
+              == r["bwd_one_pass"] == r["bwd_cluster"] == r["bwd_two_pass"] == 0
+              and (r["bwd_tf32x3"] > 0) == (path != "eval_f32"),
               f"{path} (float32): launches by route {r}")
     for path in ("eval_sharded", "train_dp_tp", "studies", "b32"):     # their float32 parts
         check(routes[path]["tf32x3"] > 0, f"{path}: its float32 forwards did not take the "
               f"TF32x3 kernel: {routes[path]}")
+    for path in ("train_dp_tp", "b32", "remat_large"):   # their float32 steps' backwards
+        check(routes[path]["bwd_tf32x3"] > 0, f"{path}: its float32 backwards did not take "
+              f"the TF32x3 kernel: {routes[path]}")
+    # every float32 backward of phases 2-14 of at most 256 keys on the TF32x3
+    # kernel: the SIMT pair only for phase 12's float32 ViT-L/14 cross rows
+    simt = {path: r["bwd_two_pass"] for path, r in routes.items() if r["bwd_two_pass"]}
+    check(simt == {"remat_large": l14_f32_simt} and l14_f32_simt > 0,
+          f"SIMT pair backwards on the main path: {simt} (expected {l14_f32_simt}, phase 12's "
+          f"float32 ViT-L/14 cross rows of 264 keys, and no other)")
     # every float32 forward of phases 2-14 on the TF32x3 kernel: the two-pass
     # forward only for phase 2's bf16 rows past CLUSTER_LIMIT (448x672 whole)
     elsewhere = {path: r["two_pass"] for path, r in routes.items() if r["two_pass"] and path != "eval"}
@@ -3624,6 +3699,8 @@ def main() -> int:
             ("attention_bwd_one_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_one_pass",
              "bwd_one_pass"),
             ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster", "bwd_cluster"),
+            ("attention_bwd_tf32x3", ATTN_BWD_TF32_SRC, ATTN_BWD_TPU, "attention_bwd_tf32x3",
+             "bwd_tf32x3"),
             ("attention_bwd_two_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster",
              "bwd_two_pass"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
@@ -3675,7 +3752,8 @@ def main() -> int:
                          two_pass_max_abs_err=summary[key]["two_pass_err"],
                          two_pass_host_us=summary["f32_host_us"]["two_pass"])
         if name.startswith("attention_bwd"):
-            entry["host_us"] = summary["bwd_host_us"][counter[len("bwd_"):]]
+            entry["host_us"] = (summary["f32_bwd_host_us"]["tf32x3"] if counter == "bwd_tf32x3"
+                                else summary["bwd_host_us"][counter[len("bwd_"):]])
         if name.endswith(("one_pass", "tf32x3")) or name in ("attention_fwd", "attention_bwd"):
             entry["two_pass_ms"] = row["two_pass_ms"]
         if name == "group_assign_st":
@@ -3691,6 +3769,13 @@ def main() -> int:
             entry["pair_ms"] = row["pair_ms"]
             if name == "attention_bwd_two_pass":   # PR 3's forward + backward, in turns
                 entry["pair_ms"] = rows[t["pair"]]["two_pass_ms"] + row["ms"]
+            if name == "attention_bwd_tf32x3":     # float32: the SIMT pair in turns beside it
+                entry["library_call"] = ("scaled_dot_product_attention forward + backward at "
+                                         f"float32, TF32 off, under autograd "
+                                         f"({row['library_backend']}); compare with pair_ms")
+                entry.update(rel_err=summary[key]["rel_err"],
+                             two_pass_max_abs_err=summary[key]["two_pass_err"],
+                             two_pass_host_us=summary["f32_bwd_host_us"]["two_pass"])
         if not name.startswith(("attention_fwd", "attention_bwd")) or name.endswith("one_pass"):
             # the cluster and two-pass kernels take no ViT-B/32 row
             b32 = summary[{"attention_fwd_train": "b32_attention_fwd",

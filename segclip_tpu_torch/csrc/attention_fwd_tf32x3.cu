@@ -94,8 +94,8 @@ constexpr int WG_THREADS = 128;
 // Two warpgroups, each half of a chunk's pieces; rows of one piece (at most
 // 64 keys) take one warpgroup, and three such blocks share an SM.
 __host__ __device__ constexpr int threads_for(int nc) { return nc > 1 ? 2 * WG_THREADS : WG_THREADS; }
-constexpr int HALF = TILE * 32 * 4;             // 8192: 64 rows of 32 floats, one swizzled tile
-constexpr int PIECE = 2 * HALF;                 // a 64 × 64 fp32 tile
+constexpr int HALF = F32_HALF;                  // 8192: 64 rows of 32 floats, one swizzled tile
+constexpr int PIECE = F32_PIECE;                // a 64 × 64 fp32 tile
 constexpr int K_OFF = 2 * PIECE;                // K piece i at K_OFF + 2i·PIECE: hi, lo
 constexpr int V_STRIDE = 3 * PIECE;             // V piece i at i·V_STRIDE: raw, Vᵀ hi, Vᵀ lo
 static_assert(TF32X3_LIMIT <= 4 * MAX_NC * TILE, "four chunks of MAX_NC pieces");
@@ -127,64 +127,6 @@ __device__ __forceinline__ float qmax(float x) {
 __device__ __forceinline__ float qsum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
-  float4 hi;
-  hi.x = __uint_as_float(tf32_rna(x.x));
-  hi.y = __uint_as_float(tf32_rna(x.y));
-  hi.z = __uint_as_float(tf32_rna(x.z));
-  hi.w = __uint_as_float(tf32_rna(x.w));
-  lo.x = __uint_as_float(tf32_rna(x.x - hi.x));
-  lo.y = __uint_as_float(tf32_rna(x.y - hi.y));
-  lo.z = __uint_as_float(tf32_rna(x.z - hi.z));
-  lo.w = __uint_as_float(tf32_rna(x.w - hi.w));
-  return hi;
-}
-
-// A 64 × 64 tile as it arrived (two swizzled 32-column tiles) overwritten by
-// its hi part, its lo part written at `lo` in the same layout.
-template <int THREADS>
-__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo, int tid) {
-#pragma unroll
-  for (int i = 0; i < PIECE / 16 / THREADS; ++i) {
-    float4* x = reinterpret_cast<float4*>(tile) + i * THREADS + tid;
-    float4 l;
-    *x = split4(*x, l);
-    reinterpret_cast<float4*>(lo)[i * THREADS + tid] = l;
-  }
-}
-
-// A V tile as it arrived (rows the 64 keys; dims in two swizzled 32-column
-// tiles) into Vᵀ hi and lo (rows the 64 dims; the keys in two swizzled
-// 32-column tiles, slot s of each 8 holding key 2s for s < 4 and 2(s − 4) + 1
-// else), by the 128 threads of one warpgroup. Thread t writes dim t % 64 of
-// keys [32·(t / 64), +32); a warp reads
-// 32 dims of one key row and writes 16-byte pieces of 32 rows, both without
-// bank conflicts.
-__device__ __forceinline__ void transpose_split(const uint8_t* raw, uint8_t* hi, uint8_t* lo,
-                                                int tid) {
-  const int n = tid & 63, kh = tid >> 6;
-  const uint8_t* col = raw + (n >> 5) * HALF + (n & 3) * 4;
-  const int nq = (n & 31) >> 2;
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int j = 4 * kh + jj;                  // the 8-key step
-#pragma unroll
-    for (int odd = 0; odd < 2; ++odd) {
-      auto at = [&](int i) {                   // dim n of key 8j + 2i + odd
-        const int key = 8 * j + 2 * i + odd;
-        return *reinterpret_cast<const float*>(col + key * 128 + ((nq ^ (key & 7)) << 4));
-      };
-      const float4 x = make_float4(at(0), at(1), at(2), at(3));
-      float4 l;
-      const float4 h = split4(x, l);
-      const int quad = ((8 * j + 4 * odd) & 31) >> 2;
-      const int off = kh * HALF + n * 128 + ((quad ^ (n & 7)) << 4);
-      *reinterpret_cast<float4*>(hi + off) = h;
-      *reinterpret_cast<float4*>(lo + off) = l;
-    }
-  }
 }
 
 // One block per 64-row query tile of one (batch, head): two warpgroups, each

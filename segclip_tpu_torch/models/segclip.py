@@ -58,7 +58,10 @@ def check_attention_impl(cfg: ModelConfig) -> None:
 def check_kernel_fields(cfg: ModelConfig, log_fn) -> None:
     """What an entry point does with KERNEL_FIELDS: raise for an
     attention_impl the JAX package refuses, and log one line for each field
-    set away from its default, since the route does not follow it."""
+    set away from its default, since the route does not follow it. Also one
+    line for a param_dtype other than "float32": the JAX package accepts the
+    field and never reads it (its parameters are float32 whatever it says),
+    and neither does the port."""
     check_attention_impl(cfg)
     default = ModelConfig()
     for name in KERNEL_FIELDS:
@@ -67,6 +70,9 @@ def check_kernel_fields(cfg: ModelConfig, log_fn) -> None:
             log_fn(f"model.{name}={value} is ignored: the port launches its kernels on "
                    f"CUDA tensors and their plain versions on the CPU, whatever the "
                    f"field says")
+    if cfg.param_dtype != "float32":
+        log_fn(f"model.param_dtype={cfg.param_dtype} is ignored: parameters are stored in "
+               f"float32, as the JAX package stores them whatever the field says")
 
 
 def info_nce_pair(text_feat: torch.Tensor, vis_feat: torch.Tensor,

@@ -1,6 +1,7 @@
 """Attention over (B, L, H·64) operands: the CUDA kernels
-`csrc/attention_fwd.cu` (forward) and `csrc/attention_bwd.cu` (backward),
-their plain PyTorch versions, and the autograd Function that joins them.
+`csrc/attention_fwd.cu`, `csrc/attention_fwd_tf32x3.cu` (forward),
+`csrc/attention_bwd.cu` and `csrc/attention_bwd_tf32x3.cu` (backward), their
+plain PyTorch versions, and the autograd Function that joins them.
 
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 segclip_tpu/ops/pallas/attention.py (`attention_vmem` and its custom VJP).
@@ -9,10 +10,10 @@ headers of the CUDA sources: at bfloat16 the kernels run their products on
 tensor cores and are bound by the bytes of Q, K, V, dO and the saved P;
 they read the q|k|v column views of the packed projection in place (a row
 stride per operand), with no head transpose and no copy. The float32
-forward runs fp32-accurate split products on TF32 tensor cores
-(`csrc/attention_fwd_tf32x3.cu`: three TF32 products per fp32 product, as
-PyTorch's float32 SDPA computes them); the float32 backward and float32
-rows past TF32X3_LIMIT keys run fp32 FMAs (no TF32).
+forward and backward run fp32-accurate split products on TF32 tensor
+cores (`csrc/attention_{fwd,bwd}_tf32x3.cu`: three TF32 products per fp32
+product, as PyTorch's float32 SDPA computes them); float32 rows past their
+limits (TF32X3_LIMIT, BWD_TF32X3_LIMIT keys) run fp32 FMAs (no TF32).
 
 The forward has four kernels, and `fwd_route` picks one by dtype and Lk
 alone: bfloat16 rows of at most ONE_PASS_LIMIT keys (every row of the B = 96
@@ -30,17 +31,20 @@ kernel. Nothing falls back: a launch that fails raises.
 `attention_fwd_tf32x3.launches` and `attention_fwd_two_pass.launches` each
 route's; those four functions launch their kernel directly.
 
-The backward has three kernels too, and `bwd_route` picks one by dtype and
+The backward has four kernels too, and `bwd_route` picks one by dtype and
 Lk alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward
 of the B = 96 and B = 512 steps) go to the one-pass kernel (one block per
 (batch, head), dK and dV summed on chip, TMA copies, `wgmma`); bf16 rows of
 up to BWD_CLUSTER_LIMIT keys to the cluster kernel (the one-pass design
 over a cluster: each block one key slab's dK and dV, D and dQ summed
-through distributed shared memory); longer bf16 rows and every float32
-call to the two-pass kernels. `attention_bwd.launches` counts every
-backward launch, and `attention_bwd_one_pass.launches`,
-`attention_bwd_cluster.launches` and `attention_bwd_two_pass.launches`
-each route's; those three functions launch their kernel directly.
+through distributed shared memory); float32 rows of up to BWD_TF32X3_LIMIT
+keys (every float32 backward of the model: the float32 steps, the drift
+replay) to the TF32x3 kernel ("tf32x3": a cluster per (batch, head) over
+64-key slabs, TF32 `wgmma`, TMA); longer rows of either dtype to the
+two-pass kernels. `attention_bwd.launches` counts every backward launch,
+and `attention_bwd_one_pass.launches`, `attention_bwd_cluster.launches`,
+`attention_bwd_tf32x3.launches` and `attention_bwd_two_pass.launches` each
+route's; those four functions launch their kernel directly.
 
 `attention` is differentiable on every device. Under autograd its forward
 saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
@@ -76,6 +80,9 @@ BWD_CLUSTER_LIMIT = 1024
 # The longest float32 rows the TF32x3 forward takes: TF32X3_LIMIT of
 # csrc/attention_fwd_tf32x3.cu, which the library reports (`tf32x3_limit`).
 TF32X3_LIMIT = 1024
+# The longest float32 rows the TF32x3 backward takes: BWD_TF32X3_LIMIT of
+# csrc/attention_bwd_tf32x3.cu (`bwd_tf32x3_limit`).
+BWD_TF32X3_LIMIT = 256
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -312,12 +319,33 @@ def bwd_cluster_limit() -> int:
     return fn()
 
 
+@lru_cache(maxsize=None)
+def _bwd_tf32x3_entry():
+    fn = build.load().segclip_attention_bwd_tf32x3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def bwd_tf32x3_limit() -> int:
+    """The longest Lk the float32 TF32x3 backward takes, as the library
+    reports it (`segclip_attention_bwd_tf32x3_limit`); BWD_TF32X3_LIMIT
+    mirrors it."""
+    fn = build.load().segclip_attention_bwd_tf32x3_limit
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def bwd_route(dtype: torch.dtype, lk: int, limit: int = BWD_ONE_PASS_LIMIT,
-              cluster: int = BWD_CLUSTER_LIMIT) -> str:
+              cluster: int = BWD_CLUSTER_LIMIT, tf32x3: int = BWD_TF32X3_LIMIT) -> str:
     """Which backward kernel takes a call on the card, by its dtype and Lk
     alone: "one_pass" for bfloat16 rows of at most `limit` keys, "cluster"
-    for bf16 rows of up to `cluster` keys, else "two_pass" (longer bf16
-    rows and every float32 call)."""
+    for bf16 rows of up to `cluster` keys, "tf32x3" for float32 rows of up
+    to `tf32x3` keys, else "two_pass" (longer rows of either dtype)."""
+    if dtype == torch.float32:
+        return "tf32x3" if lk <= tf32x3 else "two_pass"
     return _routes3(dtype, lk, limit, cluster)
 
 
@@ -386,14 +414,17 @@ def _round8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
-def _kernel_p(p: torch.Tensor) -> torch.Tensor:
+def _kernel_p(p: torch.Tensor, tma: Optional[bool] = None) -> torch.Tensor:
     """P as the backward kernels read it: the forward's padded view goes in
-    as it is; another layout is copied into one (bf16: rows padded to 8
-    elements, batch and head dims one dim of stride H·Lq·rows; f32: a unit
+    as it is; another layout is copied into one (the kernels that copy P
+    by TMA, `tma`, by default every bf16 kernel: rows padded to 8 elements,
+    batch and head dims one dim of stride H·Lq·rows; the SIMT pair: a unit
     last stride)."""
     b, heads = p.shape[:2]
     one_bh = b == 1 or heads == 1 or p.stride(0) == heads * p.stride(1)
-    if p.dtype == torch.bfloat16 and not (_aligned16(p) and one_bh):
+    if tma is None:
+        tma = p.dtype == torch.bfloat16
+    if tma and not (_aligned16(p) and one_bh):
         padded = torch.zeros((*p.shape[:-1], _round8(p.shape[-1])), dtype=p.dtype,
                              device=p.device)
         padded[..., :p.shape[-1]] = p
@@ -401,10 +432,14 @@ def _kernel_p(p: torch.Tensor) -> torch.Tensor:
     return p if p.stride(-1) == 1 else p.contiguous()
 
 
-def _kernel_do(do: torch.Tensor) -> torch.Tensor:
-    """dO as the backward kernel reads it: a misaligned dO (the expanded
-    cotangent of a sum, an offset view) is copied into fresh storage."""
-    ok = _aligned16(do) if do.dtype == torch.bfloat16 else do.stride(-1) == 1
+def _kernel_do(do: torch.Tensor, tma: Optional[bool] = None) -> torch.Tensor:
+    """dO as the backward kernel reads it: a dO the kernels that copy by TMA
+    (`tma`, by default every bf16 kernel) cannot read (the expanded
+    cotangent of a sum, an offset view) is copied into fresh storage; the
+    SIMT pair needs a unit last stride."""
+    if tma is None:
+        tma = do.dtype == torch.bfloat16
+    ok = _aligned16(do) if tma else do.stride(-1) == 1
     return do if ok else do.clone(memory_format=torch.contiguous_format)
 
 
@@ -566,17 +601,22 @@ def _launch_bwd(route, p, do, q, k, v, scale):
     """One launch of a backward kernel on CUDA tensors (checked): "one_pass"
     (`segclip_attention_bwd_one_pass`, bf16, Lk ≤ the limit), "cluster"
     (`segclip_attention_bwd_cluster`, bf16, the limit < Lk ≤ the cluster
+    limit), "tf32x3" (`segclip_attention_bwd_tf32x3`, float32, Lk ≤ its
     limit) or "two_pass" (`segclip_attention_bwd`, with its D scratch).
     Returns (dQ, dK, dV). As
     `_launch_fwd`: a raw stream handle, and the device switched only when
     the tensors are not on the current one."""
     device = q.device
     _unit_last_stride(q, k, v)
-    if q.dtype == torch.bfloat16:
+    tma = q.dtype == torch.bfloat16 or route == "tf32x3"
+    if tma:
         _check_aligned(q, k, v)
     b, lq, dm = q.shape
     lk = k.shape[1]
     heads = dm // HEAD_DIM
+    if route == "tf32x3" and (q.dtype != torch.float32 or lk > bwd_tf32x3_limit()):
+        raise ValueError(f"the TF32x3 backward takes float32 rows of at most "
+                         f"{bwd_tf32x3_limit()} keys, got {q.dtype}, Lk = {lk}")
     if route == "one_pass" and (q.dtype != torch.bfloat16 or lk > bwd_one_pass_limit()):
         raise ValueError(f"the one-pass backward takes bfloat16 rows of at most "
                          f"{bwd_one_pass_limit()} keys, got {q.dtype}, Lk = {lk}")
@@ -586,7 +626,7 @@ def _launch_bwd(route, p, do, q, k, v, scale):
                              f"{bwd_one_pass_limit() + 1} to {bwd_cluster_limit()} keys, got "
                              f"{q.dtype}, Lk = {lk}")
         cluster_shape("bwd", lk, b * heads, device.index)
-    p, do = _kernel_p(p), _kernel_do(do)
+    p, do = _kernel_p(p, tma), _kernel_do(do, tma)
     dq = torch.empty((b, lq, dm), dtype=q.dtype, device=device)
     dk = torch.empty((b, lk, dm), dtype=k.dtype, device=device)
     dv = torch.empty((b, lk, dm), dtype=v.dtype, device=device)
@@ -595,8 +635,9 @@ def _launch_bwd(route, p, do, q, k, v, scale):
     rest = (*p.stride()[:3], do.stride(0), do.stride(1), q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
             torch._C._cuda_getCurrentRawStream(device.index))
-    if route in ("one_pass", "cluster"):
-        entry = _bwd_one_pass_entry() if route == "one_pass" else _bwd_cluster_entry()
+    if route in ("one_pass", "cluster", "tf32x3"):
+        entry = {"one_pass": _bwd_one_pass_entry, "cluster": _bwd_cluster_entry,
+                 "tf32x3": _bwd_tf32x3_entry}[route]()
         args = (*ptrs, b, heads, lq, lk, *rest)
     else:
         drow = torch.empty((b, heads, (lq + 3) // 4 * 4), dtype=torch.float32,
@@ -641,18 +682,29 @@ def attention_bwd_cluster(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     return _bwd_route_call("cluster", p, do, q, k, v, scale)
 
 
+def attention_bwd_tf32x3(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor,
+                         scale: float = HEAD_DIM ** -0.5
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 TF32x3 backward kernel alone (Lk ≤ its limit; it raises
+    on anything else), as `attention_bwd` returns; the plain version on the
+    CPU. `attention_bwd` routes to it; chip_smoke.py times it directly."""
+    return _bwd_route_call("tf32x3", p, do, q, k, v, scale)
+
+
 def attention_bwd_two_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
                            k: torch.Tensor, v: torch.Tensor,
                            scale: float = HEAD_DIM ** -0.5
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The two-pass backward kernels alone (bf16 on tensor cores, float32 on
-    FMAs; any Lk), as `attention_bwd` returns; the plain version on the
-    CPU. `attention_bwd` routes to it; chip_smoke.py times it directly."""
+    FMAs, the SIMT pair; any Lk), as `attention_bwd` returns; the plain
+    version on the CPU. `attention_bwd` routes to it; chip_smoke.py times
+    it directly."""
     return _bwd_route_call("two_pass", p, do, q, k, v, scale)
 
 
 _BWD_ROUTES = {"one_pass": attention_bwd_one_pass, "cluster": attention_bwd_cluster,
-               "two_pass": attention_bwd_two_pass}
+               "tf32x3": attention_bwd_tf32x3, "two_pass": attention_bwd_two_pass}
 
 
 def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
@@ -668,8 +720,8 @@ def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     if _check_bwd(p, do, q, k, v).type == "cpu":
         return attention_bwd_plain(p, do, q, k, v, scale)
     bf16 = q.dtype == torch.bfloat16
-    route = bwd_route(q.dtype, k.shape[1], bwd_one_pass_limit() if bf16 else BWD_ONE_PASS_LIMIT,
-                      bwd_cluster_limit() if bf16 else BWD_CLUSTER_LIMIT)
+    route = (bwd_route(q.dtype, k.shape[1], bwd_one_pass_limit(), bwd_cluster_limit()) if bf16
+             else bwd_route(q.dtype, k.shape[1], tf32x3=bwd_tf32x3_limit()))
     grads = _launch_bwd(route, p, do, q, k, v, scale)
     _BWD_ROUTES[route].launches += 1
     attention_bwd.launches += 1
@@ -721,4 +773,5 @@ attention_fwd_two_pass.launches = 0     # forward launches of the two-pass kerne
 attention_bwd.launches = 0      # backward kernel launches, every route
 attention_bwd_one_pass.launches = 0     # backward launches of the one-pass kernel
 attention_bwd_cluster.launches = 0      # backward launches of the cluster kernel
+attention_bwd_tf32x3.launches = 0       # backward launches of the float32 TF32x3 kernel
 attention_bwd_two_pass.launches = 0     # backward launches of the two-pass kernels

@@ -13,7 +13,10 @@ device instead, so here:
     line per field in each entry point, and the run goes on;
   - the route does not follow the fields: a training step calls the same
     kernel wrappers (which launch the kernels on CUDA tensors) as often,
-    with the same bits, whatever they say.
+    with the same bits, whatever they say;
+  - `model.param_dtype`, which the JAX package accepts and never reads
+    (its parameters are float32), logs one line when set away from
+    "float32" and never raises; the parameters stay float32.
 """
 import dataclasses
 import functools
@@ -31,7 +34,8 @@ from test_torch_train import (TINY, make_batch, make_noise, port_config, torch_b
 from segclip_tpu_torch.cli import demo, eval_zeroshot, prepare_data
 from segclip_tpu_torch.cli import train as train_cli
 from segclip_tpu_torch.config import ModelConfig
-from segclip_tpu_torch.models.segclip import KERNEL_FIELDS, SegCLIP, init_segclip
+from segclip_tpu_torch.models.segclip import (KERNEL_FIELDS, SegCLIP, check_kernel_fields,
+                                              init_segclip)
 from segclip_tpu_torch.ops.kernels import attention as kattention
 from segclip_tpu_torch.ops.kernels import grouping as kgrouping
 from segclip_tpu_torch.studies import classprobe
@@ -167,3 +171,22 @@ def test_the_route_does_not_follow_the_fields(monkeypatch):
     assert losses.keys() == losses_set.keys() and grads.keys() == grads_set.keys()
     assert all(torch.equal(losses[k], losses_set[k]) for k in losses)
     assert all(torch.equal(grads[k], grads_set[k]) for k in grads)
+
+
+@pytest.mark.parametrize("param_dtype, logged", [("float32", False), ("bfloat16", True),
+                                                 ("float16", True)])
+def test_param_dtype_logs_one_line_and_is_never_read(param_dtype, logged):
+    """The JAX package's ModelConfig takes any param_dtype and its modules
+    store float32 parameters whatever it says; the port's entry-point check
+    logs one line for a value other than "float32" (and nothing else),
+    raises for none, and SegCLIP's parameters stay float32."""
+    from segclip_tpu.config import ModelConfig as JaxModelConfig
+    assert JaxModelConfig(param_dtype=param_dtype).param_dtype == param_dtype
+    lines = []
+    cfg = dataclasses.replace(BASE, param_dtype=param_dtype)
+    check_kernel_fields(cfg, lines.append)
+    assert len(lines) == int(logged), lines
+    if logged:
+        assert lines[0].startswith(f"model.param_dtype={param_dtype} is ignored")
+    model = SegCLIP(cfg)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}

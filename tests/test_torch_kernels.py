@@ -1138,8 +1138,8 @@ def test_tf32x3_rows_do_not_depend_on_the_batch(cuda, lq, lk):
 
 def test_tf32x3_reads_packed_views_in_place_and_refuses_misaligned_operands(cuda):
     """q|k|v column views of a packed projection give the bits of contiguous
-    copies (read by their row strides, no copy); the two-pass float32
-    backward reads the padded P as it is; misaligned operands are refused."""
+    copies (read by their row strides, no copy); the float32 backward reads
+    the padded P as it is; misaligned operands are refused."""
     from segclip_tpu_torch.ops.kernels.attention import _kernel_p, attention_fwd_tf32x3
     q, k, v, _, _ = _f32_case(cuda, 4, 196, 196, 12, seed=3)
     assert q.stride(1) == 3 * q.shape[-1]
@@ -1172,3 +1172,162 @@ def test_float32_forward_route_at_the_limit(cuda, lk):
     ref, p_ref = attention_fwd_plain(q, k, v)
     assert (out - ref).abs().max().item() <= ATTN_TOL[torch.float32]
     assert (p - p_ref).abs().max().item() <= 1e-5
+
+
+# The float32 TF32x3 backward (csrc/attention_bwd_tf32x3.cu,
+# attention_bwd_tf32x3_kernel: clusters of ⌈Lk/64⌉ blocks walking the (batch,
+# head) rows, each block one 64-key slab, D and dQ summed across the cluster
+# in rank order, fp32-accurate split products on TF32 wgmma, TMA copies):
+# every float32 backward of up to BWD_TF32X3_LIMIT keys. Each case runs the
+# routed call (which must take the TF32x3 kernel), the kernel's own function
+# (the same bits) and the SIMT pair on the same inputs, and holds both to
+# the plain version at the float32 backward tolerance, per output max |err|
+# ≤ 1e-5·(1 + max|ref|).
+BWD_F32_TOL = 1e-5
+BWD_TF32_MAIN_PATH = [           # (B, Lq, Lk, H, bias, cross): the B = 96 step, a TP rank,
+    (96, 196, 196, 12, None, False), (96, 8, 204, 12, None, True),       # ViT-B/32, the drift
+    (96, 8, 8, 12, None, False), (96, 48, 48, 12, None, False), (96, 8, 56, 12, None, True),
+    (96, 32, 32, 8, "causal", False), (48, 196, 196, 12, None, False),
+    (96, 196, 196, 6, None, False), (96, 8, 204, 6, None, True), (48, 32, 32, 4, "causal", False),
+    (96, 49, 49, 12, None, False), (96, 8, 57, 12, None, True), (8, 3, 3, 1, None, False)]
+BWD_TF32_EDGES = [               # Lq ragged against the 64-row tiles, Lk against the 64-key slabs
+    (2, lq, lk, 2, None, True)
+    for lq in (1, 8, 63, 65, 130) for lk in (1, 63, 64, 65, 255, 256)]
+
+
+def _bwd_f32_routes():
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd_tf32x3,
+                                                         attention_bwd_two_pass)
+    return attention_bwd_tf32x3.launches, attention_bwd_two_pass.launches
+
+
+def _bwd_f32_case(cuda, b, lq, lk, h, bias, cross, seed):
+    q, k, v, bias2d, biasb = _f32_case(cuda, b, lq, lk, h, bias, seed=seed, cross=cross)
+    _, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    do = torch.randn(b, lq, h * 64, generator=gen, device=cuda)
+    return p, do, q, k, v
+
+
+def _assert_f32_grads_close(grads, ref):
+    for g, r in zip(grads, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape and g.is_contiguous()
+        assert torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= BWD_F32_TOL * (1 + r.abs().max().item())
+
+
+@pytest.mark.parametrize("b, lq, lk, h, bias, cross", BWD_TF32_MAIN_PATH + BWD_TF32_EDGES)
+def test_tf32x3_bwd_matches_plain_and_the_simt_pair(cuda, b, lq, lk, h, bias, cross):
+    from segclip_tpu_torch.ops.kernels.attention import (
+        BWD_TF32X3_LIMIT, attention_bwd_tf32x3, attention_bwd_two_pass, bwd_tf32x3_limit)
+    assert bwd_tf32x3_limit() == BWD_TF32X3_LIMIT
+    p, do, q, k, v = _bwd_f32_case(cuda, b, lq, lk, h, bias, cross, seed=lq * 11 + lk + h)
+    before, routes = attention_bwd.launches, _bwd_f32_routes()
+    grads = attention_bwd(p, do, q, k, v)
+    assert attention_bwd.launches == before + 1
+    assert _bwd_f32_routes() == (routes[0] + 1, routes[1])
+    own = attention_bwd_tf32x3(p, do, q, k, v)
+    simt = attention_bwd_two_pass(p, do, q, k, v)
+    ref = attention_bwd_plain(p, do, q, k, v)
+    torch.cuda.synchronize()
+    assert _bwd_f32_routes() == (routes[0] + 2, routes[1] + 1)
+    assert all(torch.equal(g, o) for g, o in zip(grads, own))
+    _assert_f32_grads_close(grads, ref)
+    _assert_f32_grads_close(simt, ref)
+
+
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+@pytest.mark.parametrize("b, l, h", [(4, 77, 8), (96, 32, 8), (2, 196, 12), (3, 256, 2)])
+def test_tf32x3_bwd_biases(cuda, bias, b, l, h):
+    p, do, q, k, v = _bwd_f32_case(cuda, b, l, l, h, bias, False, seed=l + h)
+    _assert_f32_grads_close(attention_bwd(p, do, q, k, v), attention_bwd_plain(p, do, q, k, v))
+
+
+@pytest.mark.parametrize("lk", [100, 256])
+def test_tf32x3_bwd_fully_masked_row_is_nan_like_the_plain_version(cuda, lk):
+    """A row whose every key is masked has P = NaN: dQ's row is NaN, the
+    other rows of dQ within the tolerance, and dK and dV NaN wherever the
+    plain version's are."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_tf32x3
+    q, k, v, _, _ = _f32_case(cuda, 1, 70, lk, 1, seed=lk, cross=True)
+    bias2d = torch.zeros(70, lk, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    _, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    do = torch.randn_like(q)
+    grads = attention_bwd_tf32x3(p, do, q, k, v)
+    ref = attention_bwd_plain(p, do, q, k, v)
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    assert torch.isnan(grads[0][0, 66]).all() and torch.isnan(ref[0][0, 66]).all()
+    rows = grads[0][:, keep]
+    assert (rows - ref[0][:, keep]).abs().max().item() <= BWD_F32_TOL * (
+        1 + ref[0][:, keep].abs().max().item())
+    for g, r in zip(grads[1:], ref[1:]):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+
+
+@pytest.mark.parametrize("lq, lk", [(196, 196), (8, 204), (65, 256), (48, 48)])
+def test_tf32x3_bwd_repeats_bit_for_bit_and_rows_do_not_depend_on_the_batch(cuda, lq, lk):
+    """Two calls give the same bits (no atomics; D and dQ summed in rank
+    order), and each (batch, head) row of a batch of 8 is the bits of that
+    element alone, whichever cluster of the persistent grid takes it."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_tf32x3
+    p, do, q, k, v = _bwd_f32_case(cuda, 8, lq, lk, 12, None, lq != lk, seed=lk)
+    first = attention_bwd_tf32x3(p, do, q, k, v)
+    second = attention_bwd_tf32x3(p, do, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for i in (0, 5):
+        one = attention_bwd_tf32x3(p[i:i + 1], do[i:i + 1], q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert all(torch.equal(a, b[i:i + 1]) for a, b in zip(one, first))
+
+
+@pytest.mark.parametrize("kind", ["p offset", "p swapped", "do offset", "do expanded"])
+def test_tf32x3_bwd_copies_a_p_or_do_it_cannot_read_in_place(cuda, kind):
+    """A P or dO the TMA cannot read (a base off 16 bytes, batch and head
+    dims that are not one (B·H) dim, a zero stride) is copied, not refused,
+    and gives the bits of contiguous operands."""
+    from segclip_tpu_torch.ops.kernels.attention import (_kernel_do, _kernel_p,
+                                                         attention_bwd_tf32x3)
+    p, do, q, k, v = _bwd_f32_case(cuda, 2, 40, 70, 2, None, True, seed=9)
+    want = attention_bwd_tf32x3(p.contiguous(), do.contiguous(), q, k, v)
+    if kind == "p offset":
+        buf = torch.zeros(p.numel() + 1, device=cuda)
+        odd = buf[1:].view(p.shape).copy_(p)
+        assert _kernel_p(odd, True) is not odd
+        got = attention_bwd_tf32x3(odd, do, q, k, v)
+    elif kind == "p swapped":
+        swapped = p.transpose(0, 1).contiguous().transpose(0, 1)
+        assert _kernel_p(swapped, True) is not swapped
+        got = attention_bwd_tf32x3(swapped, do, q, k, v)
+    elif kind == "do offset":
+        buf = torch.zeros(do.numel() + 1, device=cuda)
+        odd = buf[1:].view(do.shape).copy_(do)
+        assert _kernel_do(odd, True) is not odd
+        got = attention_bwd_tf32x3(p, odd, q, k, v)
+    else:
+        ones = torch.ones(1, 1, 1, device=cuda).expand(do.shape)
+        want = attention_bwd_tf32x3(p, ones.contiguous(), q, k, v)
+        got = attention_bwd_tf32x3(p, ones, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("lk", [256, 257])
+def test_float32_backward_route_at_the_limit(cuda, lk):
+    """Lk at BWD_TF32X3_LIMIT takes the TF32x3 backward, one past it the
+    SIMT pair; the TF32x3 function refuses what it does not take."""
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_tf32x3
+    p, do, q, k, v = _bwd_f32_case(cuda, 2, 33, lk, 2, None, True, seed=lk)
+    routes = _bwd_f32_routes()
+    grads = attention_bwd(p, do, q, k, v)
+    moved = tuple(a - b for a, b in zip(_bwd_f32_routes(), routes))
+    assert moved == ((1, 0) if lk <= 256 else (0, 1))
+    _assert_f32_grads_close(grads, attention_bwd_plain(p, do, q, k, v))
+    if lk > 256:
+        with pytest.raises(ValueError, match="at most 256 keys"):
+            attention_bwd_tf32x3(p, do, q, k, v)
+    with pytest.raises(ValueError, match="float32 rows"):
+        attention_bwd_tf32x3(*(t.to(torch.bfloat16) for t in (p, do, q, k, v)))
+    x = torch.randn(2, 9, 3 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd_tf32x3(torch.zeros(2, 1, 9, 9, device=cuda), torch.zeros(2, 9, 64, device=cuda),
+                             x[..., 1:65], x[..., 65:129], x[..., 129:193])

@@ -695,8 +695,10 @@ def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     (Lk 196, 204, 8, 48, 56, 32), of the B = 512 step and of ViT-B/32 (49,
     57) goes to the one-pass kernel, as does ViT-L/14's 256; the longer rows
     up to BWD_CLUSTER_LIMIT (ViT-L/14's cross 264, 448 px's 784 and 792,
-    294, 257) to the cluster kernel; rows past BWD_CLUSTER_LIMIT and every
-    float32 call to the two-pass kernels."""
+    294, 257) to the cluster kernel; rows past BWD_CLUSTER_LIMIT to the
+    two-pass kernels; float32 rows of at most BWD_TF32X3_LIMIT (256) keys,
+    every float32 backward of the step, of ViT-B/32 and of the drift replay
+    (L = 3), to the TF32x3 kernel and longer float32 rows to the SIMT pair."""
     from segclip_tpu_torch.config import ModelConfig
     from segclip_tpu_torch.ops.kernels.attention import (BWD_CLUSTER_LIMIT,
                                                          BWD_ONE_PASS_LIMIT, bwd_route)
@@ -715,7 +717,9 @@ def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
         assert bwd_route(torch.bfloat16, lk) == "cluster", lk
     for lk in (BWD_CLUSTER_LIMIT + 1, 2 * BWD_CLUSTER_LIMIT):
         assert bwd_route(torch.bfloat16, lk) == "two_pass", lk
-    for lk in step | {256, 264, 784, BWD_CLUSTER_LIMIT, BWD_CLUSTER_LIMIT + 1}:
+    for lk in step | b32 | {1, 3, 256}:
+        assert bwd_route(torch.float32, lk) == "tf32x3", lk
+    for lk in (257, 264, 784, BWD_CLUSTER_LIMIT, BWD_CLUSTER_LIMIT + 1):
         assert bwd_route(torch.float32, lk) == "two_pass", lk
 
 
@@ -805,25 +809,28 @@ def test_cluster_source_headers_name_their_tpu_kernel_bound_and_design(source, n
         assert needle in hopper, needle
 
 
-@pytest.mark.parametrize("route", ["routed", "one_pass", "cluster", "two_pass"])
+@pytest.mark.parametrize("route", ["routed", "one_pass", "cluster", "tf32x3", "two_pass"])
 def test_backward_routes_take_the_plain_version_on_the_cpu(route):
     """The routed backward and each route's function, given CPU tensors,
     return the plain version's gradients and launch nothing (no counter
     moves); the cluster function at rows past the one-pass limit, where it
-    runs on the card."""
+    runs on the card, and the TF32x3 function at float32."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     rng = np.random.default_rng(6)
     lk = 300 if route == "cluster" else 9
-    qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32)).to(torch.bfloat16)
+    dtype = torch.float32 if route == "tf32x3" else torch.bfloat16
+    qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32)).to(dtype)
     q, k, v = qkv[:, :9, :128], qkv[..., 128:256], qkv[..., 256:]
     _, p = kattn.attention_fwd(q, k, v, save_p=True)
-    do = _t(rng.normal(size=(2, 9, 128)).astype(np.float32)).to(torch.bfloat16)
+    do = _t(rng.normal(size=(2, 9, 128)).astype(np.float32)).to(dtype)
     fn = {"routed": kattn.attention_bwd, "one_pass": kattn.attention_bwd_one_pass,
-          "cluster": kattn.attention_bwd_cluster, "two_pass": kattn.attention_bwd_two_pass}[route]
+          "cluster": kattn.attention_bwd_cluster, "tf32x3": kattn.attention_bwd_tf32x3,
+          "two_pass": kattn.attention_bwd_two_pass}[route]
 
     def counts():
         return (kattn.attention_bwd.launches, kattn.attention_bwd_one_pass.launches,
-                kattn.attention_bwd_cluster.launches, kattn.attention_bwd_two_pass.launches)
+                kattn.attention_bwd_cluster.launches, kattn.attention_bwd_tf32x3.launches,
+                kattn.attention_bwd_two_pass.launches)
     before = counts()
     grads = fn(p, do, q, k, v)
     for g, r in zip(grads, kattn.attention_bwd_plain(p, do, q, k, v)):
