@@ -19,14 +19,19 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      saved), the attention backward, the eval grouping and the Gumbel
      (training) grouping at each of their shapes, each grouping call run
      twice and required to give the same bits; at every bf16 shape the
-     one-pass or the cluster forward takes (Lk ≤ their limits), the
-     two-pass forward too, and at every bf16 shape the one-pass or the
-     cluster backward takes, the two-pass backward too, each on the same
-     inputs and held to the same rules; every float32 forward of up to 1024
-     keys on the TF32x3 kernel (fp32-accurate split products on TF32
-     wgmma), and at F32_TIMED's shapes PR 1's SIMT two-pass kernel beside
-     it; every float32 backward of up to 256 keys on the TF32x3 backward
-     (a cluster per (batch, head) over 64-key slabs), and at F32_TIMED's
+     one-pass, the cluster or the long forward takes, the two-pass forward
+     too, and at every bf16 shape the one-pass or the cluster backward
+     takes, the two-pass backward too, each on the same inputs and held to
+     the same rules; every float32 forward, of any length, on the TF32x3
+     kernel (fp32-accurate split products on TF32 wgmma), and at
+     F32_TIMED's shapes PR 1's SIMT two-pass kernel beside it; the rows past
+     1024 keys (the long kernel at bf16, the TF32x3 kernel at float32) at
+     phase 2's 1x1176 and cross 1x8x1184 and the 224x2048 image's 1x1792
+     and cross 1x8x1800, with P saved at 1x1176, and with bias2d and biasb
+     at 2x1100, and the forward kernels' branch-free division against IEEE
+     `/` over every significand of l in [1, 2) at 2^0..2^13; every float32
+     backward of up to 256 keys on the TF32x3 backward (a cluster per
+     (batch, head) over 64-key slabs), and at F32_TIMED's
      training shapes the SIMT pair beside it; each call's route read
      from the route counters; the host time per forward and per backward
      call (enqueue only) of each route; and the repaired fault: on
@@ -36,12 +41,14 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      seeded random init; a 20-class text bank; five requests through
      ZeroShotSegmenter (224×224 whole, 224×448 slide, a 300×500 image in
      slide mode answered at its original size, 224×336 whole, whose 294
-     patches take the cluster kernel, 448×672 whole, whose 1176 patches
-     take the two-pass kernel, one group map); the kernels' launch
-     counters must show every attention and grouping call of the path went
-     through the kernels;
-  3. the eval path against its plain self: one request at float32 on the
-     card and on the CPU (where the wrappers take the plain versions);
+     patches take the cluster kernel, 448×672 whole and 224×2048 whole,
+     whose 1176 and 1792 patches take the long kernel, one group map); the
+     kernels' launch counters must show every attention and grouping call
+     of the path went through the kernels;
+  3. the eval path against its plain self: a 224×224 and a 448×672 whole
+     request at float32 on the card and on the CPU (where the wrappers take
+     the plain versions), the 448×672 one's rows past 1024 keys on the
+     TF32x3 kernel;
   4. the training slice: ViT-B/16 at the default ModelConfig (bfloat16,
      vision MAE and seglabel on, text MAE off) from `init_segclip(seed=0)`,
      B = 96 synthetic pairs from numpy seed 0, 1 + 5 steps of
@@ -162,14 +169,15 @@ each kernel's registers and spills (ptxas) and, where `cuobjdump` exists, the co
 instructions (HMMA, HGMMA) and TMA instructions in each kernel; the bf16
 attention kernels and the bf16 grouping kernel must have tensor-core
 instructions, and every instance of the one-pass and the cluster forward
-and backward and of the float32 TF32x3 forward and backward HGMMA and TMA
-ones too (the TF32x3 instances no ptxas spills). The forward's and the
-backward's launches by route (one-pass, cluster, TF32x3, two-pass) are
-printed per phase of the main path (phases 2-14; phase 9's ranks and phase
-10's studies report their own); all eight kernels must have launched, the
-cluster ones in phase 2 (the 224×336 request) and phase 12 (448 px,
-ViT-L/14's cross blocks), every float32 forward on the TF32x3 kernel (the
-two-pass forward only on phase 2's bf16 rows past 1024 keys) and every
+and backward and of the float32 TF32x3 forward and backward and of the long forward HGMMA and TMA
+ones too (the TF32x3 instances and the long kernel no ptxas spills). The
+forward's and the backward's launches by route (one-pass, cluster, long,
+TF32x3, two-pass) are printed per phase of the main path (phases 2-14;
+phase 9's ranks and phase 10's studies report their own); all eight routed
+kernels must have launched, the cluster ones in phase 2 (the 224×336
+request) and phase 12 (448 px, ViT-L/14's cross blocks), the long forward
+only in phase 2 (the 448×672 and 224×2048 requests), every float32 forward
+on the TF32x3 kernel, no forward on the two-pass kernels, and every
 float32 backward of at most 256 keys on the TF32x3 backward (the SIMT pair
 only on phase 12's float32 ViT-L/14 cross rows). The profiles list the
 port's own kernels (those in the `segclip_kernels` namespace) apart from
@@ -177,6 +185,9 @@ PyTorch's.
 
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
 10's subprocess: one study with the launch counters read around it.
+`python3 chip_smoke.py long-requests` times and profiles the 448×672 and
+224×2048 whole requests alone, in bf16 and float32 (it runs on older trees
+of the port too).
 `python3 chip_smoke.py profile-step 448` profiles one warm training step
 of a LARGE_CONFIGS entry alone, and `python3 chip_smoke.py float32-paths`
 times and profiles phase 3's float32 request, phase 8's float32 batched
@@ -192,10 +203,12 @@ kernel's main shape: the one-pass forward ("attention_fwd_one_pass", with
 beside it, "host_us", "p_max_abs_err"; "library_ms" SDPA at float32 with
 TF32 off) at 96x196 with P, the cluster forward
 ("attention_fwd", with "two_pass_ms" and "host_us") and PR 3's two-pass
-forward ("attention_fwd_two_pass", timed in turns beside it) at 448 px's
-24x784 with P, the one-pass backward ("attention_bwd_one_pass", with
-"two_pass_ms", "host_us" and "pair_ms", the forward with P plus the
-backward, beside SDPA's forward + backward) at 96x196, the cluster
+forward (its "two_pass_ms", timed in turns beside it) at 448 px's
+24x784 with P, the long forward ("attention_fwd_long", with "two_pass_ms",
+PR 3's kernel in turns, and "host_us") at 1x1176, the one-pass backward
+("attention_bwd_one_pass", with "two_pass_ms", "host_us" and "pair_ms",
+the forward with P plus the backward, beside SDPA's forward + backward)
+at 96x196, the cluster
 backward ("attention_bwd", with "two_pass_ms" and "pair_ms") and the
 two-pass backward ("attention_bwd_two_pass") at 24x784, the float32 TF32x3
 backward ("attention_bwd_tf32x3", with "two_pass_ms", the SIMT pair in
@@ -244,6 +257,7 @@ VOC_BG_THRESH = 0.80
 ATTN_SRC = "segclip_tpu_torch/csrc/attention_fwd.cu"
 ATTN_BWD_SRC = "segclip_tpu_torch/csrc/attention_bwd.cu"
 ATTN_TF32_SRC = "segclip_tpu_torch/csrc/attention_fwd_tf32x3.cu"
+ATTN_LONG_SRC = "segclip_tpu_torch/csrc/attention_fwd_long.cu"
 ATTN_BWD_TF32_SRC = "segclip_tpu_torch/csrc/attention_bwd_tf32x3.cu"
 GROUP_SRC = "segclip_tpu_torch/csrc/group_assign.cu"
 ATTN_TPU = "segclip_tpu/ops/pallas/attention.py:60"
@@ -286,10 +300,17 @@ ATTN_CASES = (
     ("b32 cross 1x8x57", 1, 8, 57, 12, None, "cross"),
     ("b32 cross 2x8x57", 2, 8, 57, 12, None, "cross"),
     ("group stage 1x8x8 (whole)", 1, 8, 8, 12, None, "self"),
-    # phase 2's 448x672 whole request: rows past CLUSTER_LIMIT
+    # phase 2's 448x672 and 224x2048 whole requests: rows past CLUSTER_LIMIT
     ("vision 1x1176 (whole 448x672)", 1, 1176, 1176, 12, None, "self"),
     ("cross 1x8x1184 (whole 448x672, 1176 patches)", 1, 8, 1184, 12, None, "cross"),
+    ("vision 1x1792 (whole 224x2048)", 1, 1792, 1792, 12, None, "self"),
+    ("cross 1x8x1800 (whole 224x2048, 1792 patches)", 1, 8, 1800, 12, None, "cross"),
 )
+# Phase 1's checks of the rows past 1024 keys beyond ATTN_CASES: P saved at
+# the 448x672 request's vision rows, and both biases (the causal bias2d and
+# a padding biasb) on a batch of two.
+LONG_P_CASE = ("long vision 1x1176 with P", 1, 1176, 1176, 12, None, "self")
+LONG_BIAS_CASE = ("long 2x1100 bias2d + biasb", 2, 1100, 1100, 2, "both", "self")
 # Attention shapes of the training step at B = 96: forward with P saved
 # and backward. The grouping path's vision blocks, cross blocks and group
 # stage; the MAE path's 48 kept patches (layers0, layers_mae2) and cross
@@ -435,14 +456,22 @@ E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
 # The float32 shapes at which the TF32x3 forward is timed against PR 1's
 # SIMT kernel (in turns, ROUTE_ROUNDS rounds) and SDPA in the device-time
 # section: the B = 96 step's (and a TP rank's vision blocks, H = 6), the
-# 224x224 slide and 224x336 whole requests', and the drift replay's one-head
-# MAE blocks (L = 3); at F32_GATED the TF32x3 kernel must be the faster.
+# 224x224 slide and 224x336 whole requests', the drift replay's one-head
+# MAE blocks (L = 3), and the rows past 1024 keys of the 448x672 and
+# 224x2048 whole requests (which the SIMT kernel took before the TF32x3
+# kernel's length limit was lifted), and phase 12's float32 ViT-L/14 cross
+# rows (whose backward is the SIMT pair's, profiled beside SDPA's float32
+# forward + backward); at F32_GATED the TF32x3 kernel must be the faster.
+# At bf16 every routed kernel is gated against the two-pass one.
 F32_TIMED = ("train vision 96x196", "train TP vision 96x196 H6", "train cross 96x8x204",
              "train MAE vision 96x48", "train MAE cross 96x8x56", "train text 96x32 causal",
              "train group stage 96x8x8", "vision 2x196 (slide, 2 windows)", "cross 2x8x204",
              "text 20x77 causal", "vision 1x294 (whole 224x336)",
-             "cross 1x8x302 (whole 224x336, 294 patches)", "drift MAE vision")
-F32_GATED = ("train vision 96x196", "train cross 96x8x204", "vision 2x196 (slide, 2 windows)")
+             "cross 1x8x302 (whole 224x336, 294 patches)", "drift MAE vision",
+             "vision 1x1176", "cross 1x8x1184", "vision 1x1792", "cross 1x8x1800",
+             "l14 float32 cross 2x8x264")
+F32_GATED = ("train vision 96x196", "train cross 96x8x204", "vision 2x196 (slide, 2 windows)",
+             "vision 1x1176 (whole 448x672)", "cross 1x8x1184 (whole 448x672, 1176 patches)")
 # The float32 backward shapes at which the TF32x3 backward must beat the
 # SIMT pair (F32_TIMED's training shapes time both, in turns).
 F32_BWD_GATED = ("train vision 96x196", "train cross 96x8x204", "train TP vision 96x196 H6")
@@ -601,10 +630,10 @@ def attention_inputs(case, dtype, dev, gen):
         kv = randn(b, lk, 2 * d)
         k, v = kv[..., :d], kv[..., d:]
     bias2d = biasb = None
-    if bias == "causal":
+    if bias in ("causal", "both"):
         from segclip_tpu_torch.ops.attention import causal_mask
         bias2d = causal_mask(lq, device=dev)
-    elif bias == "padding":
+    if bias in ("padding", "both"):
         lens = torch.randint(3, lk + 1, (b,), generator=gen, device=dev)
         mask = (torch.arange(lk, device=dev)[None] < lens[:, None]).float()
         biasb = (1.0 - mask) * -1e6
@@ -614,16 +643,18 @@ def attention_inputs(case, dtype, dev, gen):
 def check_route(case, dtype, before: dict, backward: bool = False) -> str:
     """The route one forward (or backward) call took, from the route
     counters moved since `before`, which must be the one `fwd_route` (or
-    `bwd_route`) names for its dtype and Lk with the library's limit."""
+    `bwd_route`) names for its dtype and Lk with the library's limits."""
     from segclip_tpu_torch.ops.kernels.attention import (
         bwd_cluster_limit, bwd_one_pass_limit, bwd_route, bwd_tf32x3_limit, cluster_limit,
-        fwd_route, one_pass_limit, tf32x3_limit)
+        fwd_route, long_min_lk, one_pass_limit)
     if backward:
         route = bwd_route(dtype, case[3], bwd_one_pass_limit(), bwd_cluster_limit(),
                           bwd_tf32x3_limit())
         prefix, keys = "bwd_", BWD_ROUTES
     else:
-        route = fwd_route(dtype, case[3], one_pass_limit(), cluster_limit(), tf32x3_limit())
+        check(long_min_lk() == cluster_limit() + 1, f"the long kernel starts at "
+              f"{long_min_lk()} keys, the cluster kernel ends at {cluster_limit()}")
+        route = fwd_route(dtype, case[3], one_pass_limit(), cluster_limit())
         prefix, keys = "", ROUTES
     now = read_routes()
     moved = {k: now[prefix + k] - before[prefix + k] for k in keys}
@@ -634,11 +665,11 @@ def check_route(case, dtype, before: dict, backward: bool = False) -> str:
 
 
 def two_pass_beside(case, inputs: tuple, save_p: bool, ref, p_ref, reps: int = 50) -> tuple:
-    """At a shape the one-pass, the cluster or the TF32x3 kernel takes: the
-    two-pass kernel (PR 3's bf16 kernel, PR 1's float32 SIMT kernel) on the
-    same inputs, held to the plain version by the same rules (bf16: max
-    |err| and the >1-ulp share of out, and of P when saved; float32: max
-    |err| of out, and of P when saved). Returns its call, a note with its
+    """At a shape the one-pass, the cluster, the long or the TF32x3 kernel
+    takes: the two-pass kernel (PR 3's bf16 kernel, PR 1's float32 SIMT
+    kernel) on the same inputs, held to the plain version by the same rules
+    (bf16: max |err| and the >1-ulp share of out, and of P when saved;
+    float32: max |err| of out, and of P when saved). Returns its call, a note with its
     time per call by CUDA events, and its max |err|."""
     from segclip_tpu_torch.ops.kernels.attention import attention_fwd_two_pass
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
@@ -762,6 +793,8 @@ def phase_kernels(dev) -> tuple:
                                 library=sdpa_library(q, k, v, b2, bb)))
             if case is ATTN_CASES[0] and dtype == torch.bfloat16:
                 summary["attention"] = dict(max_abs_err=err, timing=len(timings) - 1)
+            if case[0].startswith("vision 1x1176") and dtype == torch.bfloat16:
+                summary["attention_fwd_long"] = dict(max_abs_err=err, timing=len(timings) - 1)
 
         for name, n, g, l, d in GROUP_CASES:
             q = torch.randn(n, g, d, generator=gen, device=dev).to(dtype)
@@ -806,10 +839,70 @@ def phase_kernels(dev) -> tuple:
                     and dtype == torch.bfloat16:
                 summary["grouping" if name == GROUP_CASES[0][0] else "b32_grouping"] = dict(
                     max_abs_err=out_err, timing=len(timings) - 1)
+    long_rows(dev, gen, summary)
     training_kernels(dev, gen, summary, timings)
     host_costs(dev, gen, summary)
     repaired_fault(dev)
     return summary, timings
+
+
+def long_rows(dev, gen, summary) -> None:
+    """Phase 1, rows past 1024 keys beyond ATTN_CASES: the forward kernels'
+    branch-free division (hopper.cuh div_normal) equal to IEEE `/` over
+    every significand of l in [1, 2) scaled by 2^0..2^13 (every l of a row
+    of up to 16384 keys, by the exponent scaling of its proof), p random in
+    [2^-100, 1]; then in both dtypes, at LONG_P_CASE with P saved and at
+    LONG_BIAS_CASE with bias2d and biasb, the routed forward (the long
+    kernel at bf16, the TF32x3 kernel at float32) against the plain version
+    under the phase's tolerances, O the same bits with and without P, and
+    P's columns [Lk, Lk8) zero."""
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd, attention_fwd_plain,
+                                                         division_check)
+    from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
+    sig = 1 + torch.arange(2 ** 23, device=dev, dtype=torch.float64) / 2 ** 23
+    bad = 0
+    for e in range(14):
+        l = (sig * 2.0 ** e).float()
+        p = torch.exp2(-100 * torch.rand(l.shape, generator=gen, device=dev))
+        p[:2] = torch.tensor([1.0, 2.0 ** -100], device=dev)
+        fast, ieee = division_check(p, l)
+        bad += int((fast.view(torch.int32) != ieee.view(torch.int32)).sum())
+    print(f"  division: div_normal against IEEE / on {14 * 2 ** 23} pairs (every significand "
+          f"of l in [1, 2) at 2^0..2^13, p in [2^-100, 1]): {bad} differ")
+    check(bad == 0, f"div_normal differs from IEEE division on {bad} pairs")
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in (LONG_P_CASE, LONG_BIAS_CASE):
+            q, k, v, b2, bb = attention_inputs(case, dtype, dev, gen)
+            routes = read_routes()
+            out, p = attention_fwd(q, k, v, b2, bb, save_p=True)
+            route = check_route(case, dtype, routes)
+            bare, none = attention_fwd(q, k, v, b2, bb)
+            ref, p_ref = attention_fwd_plain(q, k, v, b2, bb)
+            torch.cuda.synchronize()
+            lk = case[3]
+            full = p.as_strided((*p.shape[:3], (lk + 7) // 8 * 8), p.stride())
+            err = (out.float() - ref.float()).abs().max().item()
+            p_err = (p.float() - p_ref.float()).abs().max().item()
+            note = ""
+            if dtype == torch.bfloat16:
+                shares = [bf16_share(out, ref), bf16_share(p, p_ref)]
+                note = "; >1 ulp share out/P " + " ".join(f"{sh:.1e}" for sh, _ in shares)
+                for (sh, _), what in zip(shares, ("out", "P")):
+                    check(sh <= ATTN_BF16_SHARE, f"{case[0]} bf16 {what}: share {sh}")
+            else:
+                check(p_err <= P_TOL_F32, f"{case[0]} float32: P err {p_err}")
+            print(f"  attention {case[0]:34s} {str(dtype)[6:]:8s} {route} err {err:.3e}, P err "
+                  f"{p_err:.3e}{note}; O same bits without P: {torch.equal(out, bare)}")
+            check(route == ("long" if dtype == torch.bfloat16 else "tf32x3"),
+                  f"{case[0]} {dtype}: route {route}")
+            check(torch.isfinite(out).all().item() and err <= ATTN_TOL[dtype],
+                  f"{case[0]} {dtype}: err {err}")
+            check(none is None and torch.equal(out, bare), f"{case[0]} {dtype}: O differs "
+                  "with and without P")
+            check(torch.equal(full[..., lk:], torch.zeros_like(full[..., lk:])),
+                  f"{case[0]} {dtype}: P's padding columns are not zero")
+            if case is LONG_P_CASE and dtype == torch.bfloat16:
+                summary["attention_fwd_long"]["p_err"] = p_err
 
 
 def host_costs(dev, gen, summary) -> None:
@@ -821,7 +914,10 @@ def host_costs(dev, gen, summary) -> None:
     the B = 96 vision shape in float32, per forward call with P through the
     TF32x3 and the two-pass route's functions, into summary["f32_host_us"],
     and per float32 backward call through the TF32x3 backward's and the SIMT
-    pair's, into summary["f32_bwd_host_us"]."""
+    pair's, into summary["f32_bwd_host_us"]; and at the 448x672 request's
+    1x1176, per forward call through the long and the two-pass functions
+    (bf16, summary["long_host_us"]) and the TF32x3 and two-pass functions
+    (float32, summary["f32_long_host_us"])."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     shapes = {"one_pass": TRAIN_ATTN_CASES[0],
               "cluster": step_shapes("448", large_config("448", False), LARGE_CONFIGS["448"][2])[0][0]}
@@ -841,11 +937,7 @@ def host_costs(dev, gen, summary) -> None:
                     name: functools.partial(getattr(kattn, fn), p, do, q, k, v)
                     for name, fn in [("attention_bwd", "attention_bwd")] * (kind == "one_pass")
                     + [(r, f"attention_bwd_{r}") for r in routes]})):
-            times = {name: [] for name in calls}
-            for i in range(HOST_ROUNDS):           # in turns, the order reversed every round
-                for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
-                    times[name].append(host_us(calls[name]))
-            found = {name: statistics.median(t) for name, t in times.items()}
+            found = host_us_in_turns(calls)
             summary[key].update(found)
             print(f"  host time per {what} at {case[0]} (enqueue only; median of "
                   f"{HOST_ROUNDS} rounds of 200 calls, in turns): " + ", ".join(
@@ -859,13 +951,27 @@ def host_costs(dev, gen, summary) -> None:
         calls = {r: functools.partial(getattr(kattn, fn.format(r)), *args,
                                       **({"save_p": True} if key == "f32_host_us" else {}))
                  for r in ("tf32x3", "two_pass")}
-        times = {name: [] for name in calls}
-        for i in range(HOST_ROUNDS):
-            for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
-                times[name].append(host_us(calls[name]))
-        summary[key] = {name: statistics.median(t) for name, t in times.items()}
+        summary[key] = host_us_in_turns(calls)
         print(f"  host time per float32 {what} at {TRAIN_ATTN_CASES[0][0]} (enqueue only, in "
               f"turns): " + ", ".join(f"{k} {v:.1f} us" for k, v in summary[key].items()))
+    case = next(c for c in ATTN_CASES if c[0].startswith("vision 1x1176"))
+    for dtype, key, route in ((torch.bfloat16, "long_host_us", "long"),
+                              (torch.float32, "f32_long_host_us", "tf32x3")):
+        args = attention_inputs(case, dtype, dev, gen)
+        summary[key] = host_us_in_turns({r: functools.partial(
+            getattr(kattn, f"attention_fwd_{r}"), *args) for r in (route, "two_pass")})
+        print(f"  host time per {str(dtype)[6:]} forward call at {case[0]} (enqueue only, in "
+              f"turns): " + ", ".join(f"{k} {v:.1f} us" for k, v in summary[key].items()))
+
+
+def host_us_in_turns(calls: dict) -> dict:
+    """host_us of each call, HOST_ROUNDS rounds in turns (the order reversed
+    every round); the median of each."""
+    times = {name: [] for name in calls}
+    for i in range(HOST_ROUNDS):
+        for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+            times[name].append(host_us(calls[name]))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def bf16_share(out, ref) -> tuple:
@@ -1085,10 +1191,11 @@ def reset_counters() -> None:
     plain_route.calls = 0
 
 
-ROUTES = ("one_pass", "cluster", "tf32x3", "two_pass")
+ROUTES = ("one_pass", "cluster", "long", "tf32x3", "two_pass")
 BWD_ROUTES = ("one_pass", "cluster", "tf32x3", "two_pass")
 ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "cluster": "attention_fwd_cluster",
-                   "tf32x3": "attention_fwd_tf32x3", "two_pass": "attention_fwd_two_pass",
+                   "long": "attention_fwd_long", "tf32x3": "attention_fwd_tf32x3",
+                   "two_pass": "attention_fwd_two_pass",
                    "bwd_one_pass": "attention_bwd_one_pass",
                    "bwd_cluster": "attention_bwd_cluster",
                    "bwd_tf32x3": "attention_bwd_tf32x3",
@@ -1105,7 +1212,7 @@ def reset_routes() -> None:
 
 def read_routes() -> dict:
     """Launches by route in this process: forward {"one_pass", "cluster",
-    "tf32x3", "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
+    "long", "tf32x3", "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
     "bwd_tf32x3", "bwd_two_pass"}."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     return {key: getattr(kattn, fn).launches for key, fn in ROUTE_FUNCTIONS.items()}
@@ -1147,6 +1254,7 @@ def phase_slice(dev, cfg) -> tuple:
     img_300x500 = rng.standard_normal((224, 373, 3), dtype=np.float32)  # short side 224
     img_224x336 = rng.standard_normal((224, 336, 3), dtype=np.float32)
     img_448x672 = rng.standard_normal((448, 672, 3), dtype=np.float32)
+    img_224x2048 = rng.standard_normal((224, 2048, 3), dtype=np.float32)
     num_classes = len(VOC_CLASSES) + 1
 
     reset_counters()
@@ -1172,8 +1280,12 @@ def phase_slice(dev, cfg) -> tuple:
         ("224x336 whole", lambda: seg.predict(img_224x336, (224, 336), "whole"), (224, 336),
          num_classes),
         # 1176 patches: the vision and cross blocks' rows (Lk 1176, 1184) are
-        # past CLUSTER_LIMIT and take the two-pass kernel
+        # past CLUSTER_LIMIT and take the long kernel
         ("448x672 whole", lambda: seg.predict(img_448x672, (448, 672), "whole"), (448, 672),
+         num_classes),
+        # the eval CLIs' widest image (keep_ratio_resize: short side 224, long
+        # side at most 2048): 14 × 128 = 1792 patches, rows of 1792 and 1800
+        ("224x2048 whole", lambda: seg.predict(img_224x2048, (224, 2048), "whole"), (224, 2048),
          num_classes),
         ("224x224 group_map", lambda: seg.group_map(img_224), (224, 224), cfg.group_num),
     )
@@ -1201,10 +1313,12 @@ def phase_slice(dev, cfg) -> tuple:
     check(wide["cluster"] == long_rows and wide["one_pass"] == 14 - long_rows
           and wide["two_pass"] == 0, f"224x336 whole: attention by route {wide}; expected "
           f"{long_rows} (the first stage and cross blocks) on the cluster kernel")
-    large = request_routes["448x672 whole"]
-    check(large["two_pass"] == long_rows and large["one_pass"] == 14 - long_rows
-          and large["cluster"] == large["tf32x3"] == 0, f"448x672 whole: attention by route "
-          f"{large}; expected {long_rows} (the first stage and cross blocks) on the two-pass kernel")
+    for name in ("448x672 whole", "224x2048 whole"):
+        r = request_routes[name]
+        check(r["long"] == long_rows and r["one_pass"] == 14 - long_rows
+              and r["cluster"] == r["tf32x3"] == r["two_pass"] == 0, f"{name}: attention by "
+              f"route {r}; expected {long_rows} (the first stage and cross blocks) on the long "
+              "kernel")
 
     for name, fn, _, _ in requests:                   # warm latency, uncounted
         warm = sorted(timed(fn)[1] for _ in range(WARM_REQUESTS))
@@ -1213,9 +1327,10 @@ def phase_slice(dev, cfg) -> tuple:
     for logits in (seg.whole(img_224), seg.slide(img_300x500)):
         check(np.isfinite(logits).all(), "non-finite logits")
     print(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    # the phase's two-pass forwards: the 448x672 request's, counted once and warm
+    # the phase's long forwards: the 448x672 and 224x2048 requests', counted
+    # once and warm
     return (model, seg, requests, counts, per_request, wide["cluster"],
-            large["two_pass"] * (1 + WARM_REQUESTS))
+            2 * long_rows * (1 + WARM_REQUESTS))
 
 
 def train_path_counts(cfg) -> dict:
@@ -1382,8 +1497,8 @@ def phase_train(dev) -> tuple:
         counts = read_counters()
         routes = {k: n - routes[k] for k, n in read_routes().items()}
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
-        check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "tf32x3": 0,
-                         "two_pass": 0, "bwd_one_pass": expected["attention_bwd"],
+        check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "long": 0,
+                         "tf32x3": 0, "two_pass": 0, "bwd_one_pass": expected["attention_bwd"],
                          "bwd_cluster": 0, "bwd_tf32x3": 0, "bwd_two_pass": 0},
               f"step {i}: launches by route {routes}, expected every one of the "
               f"{expected['attention_fwd']} forwards and {expected['attention_bwd']} backwards "
@@ -1877,7 +1992,7 @@ def tensor_core_counts(library) -> dict:
     the bf16 attention kernels and the bf16 grouping kernel's 16-byte path
     must have tensor-core instructions, and every instance of the one-pass
     and the cluster kernels and of the float32 TF32x3 kernels, forward and
-    backward, HGMMA and TMA ones.
+    backward, and the bf16 long forward HGMMA and TMA ones.
     Returns the tensor-core instructions of each kernel of the kernels JSON
     line, by its name there (empty without cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1911,6 +2026,7 @@ def tensor_core_counts(library) -> dict:
                               ("attention_fwd_cluster_kernel", 3),
                               ("attention_bwd_cluster_kernel", 1),
                               ("attention_fwd_tf32x3_kernel", 4),
+                              ("attention_fwd_long_kernel", 2),
                               ("attention_bwd_tf32x3_kernel", 1)):
         hopper[prefix] = [k for k in counts if k.startswith(prefix)]
         check(len(hopper[prefix]) == instances, f"{prefix} instances in the SASS: {hopper[prefix]}")
@@ -1918,7 +2034,7 @@ def tensor_core_counts(library) -> dict:
             check(counts[kernel] > 0 and tma[kernel] > 0, f"{kernel}: {counts[kernel]} HGMMA "
                   f"and {tma[kernel]} TMA instructions in its SASS")
     return {"attention_fwd": sum(counts[k] for k in hopper["attention_fwd_cluster_kernel"]),
-            "attention_fwd_two_pass": counts["attention_fwd_bf16_kernel"],
+            "attention_fwd_long": sum(counts[k] for k in hopper["attention_fwd_long_kernel"]),
             "attention_fwd_one_pass": sum(
                 counts[k] for k in hopper["attention_fwd_one_pass_kernel"]),
             "attention_fwd_tf32x3": sum(counts[k] for k in hopper["attention_fwd_tf32x3_kernel"]),
@@ -1932,7 +2048,9 @@ def tensor_core_counts(library) -> dict:
 
 
 def phase_plain_self(dev, model, cfg) -> None:
-    """Phase 3: one float32 request on the card and on the CPU."""
+    """Phase 3: float32 whole requests on the card and on the CPU: 224x224,
+    and 448x672, whose 1176 patches' rows (1176, 1184 keys) take the TF32x3
+    kernel past 1024 keys on the card (its forwards' routes checked)."""
     from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
     from segclip_tpu_torch.evalseg.text_bank import build_text_bank
     from segclip_tpu_torch.models.segclip import SegCLIP
@@ -1940,30 +2058,38 @@ def phase_plain_self(dev, model, cfg) -> None:
     from segclip_tpu_torch.ops.kernels.grouping import group_assign
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    img = np.random.default_rng(1).standard_normal((224, 224, 3), dtype=np.float32)
+    rng = np.random.default_rng(1)
+    images = {"224x224": rng.standard_normal((224, 224, 3), dtype=np.float32),
+              "448x672": rng.standard_normal((448, 672, 3), dtype=np.float32)}
     logits = {}
     for device in (dev, torch.device("cpu")):
         m = SegCLIP(cfg32)
         m.load_state_dict(model.state_dict())
         m = m.to(device).eval()
-        counts = (attention.launches, group_assign.launches)
         bank = build_text_bank(m, VOC_CLASSES, "simple", cfg32.context_length)
         seg = ZeroShotSegmenter(m, bank, with_bg=True, bg_thresh=VOC_BG_THRESH,
                                 patch_size=cfg32.vision_patch_size)
-        logits[device.type] = seg.whole(img)
-        moved = (attention.launches, group_assign.launches) != counts
-        check(moved == (device.type == "cuda"),
-              f"{device}: kernel launches {'' if moved else 'not '}counted")
-    gpu, cpu = logits["cuda"], logits["cpu"]
-    diff = np.abs(gpu - cpu)
-    agree = float((diff.max(axis=0) <= E2E_PIXEL_TOL).mean())
-    argmax_agree = float((gpu.argmax(0) == cpu.argmax(0)).mean())
-    print(f"phase 3: float32 224x224 whole, card vs CPU: max |dlogit| "
-          f"{diff.max():.3e}, median {np.median(diff):.3e}; pixels within "
-          f"{E2E_PIXEL_TOL:g}: {agree:.5f}; argmax agree {argmax_agree:.5f}")
-    check(np.isfinite(gpu).all() and np.isfinite(cpu).all(), "non-finite logits")
-    check(agree >= E2E_MIN_AGREE, f"only {agree:.5f} of pixels agree")
-    check(argmax_agree >= E2E_MIN_AGREE, f"argmax agrees on {argmax_agree:.5f}")
+        for name, img in images.items():
+            counts, routes = (attention.launches, group_assign.launches), read_routes()
+            logits[name, device.type] = seg.whole(img)
+            moved = (attention.launches, group_assign.launches) != counts
+            check(moved == (device.type == "cuda"),
+                  f"{device}: kernel launches {'' if moved else 'not '}counted")
+            if device.type == "cuda":
+                r = {k: n - routes[k] for k, n in read_routes().items()}
+                check(r["tf32x3"] == 14 and sum(r.values()) == 14, f"float32 {name} whole: "
+                      f"attention by route {r}; expected all 14 on the TF32x3 kernel")
+    for name in images:
+        gpu, cpu = logits[name, "cuda"], logits[name, "cpu"]
+        diff = np.abs(gpu - cpu)
+        agree = float((diff.max(axis=0) <= E2E_PIXEL_TOL).mean())
+        argmax_agree = float((gpu.argmax(0) == cpu.argmax(0)).mean())
+        print(f"phase 3: float32 {name} whole, card vs CPU: max |dlogit| "
+              f"{diff.max():.3e}, median {np.median(diff):.3e}; pixels within "
+              f"{E2E_PIXEL_TOL:g}: {agree:.5f}; argmax agree {argmax_agree:.5f}")
+        check(np.isfinite(gpu).all() and np.isfinite(cpu).all(), f"{name}: non-finite logits")
+        check(agree >= E2E_MIN_AGREE, f"{name}: only {agree:.5f} of pixels agree")
+        check(argmax_agree >= E2E_MIN_AGREE, f"{name}: argmax agrees on {argmax_agree:.5f}")
 
 
 # Phase 7: OpenAI's file holds the CLIP towers only; these keep the seeded
@@ -3569,9 +3695,54 @@ def float32_paths() -> int:
     return 0
 
 
+def long_requests() -> int:
+    """`python3 chip_smoke.py long-requests`: phase 2's whole requests past
+    1024 patches alone, as a user runs them, with nothing checked: 448x672
+    (1176 patches) and 224x2048 (1792), each in bfloat16 and in float32 from
+    a ViT-B/16 seeded init, the warm median of 7 requests after a cold one,
+    then one profiled (device busy, idle share, the port's kernels). Uses
+    only what the port had before the long kernel, so that the same script
+    measures an older tree too."""
+    from segclip_tpu_torch.cli.eval_zeroshot import build_segmenter
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.evalseg.datasets import DATASET_SPECS
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.utils.device import resolve_device
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    build.load()
+    dev = resolve_device("cuda")                      # TF32 off
+    rng = np.random.default_rng(0)
+    images = {shape: rng.standard_normal((*shape, 3), dtype=np.float32)
+              for shape in ((448, 672), (224, 2048))}
+    for dtype in ("bfloat16", "float32"):
+        cfg = ModelConfig(compute_dtype=dtype)
+        seg = build_segmenter(init_segclip(cfg, seed=0, device=dev).eval(), cfg,
+                              DATASET_SPECS["voc"])
+        with torch.no_grad():
+            for (h, w), img in images.items():
+                def request():
+                    return seg.predict(img, (h, w), "whole")
+                walls = sorted(timed(request)[1] for _ in range(8))[:7]
+                print(f"{dtype} {h}x{w} whole request: warm median {walls[3]:.2f} ms (min "
+                      f"{walls[0]:.2f}, max {walls[-1]:.2f})")
+                print_profile(f"{dtype} {h}x{w} whole request", request)
+        del seg
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["study"]:                   # phase 10's subprocesses
         return study_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
+    if sys.argv[1:2] == ["long-requests"]:
+        return long_requests()
     if sys.argv[1:2] == ["profile-step"]:
         return profile_step(sys.argv[2])
     if sys.argv[1:2] == ["float32-paths"]:
@@ -3601,10 +3772,11 @@ def main() -> int:
     build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
     spilled = print_ptxas(build.build_log())
-    tf32x3 = {k: n for k, n in spilled.items()
-              if k.startswith(("attention_fwd_tf32x3_kernel", "attention_bwd_tf32x3_kernel"))}
-    check(len(tf32x3) == 5 and not any(tf32x3.values()),
-          f"the TF32x3 kernels' instances and their spill bytes: {tf32x3}")
+    no_spill = {k: n for k, n in spilled.items()
+                if k.startswith(("attention_fwd_tf32x3_kernel", "attention_bwd_tf32x3_kernel",
+                                 "attention_fwd_long_kernel"))}
+    check(len(no_spill) == 7 and not any(no_spill.values()),
+          f"the TF32x3 and long kernels' instances and their spill bytes: {no_spill}")
     hmma = tensor_core_counts(build.build())
 
     summary, timings = phase_kernels(dev)
@@ -3619,7 +3791,7 @@ def main() -> int:
 
     cfg = ModelConfig()
     (model, seg, requests, eval_counts, per_request, cluster_per_request,
-     eval_two_pass) = phase_slice(dev, cfg)
+     eval_long) = phase_slice(dev, cfg)
     mark("eval")
     phase_plain_self(dev, model, cfg)
     mark("eval_f32")
@@ -3653,16 +3825,16 @@ def main() -> int:
     routes = {path: {k: n - prev[k] for k, n in now.items()}
               for (_, prev), (path, now) in zip(marks, marks[1:])}
     print("launches by route on the main path, per phase (forward; backward): " + "; ".join(
-        f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['tf32x3']} tf32x3 / "
-        f"{r['two_pass']} two-pass; {r['bwd_one_pass']} one-pass / {r['bwd_cluster']} cluster "
-        f"/ {r['bwd_tf32x3']} tf32x3 / {r['bwd_two_pass']} two-pass"
+        f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['long']} long / "
+        f"{r['tf32x3']} tf32x3 / {r['two_pass']} two-pass; {r['bwd_one_pass']} one-pass / "
+        f"{r['bwd_cluster']} cluster / {r['bwd_tf32x3']} tf32x3 / {r['bwd_two_pass']} two-pass"
         for path, r in routes.items()))
     for path in ("eval", "remat_large"):      # the 224x336 request; 448 px and ViT-L/14
         check(routes[path]["cluster"] > 0, f"{path}: no forward on the cluster kernel")
     check(routes["remat_large"]["bwd_cluster"] > 0, "remat_large: no backward on the cluster kernel")
     for path in ("eval_f32", "train_f32", "drift"):   # float32 only: the TF32x3 kernels
         r = routes[path]
-        check(r["tf32x3"] > 0 and r["two_pass"] == r["one_pass"] == r["cluster"]
+        check(r["tf32x3"] > 0 and r["two_pass"] == r["one_pass"] == r["cluster"] == r["long"]
               == r["bwd_one_pass"] == r["bwd_cluster"] == r["bwd_two_pass"] == 0
               and (r["bwd_tf32x3"] > 0) == (path != "eval_f32"),
               f"{path} (float32): launches by route {r}")
@@ -3678,14 +3850,16 @@ def main() -> int:
     check(simt == {"remat_large": l14_f32_simt} and l14_f32_simt > 0,
           f"SIMT pair backwards on the main path: {simt} (expected {l14_f32_simt}, phase 12's "
           f"float32 ViT-L/14 cross rows of 264 keys, and no other)")
-    # every float32 forward of phases 2-14 on the TF32x3 kernel: the two-pass
-    # forward only for phase 2's bf16 rows past CLUSTER_LIMIT (448x672 whole)
-    elsewhere = {path: r["two_pass"] for path, r in routes.items() if r["two_pass"] and path != "eval"}
-    check(not elsewhere and routes["eval"]["two_pass"] == eval_two_pass,
-          f"two-pass forwards on the main path: {elsewhere}, eval {routes['eval']['two_pass']} "
-          f"(expected {eval_two_pass}, the 448x672 whole request's long rows)")
+    # no forward of phases 2-14 on the two-pass kernels: every float32 one on
+    # the TF32x3 kernel, the long kernel only for phase 2's bf16 rows past
+    # CLUSTER_LIMIT (the 448x672 and 224x2048 whole requests)
+    two_pass = {path: r["two_pass"] for path, r in routes.items() if r["two_pass"]}
+    long = {path: r["long"] for path, r in routes.items() if r["long"]}
+    check(not two_pass and long == {"eval": eval_long},
+          f"two-pass forwards on the main path: {two_pass}; long forwards: {long} (expected "
+          f"{eval_long}, the 448x672 and 224x2048 whole requests' long rows, in eval only)")
     for route in ROUTE_FUNCTIONS:
-        check(sum(r[route] for r in routes.values()) > 0,
+        check(route == "two_pass" or sum(r[route] for r in routes.values()) > 0,
               f"the {ROUTE_FUNCTIONS[route]} kernel was never launched on the main path")
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
                              b32_step, px448_step)
@@ -3695,7 +3869,7 @@ def main() -> int:
             ("attention_fwd_one_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_train", "one_pass"),
             ("attention_fwd", ATTN_SRC, ATTN_TPU, "attention_fwd_cluster", "cluster"),
             ("attention_fwd_tf32x3", ATTN_TF32_SRC, ATTN_TPU, "attention_fwd_tf32x3", "tf32x3"),
-            ("attention_fwd_two_pass", ATTN_SRC, ATTN_TPU, "attention_fwd_cluster", "two_pass"),
+            ("attention_fwd_long", ATTN_LONG_SRC, ATTN_TPU, "attention_fwd_long", "long"),
             ("attention_bwd_one_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_one_pass",
              "bwd_one_pass"),
             ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster", "bwd_cluster"),
@@ -3708,7 +3882,7 @@ def main() -> int:
         t = timings[summary[key]["timing"]]
         row = dict(rows[summary[key]["timing"]])
         err = summary[key]["max_abs_err"]
-        if name.endswith("two_pass"):    # PR 3's kernels, timed in turns beside the cluster kernels
+        if name.endswith("two_pass"):    # PR 3's backward, in turns beside the cluster kernels
             row["ms"], err = row["two_pass_ms"], summary[key]["two_pass_err"]
         if counter in ROUTE_FUNCTIONS:
             by_path = {path: r[counter] for path, r in routes.items()}
@@ -3717,7 +3891,7 @@ def main() -> int:
             step_launches = per_step[direction] if one else 0
             request_launches = (per_request[direction] if one else
                                 cluster_per_request if counter == "cluster" else
-                                eval_two_pass // (1 + WARM_REQUESTS) if counter == "two_pass"
+                                eval_long // (2 * (1 + WARM_REQUESTS)) if counter == "long"
                                 else 0)
         else:
             by_path = {"eval": eval_counts[counter], "train": train_counts[counter],
@@ -3744,6 +3918,7 @@ def main() -> int:
             entry["library_call"] = ("scaled_dot_product_attention forward, no P "
                                      f"({row['library_backend']})")
             entry["host_us"] = (summary["f32_host_us"][counter] if counter == "tf32x3"
+                                else summary["long_host_us"][counter] if counter == "long"
                                 else summary["host_us"][counter])
         if name == "attention_fwd_tf32x3":       # float32, TF32 off for the library call
             entry["library_call"] = ("scaled_dot_product_attention forward at float32, TF32 "
@@ -3754,8 +3929,12 @@ def main() -> int:
         if name.startswith("attention_bwd"):
             entry["host_us"] = (summary["f32_bwd_host_us"]["tf32x3"] if counter == "bwd_tf32x3"
                                 else summary["bwd_host_us"][counter[len("bwd_"):]])
-        if name.endswith(("one_pass", "tf32x3")) or name in ("attention_fwd", "attention_bwd"):
+        if name.endswith(("one_pass", "tf32x3", "long")) or name in ("attention_fwd",
+                                                                      "attention_bwd"):
             entry["two_pass_ms"] = row["two_pass_ms"]
+        if name == "attention_fwd_long":         # PR 3's two-pass kernel in turns beside it
+            entry.update(p_max_abs_err=summary[key]["p_err"],
+                         two_pass_host_us=summary["long_host_us"]["two_pass"])
         if name == "group_assign_st":
             mae = summary["grouping_st_mae"]
             mae_row = rows[mae["timing"]]

@@ -5,9 +5,11 @@
 // (reached through `attention_vmem`, called at :186) for float32 operands:
 // zero-shot eval at the reference's precision (`--compute-dtype float32`,
 // amp O0, the batching-invariant eval mode), the float32 training step, the
-// drift replay. `ops/kernels/attention.fwd_route` sends every float32 call
-// with Lk ≤ TF32X3_LIMIT (1024) here (`attention_fwd_tf32x3_kernel`); longer
-// float32 rows stay on attention_fwd.cu's SIMT kernel.
+// drift replay, and whole-image requests past 1024 patches at float32.
+// `ops/kernels/attention.fwd_route` sends every float32 call here
+// (`attention_fwd_tf32x3_kernel`), whatever its Lk; attention_fwd.cu's SIMT
+// kernel, which took the float32 rows past 1024 keys before, is reached by
+// no route.
 //
 // What it computes: the function and dtype chain of the float32 route, as
 // the SIMT kernel does. Scores q·kᵀ·scale + bias2d + biasb in fp32; columns
@@ -38,10 +40,13 @@
 //     (rows of at most 64 keys: one warpgroup, three blocks an SM).
 //     Rows of at most 256 keys are one chunk: one Q·Kᵀ, expf once per
 //     score, the row max and sum (each warpgroup's partial, combined through
-//     shared memory, warpgroup 0's first), p / l, then P·V. Rows of 257–1024
-//     keys: pass 1 finds m and l over the chunks (online, l rescaled as m
-//     grows), pass 2 computes each chunk's scores again, forms p = expf(s −
-//     m) / l, stores P and adds P·V. O is the two warpgroups' partials
+//     shared memory, warpgroup 0's first), p / l, then P·V. Longer rows,
+//     of any length: pass 1 finds m and l over the chunks (online, l
+//     rescaled as m grows), pass 2 computes each chunk's scores again, forms
+//     p = expf(s − m) / l, stores P and adds P·V. Past 1024 keys (a 448×672
+//     image's 1176, a 224×2048 image's 1792) only the number of chunks
+//     grows: the launch is the same one block per 64-row query tile, its
+//     shape a function of Lk alone, never of B·H. O is the two warpgroups' partials
 //     summed, warpgroup 0's first. P is normalised before P·V, so O is the
 //     same with and without P saved, and nothing in a row depends on
 //     another row, on the batch or on the launch: a batched decode equals
@@ -71,8 +76,10 @@
 //     while the last one's products run. Each block reads K and V once per
 //     query tile (K twice past 256 keys); they come from L2 after the first.
 //   - The exponential is `expf`, the division hopper.cuh's branch-free
-//     `div_normal` (exact for the l ≤ 1024 and p ≥ 2^-100 that occur, and
-//     within an ulp below). P and O leave from registers by 8-byte stores, a
+//     `div_normal`: correctly rounded for every l ≥ 1 and p ≥ 2^-100 (its
+//     proof for l ≤ 1024 scales with l's exponent; attention_fwd_long.cu
+//     says how, and chip_smoke.py's phase 1 holds it to IEEE `/` on the
+//     card), and within an ulp below. P and O leave from registers by 8-byte stores, a
 //     quad of threads writing 32 contiguous bytes of a row.
 
 #include <cuda_runtime.h>
@@ -86,8 +93,6 @@ namespace {
 
 using namespace segclip_hopper;
 
-// The longest rows the kernel takes (four chunks of four 64-key pieces).
-constexpr int TF32X3_LIMIT = 1024;
 constexpr int HDIM = 64;
 constexpr int MAX_NC = 4;                       // 64-key pieces of a chunk, all in shared memory
 constexpr int WG_THREADS = 128;
@@ -98,7 +103,6 @@ constexpr int HALF = F32_HALF;                  // 8192: 64 rows of 32 floats, o
 constexpr int PIECE = F32_PIECE;                // a 64 × 64 fp32 tile
 constexpr int K_OFF = 2 * PIECE;                // K piece i at K_OFF + 2i·PIECE: hi, lo
 constexpr int V_STRIDE = 3 * PIECE;             // V piece i at i·V_STRIDE: raw, Vᵀ hi, Vᵀ lo
-static_assert(TF32X3_LIMIT <= 4 * MAX_NC * TILE, "four chunks of MAX_NC pieces");
 
 // Shared memory for chunks of NC pieces: the Q·Kᵀ phase's Q and K tiles, or
 // the P·V phase's V tiles over the same bytes; then the row statistics'
@@ -519,10 +523,7 @@ using namespace segclip_kernels;
 
 extern "C" {
 
-// The longest Lk that `segclip_attention_fwd_tf32x3` takes.
-int segclip_attention_fwd_tf32x3_limit() { return TF32X3_LIMIT; }
-
-// The float32 TF32x3 kernel, for 1 ≤ Lk ≤ TF32X3_LIMIT. Strides are in
+// The float32 TF32x3 kernel, for any Lk ≥ 1. Strides are in
 // elements; the wrapper guarantees 16-byte aligned q, k, v and row and batch
 // strides (multiples of 4 elements), which the copies need. o is a
 // contiguous (B, Lq, H·64) tensor; p is null or a (B, H, Lq, p_rs) buffer
@@ -533,8 +534,7 @@ int segclip_attention_fwd_tf32x3(const void* q, const void* k, const void* v, co
                                  int lk, long long q_bs, long long q_rs, long long k_bs,
                                  long long k_rs, long long v_bs, long long v_rs, long long p_bs,
                                  long long p_hs, long long p_rs, float scale, void* stream) {
-  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || lk > TF32X3_LIMIT || batch > 65535 ||
-      heads > 65535)
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p && (p_rs < lk || p_rs % 8 || p_hs != lq * p_rs || p_bs != heads * p_hs))
     return static_cast<int>(cudaErrorInvalidValue);

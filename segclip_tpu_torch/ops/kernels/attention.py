@@ -1,7 +1,8 @@
 """Attention over (B, L, H·64) operands: the CUDA kernels
-`csrc/attention_fwd.cu`, `csrc/attention_fwd_tf32x3.cu` (forward),
-`csrc/attention_bwd.cu` and `csrc/attention_bwd_tf32x3.cu` (backward), their
-plain PyTorch versions, and the autograd Function that joins them.
+`csrc/attention_fwd.cu`, `csrc/attention_fwd_long.cu`,
+`csrc/attention_fwd_tf32x3.cu` (forward), `csrc/attention_bwd.cu` and
+`csrc/attention_bwd_tf32x3.cu` (backward), their plain PyTorch versions, and
+the autograd Function that joins them.
 
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 segclip_tpu/ops/pallas/attention.py (`attention_vmem` and its custom VJP).
@@ -12,24 +13,29 @@ they read the q|k|v column views of the packed projection in place (a row
 stride per operand), with no head transpose and no copy. The float32
 forward and backward run fp32-accurate split products on TF32 tensor
 cores (`csrc/attention_{fwd,bwd}_tf32x3.cu`: three TF32 products per fp32
-product, as PyTorch's float32 SDPA computes them); float32 rows past their
-limits (TF32X3_LIMIT, BWD_TF32X3_LIMIT keys) run fp32 FMAs (no TF32).
+product, as PyTorch's float32 SDPA computes them); float32 backward rows
+past BWD_TF32X3_LIMIT keys run fp32 FMAs (no TF32).
 
-The forward has four kernels, and `fwd_route` picks one by dtype and Lk
+The forward has four routes, and `fwd_route` picks one by dtype and Lk
 alone: bfloat16 rows of at most ONE_PASS_LIMIT keys (every row of the B = 96
 step and of the 224×224 request) go to the one-pass kernel (TMA copies,
 `wgmma`, whole score rows on chip); bf16 rows of up to CLUSTER_LIMIT keys
 (448 px's 784 and 792, ViT-L/14's cross 264, a 224×336 request's 294) to
 the cluster kernel (one thread-block cluster per (batch, head), each block
 one slab of keys, the row statistics and O summed through distributed
-shared memory); float32 rows of up to TF32X3_LIMIT keys (every float32 row
-of the model: float32 eval, the float32 step, the drift replay) to the
-TF32x3 kernel ("tf32x3"); longer rows of either dtype to the two-pass
-kernel. Nothing falls back: a launch that fails raises.
+shared memory); longer bf16 rows, from LONG_MIN_LK keys on (a 448×672
+request's 1176 and 1184, a 224×2048 request's 1792 and 1800), to the long
+kernel ("long": two passes over 64-key pieces streamed by TMA, two
+warpgroups per 64-row query tile, four for one-tile rows, `wgmma`); every float32 row, of any
+length (float32 eval, the float32 step, the drift replay), to the TF32x3
+kernel ("tf32x3"). Nothing falls back: a launch that fails raises.
 `attention.launches` counts every forward launch, and
 `attention_fwd_one_pass.launches`, `attention_fwd_cluster.launches`,
-`attention_fwd_tf32x3.launches` and `attention_fwd_two_pass.launches` each
+`attention_fwd_long.launches` and `attention_fwd_tf32x3.launches` each
 route's; those four functions launch their kernel directly.
+`attention_fwd_two_pass` launches the two-pass kernels (bf16 on `mma.sync`,
+float32 on FMAs) directly, with its own counter: no route reaches them, and
+chip_smoke.py times them beside the routes' kernels.
 
 The backward has four kernels too, and `bwd_route` picks one by dtype and
 Lk alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward
@@ -77,9 +83,9 @@ BWD_ONE_PASS_LIMIT = 256
 # which the library reports (`cluster_limit`, `bwd_cluster_limit`).
 CLUSTER_LIMIT = 1024
 BWD_CLUSTER_LIMIT = 1024
-# The longest float32 rows the TF32x3 forward takes: TF32X3_LIMIT of
-# csrc/attention_fwd_tf32x3.cu, which the library reports (`tf32x3_limit`).
-TF32X3_LIMIT = 1024
+# The shortest bf16 rows the long kernel takes: LONG_MIN_LK of
+# csrc/attention_fwd_long.cu, which the library reports (`long_min_lk`).
+LONG_MIN_LK = 1025
 # The longest float32 rows the TF32x3 backward takes: BWD_TF32X3_LIMIT of
 # csrc/attention_bwd_tf32x3.cu (`bwd_tf32x3_limit`).
 BWD_TF32X3_LIMIT = 256
@@ -224,30 +230,51 @@ def _tf32x3_entry():
 
 
 @lru_cache(maxsize=None)
-def tf32x3_limit() -> int:
-    """The longest Lk the float32 TF32x3 kernel takes, as the library
-    reports it (`segclip_attention_fwd_tf32x3_limit`); TF32X3_LIMIT mirrors
-    it."""
-    fn = build.load().segclip_attention_fwd_tf32x3_limit
+def _long_entry():
+    fn = build.load().segclip_attention_fwd_long
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def long_min_lk() -> int:
+    """The shortest Lk the bf16 long kernel takes, as the library reports it
+    (`segclip_attention_fwd_long_min_lk`); LONG_MIN_LK mirrors it."""
+    fn = build.load().segclip_attention_fwd_long_min_lk
     fn.argtypes, fn.restype = [], ctypes.c_int
     return fn()
 
 
-def _routes3(dtype, lk, limit, cluster) -> str:
-    if dtype != torch.bfloat16 or lk > cluster:
-        return "two_pass"
-    return "one_pass" if lk <= limit else "cluster"
+def division_check(p: torch.Tensor, l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernels' branch-free division (hopper.cuh `div_normal`)
+    and IEEE p / l on the card, for float32 CUDA tensors p and l of one
+    shape: (fast, ieee). chip_smoke.py holds the two equal over the range of
+    l the kernels meet."""
+    if (p.shape != l.shape or {p.dtype, l.dtype} != {torch.float32}
+            or p.device.type != "cuda" or l.device != p.device):
+        raise ValueError("p and l must be float32 CUDA tensors of one shape")
+    fn = build.load().segclip_attention_division_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p, l = p.contiguous(), l.contiguous()
+    fast, ieee = torch.empty_like(p), torch.empty_like(p)
+    with torch.cuda.device(p.device):
+        build.check(fn(p.data_ptr(), l.data_ptr(), fast.data_ptr(), ieee.data_ptr(), p.numel(),
+                       torch._C._cuda_getCurrentRawStream(p.device.index)), "division check")
+    return fast, ieee
 
 
 def fwd_route(dtype: torch.dtype, lk: int, limit: int = ONE_PASS_LIMIT,
-              cluster: int = CLUSTER_LIMIT, tf32x3: int = TF32X3_LIMIT) -> str:
+              cluster: int = CLUSTER_LIMIT) -> str:
     """Which forward kernel takes a call on the card, by its dtype and Lk
     alone: "one_pass" for bfloat16 rows of at most `limit` keys, "cluster"
-    for bf16 rows of up to `cluster` keys, "tf32x3" for float32 rows of up
-    to `tf32x3` keys, else "two_pass" (longer rows of either dtype)."""
+    for bf16 rows of up to `cluster` keys, "long" for longer bf16 rows, and
+    "tf32x3" for every float32 row."""
     if dtype == torch.float32:
-        return "tf32x3" if lk <= tf32x3 else "two_pass"
-    return _routes3(dtype, lk, limit, cluster)
+        return "tf32x3"
+    return "one_pass" if lk <= limit else "cluster" if lk <= cluster else "long"
 
 
 @lru_cache(maxsize=None)
@@ -346,7 +373,9 @@ def bwd_route(dtype: torch.dtype, lk: int, limit: int = BWD_ONE_PASS_LIMIT,
     to `tf32x3` keys, else "two_pass" (longer rows of either dtype)."""
     if dtype == torch.float32:
         return "tf32x3" if lk <= tf32x3 else "two_pass"
-    return _routes3(dtype, lk, limit, cluster)
+    if lk > cluster:
+        return "two_pass"
+    return "one_pass" if lk <= limit else "cluster"
 
 
 def _check(q, k, v, bias2d, biasb):
@@ -447,9 +476,10 @@ def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
     """One launch of a forward kernel on CUDA tensors (checked): "one_pass"
     (`segclip_attention_fwd_one_pass`, bf16, Lk ≤ the limit), "cluster"
     (`segclip_attention_fwd_cluster`, bf16, the limit < Lk ≤ the cluster
-    limit), "tf32x3" (`segclip_attention_fwd_tf32x3`, float32, Lk ≤ its
-    limit) or "two_pass" (`segclip_attention_fwd`). Returns (out, P or
-    None). The training step
+    limit), "long" (`segclip_attention_fwd_long`, bf16, Lk ≥ its lower
+    limit), "tf32x3" (`segclip_attention_fwd_tf32x3`, float32, any Lk) or
+    "two_pass" (`segclip_attention_fwd`). Returns (out, P or None). The
+    training step
     is host-bound, so the stream comes as a raw handle and the device is
     switched only when the tensors are not on the current one."""
     device = q.device
@@ -472,10 +502,14 @@ def _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p):
                              f"to {cluster_limit()} keys, got {q.dtype}, Lk = {lk}")
         cluster_shape("fwd", lk, b * heads, device.index)
         entry, dtype = _cluster_entry(), ()
+    elif route == "long":
+        if q.dtype != torch.bfloat16 or lk < long_min_lk():
+            raise ValueError(f"the long kernel takes bfloat16 rows of at least "
+                             f"{long_min_lk()} keys, got {q.dtype}, Lk = {lk}")
+        entry, dtype = _long_entry(), ()
     elif route == "tf32x3":
-        if q.dtype != torch.float32 or lk > tf32x3_limit():
-            raise ValueError(f"the TF32x3 kernel takes float32 rows of at most "
-                             f"{tf32x3_limit()} keys, got {q.dtype}, Lk = {lk}")
+        if q.dtype != torch.float32:
+            raise ValueError(f"the TF32x3 kernel takes float32 rows, got {q.dtype}")
         entry, dtype = _tf32x3_entry(), ()
     else:
         entry, dtype = _fwd_entry(), (_DTYPES[q.dtype],)
@@ -532,14 +566,26 @@ def attention_fwd_cluster(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fwd_route_call("cluster", q, k, v, bias2d, biasb, scale, save_p)
 
 
+def attention_fwd_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias2d: Optional[torch.Tensor] = None,
+                       biasb: Optional[torch.Tensor] = None,
+                       scale: float = HEAD_DIM ** -0.5, save_p: bool = False
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The bf16 long-row forward kernel alone (Lk ≥ its lower limit; it
+    raises on anything else), as `attention_fwd` returns; the plain version
+    on the CPU. `attention_fwd` routes to it; chip_smoke.py times it
+    directly."""
+    return _fwd_route_call("long", q, k, v, bias2d, biasb, scale, save_p)
+
+
 def attention_fwd_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias2d: Optional[torch.Tensor] = None,
                          biasb: Optional[torch.Tensor] = None,
                          scale: float = HEAD_DIM ** -0.5, save_p: bool = False
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The float32 TF32x3 forward kernel alone (Lk ≤ its limit; it raises
-    on anything else), as `attention_fwd` returns; the plain version on the
-    CPU. `attention_fwd` routes to it; chip_smoke.py times it directly."""
+    """The float32 TF32x3 forward kernel alone (any Lk; it raises on
+    bfloat16), as `attention_fwd` returns; the plain version on the CPU.
+    `attention_fwd` routes to it; chip_smoke.py times it directly."""
     return _fwd_route_call("tf32x3", q, k, v, bias2d, biasb, scale, save_p)
 
 
@@ -548,14 +594,16 @@ def attention_fwd_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            biasb: Optional[torch.Tensor] = None,
                            scale: float = HEAD_DIM ** -0.5, save_p: bool = False
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The two-pass forward kernel alone (bf16 on tensor cores, float32 on
-    FMAs; any Lk), as `attention_fwd` returns; the plain version on the
-    CPU. `attention_fwd` routes to it; chip_smoke.py times it directly."""
+    """The two-pass forward kernels alone (PR 3's bf16 kernel on
+    `mma.sync`, PR 1's float32 kernel on FMAs; any Lk), as `attention_fwd`
+    returns; the plain version on the CPU. No route of `attention_fwd`
+    reaches them; chip_smoke.py times them beside the routes' kernels."""
     return _fwd_route_call("two_pass", q, k, v, bias2d, biasb, scale, save_p)
 
 
 _ROUTES = {"one_pass": attention_fwd_one_pass, "cluster": attention_fwd_cluster,
-           "tf32x3": attention_fwd_tf32x3, "two_pass": attention_fwd_two_pass}
+           "long": attention_fwd_long, "tf32x3": attention_fwd_tf32x3,
+           "two_pass": attention_fwd_two_pass}
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -575,7 +623,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, (p if save_p else None)
     bf16 = q.dtype == torch.bfloat16
     route = (fwd_route(q.dtype, k.shape[1], one_pass_limit(), cluster_limit()) if bf16
-             else fwd_route(q.dtype, k.shape[1], tf32x3=tf32x3_limit()))
+             else fwd_route(q.dtype, k.shape[1]))
     out, p = _launch_fwd(route, q, k, v, bias2d, biasb, scale, save_p)
     _ROUTES[route].launches += 1
     attention.launches += 1
@@ -768,8 +816,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention.launches = 0          # forward kernel launches, every route
 attention_fwd_one_pass.launches = 0     # forward launches of the one-pass kernel
 attention_fwd_cluster.launches = 0      # forward launches of the cluster kernel
+attention_fwd_long.launches = 0         # forward launches of the bf16 long-row kernel
 attention_fwd_tf32x3.launches = 0       # forward launches of the float32 TF32x3 kernel
-attention_fwd_two_pass.launches = 0     # forward launches of the two-pass kernels
+attention_fwd_two_pass.launches = 0     # direct launches of the two-pass kernels (no route)
 attention_bwd.launches = 0      # backward kernel launches, every route
 attention_bwd_one_pass.launches = 0     # backward launches of the one-pass kernel
 attention_bwd_cluster.launches = 0      # backward launches of the cluster kernel

@@ -923,17 +923,20 @@ def test_bf16_cluster_limit_mirrors_the_library():
 
 @pytest.mark.parametrize("lk", [1024, 1025])
 def test_bf16_cluster_route_at_its_limit(cuda, lk):
-    """CLUSTER_LIMIT keys take the cluster kernels, one more the two-pass
-    kernels; the cluster functions refuse what they do not take."""
+    """CLUSTER_LIMIT keys take the cluster kernels, one more the long
+    forward and the two-pass backward; the cluster functions refuse what
+    they do not take."""
     from segclip_tpu_torch.ops.kernels.attention import (
-        CLUSTER_LIMIT, attention_bwd_cluster, attention_fwd_cluster, fwd_route)
+        CLUSTER_LIMIT, attention_bwd_cluster, attention_fwd_cluster, attention_fwd_long,
+        fwd_route)
     p, do, q, k, v = _bwd_case(cuda, 1, 17, lk, 2, None, True, seed=lk)
-    routes = _cluster_routes()
+    routes, long = _cluster_routes(), attention_fwd_long.launches
     attention_bwd(p, do, q, k, v)
     attention(q, k, v)
     inside = int(lk <= CLUSTER_LIMIT)
-    assert fwd_route(torch.bfloat16, lk) == ("cluster" if inside else "two_pass")
+    assert fwd_route(torch.bfloat16, lk) == ("cluster" if inside else "long")
     assert _cluster_routes() == (routes[0] + inside, routes[1] + inside)
+    assert attention_fwd_long.launches == long + 1 - inside
     if not inside:
         with pytest.raises(ValueError, match="cluster"):
             attention_fwd_cluster(q, k, v)
@@ -1036,10 +1039,11 @@ def test_bf16_cluster_reads_views_in_place_and_repeats_bit_for_bit(cuda):
 # The float32 TF32x3 forward (csrc/attention_fwd_tf32x3.cu,
 # attention_fwd_tf32x3_kernel: one block per 64-row query tile of one (batch,
 # head), fp32-accurate split products on TF32 wgmma, TMA copies): every
-# float32 row of up to TF32X3_LIMIT keys, held to the plain version within the
-# float32 tolerances (2e-5, P 1e-5). The lengths meet every edge of its
-# 64-row tiles, 64-key pieces and 8-key steps, its whole-row (≤ 256 keys) and
-# chunked (257-1024) paths, and the path's rows (196, 204, 294, 302, 784).
+# float32 row, of any length, held to the plain version within the float32
+# tolerances (2e-5, P 1e-5). The lengths meet every edge of its 64-row
+# tiles, 64-key pieces and 8-key steps, its whole-row (≤ 256 keys) and
+# chunked paths, and the path's rows (196, 204, 294, 302, 784); the rows
+# past 1024 keys have tests of their own below.
 TF32_LENGTHS = (1, 3, 7, 8, 9, 63, 64, 65, 196, 204, 256, 257, 294, 302, 784, 1024)
 
 
@@ -1159,19 +1163,148 @@ def test_tf32x3_reads_packed_views_in_place_and_refuses_misaligned_operands(cuda
 
 @pytest.mark.parametrize("lk", [1024, 1025])
 def test_float32_forward_route_at_the_limit(cuda, lk):
-    """`attention_fwd` sends float32 rows of up to TF32X3_LIMIT keys to the
-    TF32x3 kernel and longer ones to the SIMT two-pass kernel."""
+    """`attention_fwd` sends float32 rows on either side of 1024 keys to the
+    TF32x3 kernel, which has no length limit; no route reaches the SIMT
+    two-pass kernel."""
     from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_tf32x3,
-                                                         attention_fwd_two_pass, tf32x3_limit)
-    assert tf32x3_limit() == 1024
+                                                         attention_fwd_two_pass)
     q, k, v, _, _ = _f32_case(cuda, 1, 40, lk, 2, seed=lk, cross=True)
     routes = (attention_fwd_tf32x3.launches, attention_fwd_two_pass.launches)
     out, p = attention_fwd(q, k, v, save_p=True)
     moved = (attention_fwd_tf32x3.launches - routes[0], attention_fwd_two_pass.launches - routes[1])
-    assert moved == ((1, 0) if lk <= 1024 else (0, 1))
+    assert moved == (1, 0)
     ref, p_ref = attention_fwd_plain(q, k, v)
     assert (out - ref).abs().max().item() <= ATTN_TOL[torch.float32]
     assert (p - p_ref).abs().max().item() <= 1e-5
+
+
+# Rows past 1024 keys (whole-image requests over 1024 patches): the bf16 long
+# forward (csrc/attention_fwd_long.cu, attention_fwd_long_kernel: two passes
+# over 64-key pieces streamed by TMA, two warpgroups per 64-row query tile,
+# wgmma) and the float32 TF32x3 forward past its old 1024-key limit. Each case
+# holds the routed call (which must take the kernel) to the plain version
+# (bf16: the share rule; float32: 2e-5, P 1e-5), O to the same bits with and
+# without P, P's padding columns to zero, and the bf16 kernel to PR 3's
+# two-pass kernel on the same inputs by the same rules.
+LONG_MAIN_PATH = [               # (B, Lq, Lk, H, cross): 448x672 and 224x2048 whole requests
+    (1, 1176, 1176, 12, False), (1, 8, 1184, 12, True), (1, 1792, 1792, 12, False),
+    (1, 8, 1800, 12, True)]
+LONG_EDGES = [                   # Lq ragged against the 64-row tiles, Lk against the pieces
+    (2, lq, lk, 2, True) for lq in (1, 8, 63, 65, 130) for lk in (1025, 1087, 1088, 1089, 2049)]
+
+
+def _long_case(cuda, dtype, b, lq, lk, h, cross, seed, bias=None):
+    if dtype == torch.float32:
+        return _f32_case(cuda, b, lq, lk, h, bias, seed=seed, cross=cross)
+    return _one_pass_case(cuda, b, lq, lk, h, bias, cross, seed)
+
+
+def _long_matches_plain(q, k, v, bias2d=None, biasb=None):
+    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd_long,
+                                                         attention_fwd_tf32x3,
+                                                         attention_fwd_two_pass)
+    bf16 = q.dtype == torch.bfloat16
+    routed = attention_fwd_long if bf16 else attention_fwd_tf32x3
+    before = routed.launches
+    out, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    bare, none = routed(q, k, v, bias2d, biasb)
+    assert routed.launches == before + 2 and none is None
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d, biasb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare) and torch.isfinite(out).all()
+    pairs = [(out, ref), (p, p_ref)]
+    if bf16:
+        pairs += list(zip(attention_fwd_two_pass(q, k, v, bias2d, biasb, save_p=True),
+                          (ref, p_ref)))
+        for got, want in pairs:
+            assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[torch.bfloat16]
+            _assert_bf16_close(got, want)
+    else:
+        assert (out - ref).abs().max().item() <= ATTN_TOL[torch.float32]
+        assert (p - p_ref).abs().max().item() <= 1e-5
+    lk = k.shape[1]
+    full = p.as_strided((*p.shape[:3], (lk + 7) // 8 * 8), p.stride())
+    assert torch.equal(full[..., lk:], torch.zeros_like(full[..., lk:]))
+    return out, p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, lq, lk, h, cross", LONG_MAIN_PATH + LONG_EDGES)
+def test_long_rows_match_plain(cuda, dtype, b, lq, lk, h, cross):
+    _long_matches_plain(*_long_case(cuda, dtype, b, lq, lk, h, cross, seed=lq * 3 + lk)[:3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+def test_long_rows_biases(cuda, dtype, bias):
+    """Causal bias2d, and padding biasb with one sample padded everywhere but
+    its first key."""
+    q, k, v, bias2d, biasb = _long_case(cuda, dtype, 3, 1100, 1100, 2, False, seed=11,
+                                        bias=bias)[:5]
+    if biasb is not None:
+        biasb[1, 1:] = -1e6
+    _long_matches_plain(q, k, v, bias2d, biasb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_rows_fully_masked_row_is_nan_like_the_plain_version(cuda, dtype):
+    q, k, v = _long_case(cuda, dtype, 1, 70, 1100, 1, True, seed=5)[:3]
+    bias2d = torch.zeros(70, 1100, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    out, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    ref, p_ref = attention_fwd_plain(q, k, v, bias2d)
+    assert torch.isnan(out[0, 66]).all() and torch.isnan(ref[0, 66]).all()
+    assert torch.isnan(p[0, 0, 66].float()).all()
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    assert (out[:, keep].float() - ref[:, keep].float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq, lk", [(1176, 1176), (8, 1184)])
+def test_long_rows_do_not_depend_on_the_batch(cuda, dtype, lq, lk):
+    """Each (batch, head) row of a batch of 3 is the same bits as the row of
+    that element alone, and two calls give the same bits."""
+    q, k, v = _long_case(cuda, dtype, 3, lq, lk, 12, lq != lk, seed=lk)[:3]
+    out, p = attention_fwd(q, k, v, save_p=True)
+    again = attention_fwd(q, k, v, save_p=True)
+    assert torch.equal(out, again[0]) and torch.equal(p, again[1])
+    for i in range(3):
+        one, p_one = attention_fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1], save_p=True)
+        assert torch.equal(one, out[i:i + 1]) and torch.equal(p_one, p[i:i + 1])
+
+
+def test_long_kernel_limit_and_refusals(cuda):
+    """The library's lower limit is LONG_MIN_LK, one past the cluster
+    kernel's; the long function refuses shorter rows, float32 and
+    misaligned views."""
+    from segclip_tpu_torch.ops.kernels.attention import (CLUSTER_LIMIT, LONG_MIN_LK,
+                                                         attention_fwd_long, cluster_limit,
+                                                         long_min_lk)
+    assert long_min_lk() == LONG_MIN_LK == cluster_limit() + 1 == CLUSTER_LIMIT + 1
+    q, k, v = _long_case(cuda, torch.bfloat16, 1, 17, 1024, 2, True, seed=1)[:3]
+    with pytest.raises(ValueError, match="long"):
+        attention_fwd_long(q, k, v)
+    q, k, v = _long_case(cuda, torch.bfloat16, 1, 17, 1100, 2, True, seed=1)[:3]
+    with pytest.raises(ValueError, match="long"):
+        attention_fwd_long(q.float(), k.float(), v.float())
+    x = torch.randn(1, 1100, 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fwd_long(x[..., 1:65], x[..., 65:129], x[..., 129:193])
+
+
+def test_division_is_ieee_over_the_rows_lengths(cuda):
+    """hopper.cuh's branch-free div_normal equals IEEE `/` bit for bit over
+    every significand of l in [1, 2) at 2^0, 2^10 and 2^13 (rows of up to
+    16384 keys), p random in [2^-100, 1]."""
+    from segclip_tpu_torch.ops.kernels.attention import division_check
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sig = 1 + torch.arange(2 ** 23, device=cuda, dtype=torch.float64) / 2 ** 23
+    for e in (0, 10, 13):
+        l = (sig * 2.0 ** e).float()
+        p = torch.exp2(-100 * torch.rand(l.shape, generator=gen, device=cuda))
+        fast, ieee = division_check(p, l)
+        assert torch.equal(fast.view(torch.int32), ieee.view(torch.int32))
 
 
 # The float32 TF32x3 backward (csrc/attention_bwd_tf32x3.cu,

@@ -98,7 +98,12 @@ ATTN_CASES = [
     # rows past the one-pass limit (256): the cluster kernels' route on the card
     ("cross_8x264", 2, 8, 264, 2, None),
     ("self_300", 1, 300, 300, 2, None),
+    # rows past CLUSTER_LIMIT (1024): the long kernel's route (bf16) and the
+    # TF32x3 kernel's (float32) on the card
+    ("self_1100", 1, 1100, 1100, 2, None),
+    ("cross_8x1108_padding", 2, 8, 1108, 2, "padding"),
 ]
+LONG_CASES = [c for c in ATTN_CASES if c[3] > 1024]
 
 
 def _biases(rng, name, b, lq, lk):
@@ -135,6 +140,29 @@ def test_plain_attention_matches_jax(case):
                               None if biasb is None else jnp.asarray(biasb),
                               64 ** -0.5, True)
         np.testing.assert_allclose(_np(out), np.asarray(vmem), atol=TOL)
+
+
+@pytest.mark.parametrize("case", LONG_CASES, ids=[c[0] for c in LONG_CASES])
+def test_plain_attention_matches_jax_in_bf16_past_1024_keys(case):
+    """The bf16 chain on rows past 1024 keys (the long kernel's oracle):
+    the plain version against JAX's `sdpa` and the TPU kernel
+    (`attention_vmem`, interpret mode) on the same bf16 inputs, within the
+    bf16 share rule (ATTN_BF16_SHARE of outputs more than one ulp apart)."""
+    name, b, lq, lk, h, bias = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v = (_t(x).to(torch.bfloat16) for x in _qkv(rng, b, lq, lk, h))
+    bias2d, biasb = _biases(rng, bias, b, lq, lk)
+    tbb = None if biasb is None else _t(biasb)
+    out = attention_plain(q, k, v, None, tbb)
+    assert out.dtype == torch.bfloat16
+    jq, jk, jv = (_to_jax_bf16(x) for x in (q, k, v))
+    ref = _jax_attention(jq, jk, jv, h, None if biasb is None
+                         else jnp.asarray(biasb)[:, None, None, :])
+    vmem = attention_vmem(jq, jk, jv, None, None if biasb is None else jnp.asarray(biasb),
+                          64 ** -0.5, True)
+    for want in (ref, np.asarray(vmem)):
+        ulps = bf16_ulps(out, torch.from_numpy(want.astype(np.float32)))
+        assert (ulps > 1).float().mean().item() <= ATTN_BF16_SHARE, name
 
 
 def _jax_attention(q, k, v, h, bias=None):
@@ -603,9 +631,9 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     goes to the one-pass kernel, as do ViT-L/14's 256 and ViT-B/32's 49 and
     57; the longer rows up to CLUSTER_LIMIT (ViT-L/14's cross 264, a 224×336
     image's 294, 448 px's 784 and 792, 257) to the cluster kernel; bf16 rows
-    past CLUSTER_LIMIT (a 448×672 image's 1176 and 1184) to the two-pass
-    kernel; every float32 row of the path (up to TF32X3_LIMIT) to the TF32x3
-    kernel, longer float32 rows to the two-pass kernel."""
+    past CLUSTER_LIMIT (a 448×672 image's 1176 and 1184, a 224×2048 image's
+    1792 and 1800) to the long kernel; every float32 row, of any length, to
+    the TF32x3 kernel. No route reaches the two-pass kernels."""
     from segclip_tpu_torch.config import ModelConfig
     from segclip_tpu_torch.ops.kernels.attention import (CLUSTER_LIMIT, ONE_PASS_LIMIT,
                                                          fwd_route)
@@ -613,7 +641,8 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     step = smoke.step_shapes("train", ModelConfig(), 96)[0]
     assert sorted({c[3] for c in step}) == [8, 32, 48, 56, 196, 204]
     request = {c[3] for c in smoke.ATTN_CASES if c[1] <= 2 and "294" not in c[0]
-               and "1176" not in c[0] and "b32" not in c[0]} | {ModelConfig().context_length}
+               and "1176" not in c[0] and "2048" not in c[0] and "b32" not in c[0]}
+    request |= {ModelConfig().context_length}
     assert request == {8, 77, 196, 204}
     b32 = {c[3] for c in smoke.step_shapes("b32", smoke.b32_config(), 96)[0]}
     l14 = {c[3] for c in smoke.step_shapes("l14", smoke.large_config("l14", False), 32)[0]}
@@ -623,12 +652,12 @@ def test_forward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
         assert fwd_route(torch.bfloat16, lk) == "one_pass", lk
     for lk in (264, 294, 784, 792, 257, ONE_PASS_LIMIT + 1, CLUSTER_LIMIT):
         assert fwd_route(torch.bfloat16, lk) == "cluster", lk
-    for lk in (CLUSTER_LIMIT + 1, 2 * CLUSTER_LIMIT, 1176, 1184):
-        assert fwd_route(torch.bfloat16, lk) == "two_pass", lk
-    for lk in (8, 196, 256, 264, 784, CLUSTER_LIMIT):
+    long = {c[3] for c in smoke.ATTN_CASES if c[3] > CLUSTER_LIMIT}
+    assert long == {1176, 1184, 1792, 1800}
+    for lk in long | {CLUSTER_LIMIT + 1, 2 * CLUSTER_LIMIT, 100_000}:
+        assert fwd_route(torch.bfloat16, lk) == "long", lk
+    for lk in {8, 196, 256, 264, 784, CLUSTER_LIMIT, CLUSTER_LIMIT + 1, 100_000} | long:
         assert fwd_route(torch.float32, lk) == "tf32x3", lk
-    for lk in (CLUSTER_LIMIT + 1, 1176):
-        assert fwd_route(torch.float32, lk) == "two_pass", lk
 
 
 def test_one_pass_limit_mirrors_the_cuda_constant():
@@ -642,6 +671,27 @@ def test_one_pass_limit_mirrors_the_cuda_constant():
     assert re.findall(r"constexpr int ONE_PASS_LIMIT = (\d+);", text) == [str(ONE_PASS_LIMIT)]
     assert ONE_PASS_LIMIT >= 256
     assert "int segclip_attention_fwd_one_pass_limit() { return ONE_PASS_LIMIT; }" in text
+
+
+def test_long_min_lk_mirrors_the_cuda_constant():
+    """LONG_MIN_LK in the wrapper is csrc/attention_fwd_long.cu's constant
+    (read from the source), which the library reports and the kernel's
+    entry point enforces: one past CLUSTER_LIMIT, so that every bf16 row
+    has a kernel. The source's header says which TPU kernel it replaces,
+    what bounds it and what its design does."""
+    import re
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.ops.kernels.attention import CLUSTER_LIMIT, LONG_MIN_LK
+    text = (build.CSRC / "attention_fwd_long.cu").read_text()
+    assert re.findall(r"constexpr int LONG_MIN_LK = (\d+);", text) == [str(LONG_MIN_LK)]
+    assert LONG_MIN_LK == CLUSTER_LIMIT + 1
+    assert "int segclip_attention_fwd_long_min_lk() { return LONG_MIN_LK; }" in text
+    assert "lk < LONG_MIN_LK" in text
+    header = text[:text.index("#include")]
+    for needle in ("segclip_tpu/ops/pallas/attention.py", "_fwd_kernel", "operations",
+                   "0.0043 ms", "TMA", "mbarrier", "wgmma", "transpose bit",
+                   "attention_fwd_long_kernel", "div_normal", "IEEE", "bits"):
+        assert needle in header, needle
 
 
 def test_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
@@ -663,25 +713,26 @@ def test_one_pass_source_header_names_its_tpu_kernel_bound_and_design():
     assert '#include "hopper.cuh"' in text
 
 
-@pytest.mark.parametrize("route", ["one_pass", "cluster", "tf32x3", "two_pass"])
+@pytest.mark.parametrize("route", ["one_pass", "cluster", "long", "tf32x3", "two_pass"])
 def test_forward_routes_take_the_plain_version_on_the_cpu(route):
     """Each route's function, given CPU tensors, returns the plain version's
-    output and P and launches nothing (no counter moves); the cluster
-    function at rows past the one-pass limit, where it runs on the card, and
-    the TF32x3 function at float32."""
+    output and P and launches nothing (no counter moves); the cluster and
+    the long functions at rows past their lower limits, where they run on
+    the card, and the TF32x3 function at float32."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     rng = np.random.default_rng(5)
-    lk = 300 if route == "cluster" else 9
+    lk = {"cluster": 300, "long": 1100}.get(route, 9)
     qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32))
     qkv = qkv if route == "tf32x3" else qkv.to(torch.bfloat16)
     q, k, v = qkv[:, :9, :128], qkv[..., 128:256], qkv[..., 256:]
     fn = {"one_pass": kattn.attention_fwd_one_pass, "cluster": kattn.attention_fwd_cluster,
-          "tf32x3": kattn.attention_fwd_tf32x3, "two_pass": kattn.attention_fwd_two_pass}[route]
+          "long": kattn.attention_fwd_long, "tf32x3": kattn.attention_fwd_tf32x3,
+          "two_pass": kattn.attention_fwd_two_pass}[route]
 
     def counts():
         return (kattn.attention.launches, kattn.attention_fwd_one_pass.launches,
-                kattn.attention_fwd_cluster.launches, kattn.attention_fwd_tf32x3.launches,
-                kattn.attention_fwd_two_pass.launches)
+                kattn.attention_fwd_cluster.launches, kattn.attention_fwd_long.launches,
+                kattn.attention_fwd_tf32x3.launches, kattn.attention_fwd_two_pass.launches)
     before = counts()
     out, p = fn(q, k, v, save_p=True)
     ref, p_ref = kattn.attention_fwd_plain(q, k, v)

@@ -9,11 +9,15 @@ ties away, from the float32 bits, as `cvt.rna.tf32.f32`), lo = the TF32
 rounding of x − hi; each product lo·hi + hi·lo + hi·hi, 8-wide k-steps
 summed into a float32 accumulator in the kernel's order; the softmax in
 float32 with the kernel's chunks of four 64-key pieces, each chunk's pieces
-shared by two warpgroups whose partials are summed. At the float32 shapes of chip_smoke.py's phase 1 (batch cut
-to 2: the kernel's rows do not depend on one another) it holds O within
-2e-6 and P within 1e-6 of a float64 reference, a tenth of the card's
-tolerances (2e-5 and 1e-5), where a single TF32 product (hi·hi alone) does
-not.
+shared by two warpgroups whose partials are summed (rows past 256 keys: m
+and l online over the chunks in order, the kernel's pass 1). At the float32
+shapes of chip_smoke.py's phase 1 (batch cut to 2: the kernel's rows do not
+depend on one another), and at its rows past 1024 keys (a 448×672 image's
+1176 and cross 1184, a 224×2048 image's 1792 and cross 1800; batch cut to
+1, the vision rows' heads to 2), it holds O within 2e-6 and P within 1e-6
+of a float64 reference, a tenth of the card's tolerances (2e-5 and 1e-5),
+where a single TF32 product (hi·hi alone) does not. The kernel splits no
+row across blocks, so there is no cross-block combination to emulate.
 """
 import re
 
@@ -27,7 +31,7 @@ O_BUDGET = 2e-6
 P_BUDGET = 1e-6
 PIECES_IN_REGISTERS = 4          # 64-key pieces of a chunk (MAX_NC)
 
-# (name, Lq, Lk, H, bias): phase 1's float32 shapes, B = 2.
+# (name, Lq, Lk, H, bias[, B]): phase 1's float32 shapes, B = 2 unless given.
 SHAPES = [
     ("train vision 96x196", 196, 196, 12, None),
     ("train TP vision 96x196 H6", 196, 196, 6, None),
@@ -42,6 +46,12 @@ SHAPES = [
     ("eval vision 1x294", 294, 294, 12, None),
     ("eval cross 1x8x302", 8, 302, 12, None),
     ("drift MAE one head L=3", 3, 3, 1, None),
+    # whole-image requests past 1024 patches (chip_smoke phase 2's 448x672
+    # and 224x2048), B = 1; the vision rows' 12 heads cut to 2
+    ("eval vision 1x1176", 1176, 1176, 2, None, 1),
+    ("eval cross 1x8x1184", 8, 1184, 12, None, 1),
+    ("eval vision 1x1792", 1792, 1792, 2, None, 1),
+    ("eval cross 1x8x1800", 8, 1800, 12, None, 1),
 ]
 
 
@@ -101,20 +111,20 @@ def emulate(q, k, v, bias, scale, terms: int = 3):
                                                    c0 + 64 * nc, lk))
               for c0 in range(0, lk, 64 * nc) for w in (0, 1)]
 
-    def sums(x):                                  # warpgroup 0's partial + warpgroup 1's
-        return (x[..., halves[0][0]:halves[0][1]].sum(-1, keepdim=True)
-                + x[..., halves[1][0]:halves[1][1]].sum(-1, keepdim=True))
+    def sums(x, c=0):                             # chunk c: warpgroup 0's partial + warpgroup 1's
+        (a0, a1), (b0, b1) = halves[2 * c], halves[2 * c + 1]
+        return x[..., a0:a1].sum(-1, keepdim=True) + x[..., b0:b1].sum(-1, keepdim=True)
     if lk <= 64 * nc:                              # one chunk: the whole row
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
         p = p / sums(p)
-    else:                                          # m and l online over the chunks
+    else:                                          # m and l online over the chunks, in order
         m = torch.full(s.shape[:-1] + (1,), float("-inf"))
         l = torch.zeros_like(m)
-        for c0 in range(0, lk, 64 * nc):
-            chunk = s[..., c0:c0 + 64 * nc]
-            m_new = torch.maximum(m, chunk.amax(-1, keepdim=True))
-            l = l * torch.exp(m - m_new) + torch.exp(chunk - m_new).sum(-1, keepdim=True)
+        for c in range(len(halves) // 2):
+            c0 = halves[2 * c][0]
+            m_new = torch.maximum(m, s[..., c0:c0 + 64 * nc].amax(-1, keepdim=True))
+            l = l * torch.exp(m - m_new) + sums(torch.exp(s - m_new), c)
             m = m_new
         p = torch.exp(s - m) / l
     o = [None, None]
@@ -124,11 +134,10 @@ def emulate(q, k, v, bias, scale, terms: int = 3):
     return o[0] if o[1] is None else o[0] + o[1], p
 
 
-def phase1_inputs(lq, lk, h, bias, seed):
+def phase1_inputs(lq, lk, h, bias, seed, b=2):
     """Standard normal q|k|v as phase 1 draws them (numpy here), split into
     (B, H, L, 64) heads; the causal mask as ops.attention.causal_mask."""
     rng = np.random.default_rng(seed)
-    b = 2
     q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, 64)).astype(np.float32))
                for n in (lq, lk, lk))
     mask = None
@@ -145,9 +154,10 @@ def reference(q, k, v, bias, scale):
     return p @ v.double(), p
 
 
-@pytest.mark.parametrize("name, lq, lk, h, bias", SHAPES)
-def test_split_products_hold_a_tenth_of_the_float32_tolerances(name, lq, lk, h, bias):
-    q, k, v, mask = phase1_inputs(lq, lk, h, bias, seed=lq * 1000 + lk + h)
+@pytest.mark.parametrize("name, lq, lk, h, bias, b", [(*c, 2)[:6] for c in SHAPES],
+                         ids=[c[0] for c in SHAPES])
+def test_split_products_hold_a_tenth_of_the_float32_tolerances(name, lq, lk, h, bias, b):
+    q, k, v, mask = phase1_inputs(lq, lk, h, bias, seed=lq * 1000 + lk + h, b=b)
     scale = 64 ** -0.5
     ref, p_ref = reference(q, k, v, mask, scale)
     out, p = emulate(q, k, v, mask, scale)
@@ -200,31 +210,32 @@ def test_key_permutation_leaves_p_v_unchanged():
 
 
 def test_forward_route_sends_float32_rows_to_the_tf32x3_kernel():
-    """Every float32 row of up to TF32X3_LIMIT (1024) keys takes "tf32x3",
-    longer ones the two-pass kernel; bfloat16 routes are unchanged."""
-    for lk in (1, 3, 8, 32, 48, 56, 77, 196, 204, 256, 257, 294, 302, 784, 792, 1024):
+    """Every float32 row, of any length, takes "tf32x3" (the rows past 1024
+    keys too, which PR 1's SIMT kernel took before); bfloat16 routes are
+    one-pass, cluster, then long."""
+    for lk in (1, 3, 8, 32, 48, 56, 77, 196, 204, 256, 257, 294, 302, 784, 792, 1024,
+               1025, 1176, 1184, 1792, 1800, 2048, 100_000):
         assert kattn.fwd_route(torch.float32, lk) == "tf32x3", lk
-    for lk in (1025, 2048):
-        assert kattn.fwd_route(torch.float32, lk) == "two_pass", lk
     assert kattn.fwd_route(torch.bfloat16, 196) == "one_pass"
     assert kattn.fwd_route(torch.bfloat16, 784) == "cluster"
-    assert kattn.fwd_route(torch.bfloat16, 1025) == "two_pass"
-    assert kattn.fwd_route(torch.float32, 300, tf32x3=256) == "two_pass"
+    assert kattn.fwd_route(torch.bfloat16, 1025) == "long"
 
 
 def test_tf32x3_limit_mirrors_the_cuda_constant_and_the_header_names_the_design():
-    """TF32X3_LIMIT in the wrapper is csrc/attention_fwd_tf32x3.cu's constant,
-    which the library reports; the source's header says which TPU kernel it
-    replaces, what bounds it and what its design does."""
+    """The TF32x3 forward has no upper limit: csrc/attention_fwd_tf32x3.cu
+    declares none and its entry point refuses no Lk ≥ 1, so the wrapper
+    mirrors none; the source's header says which TPU kernel it replaces,
+    what bounds it and what its design does."""
     from segclip_tpu_torch.kernels import build
     text = (build.CSRC / "attention_fwd_tf32x3.cu").read_text()
-    assert re.findall(r"constexpr int TF32X3_LIMIT = (\d+);", text) == [str(kattn.TF32X3_LIMIT)]
-    assert "int segclip_attention_fwd_tf32x3_limit() { return TF32X3_LIMIT; }" in text
-    assert kattn.TF32X3_LIMIT == kattn.CLUSTER_LIMIT == 1024
+    assert "TF32X3_LIMIT" not in text and "segclip_attention_fwd_tf32x3_limit" not in text
+    assert "lk < 1 || batch > 65535" in text
+    assert not hasattr(kattn, "TF32X3_LIMIT") and not hasattr(kattn, "tf32x3_limit")
     header = text[:text.index("#include")]
     for needle in ("segclip_tpu/ops/pallas/attention.py", "_fwd_kernel", "3xTF32",
                    "cvt.rna.tf32", "wgmma", "TMA", "K-major", "bytes", "0.122 ms",
-                   "attention_fwd_tf32x3_kernel", "2(s − 4) + 1", "bit for bit"):
+                   "attention_fwd_tf32x3_kernel", "2(s − 4) + 1", "bit for bit",
+                   "any length", "never of B·H", "div_normal"):
         assert needle in header, needle
     hopper = (build.CSRC / "hopper.cuh").read_text()
     for needle in ("m64n64k8.f32.tf32.tf32", "cvt.rna.tf32.f32", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
