@@ -20,19 +20,25 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      (training) grouping at each of their shapes, each grouping call run
      twice and required to give the same bits; at every bf16 shape the
      one-pass, the cluster or the long forward takes, the two-pass forward
-     too, and at every bf16 shape the one-pass or the cluster backward
-     takes, the two-pass backward too, each on the same inputs and held to
-     the same rules; every float32 forward, of any length, on the TF32x3
+     too, and at every bf16 shape the one-pass, the cluster or the long
+     backward takes, the two-pass backward too, each on the same inputs and
+     held to the same rules; every float32 forward, of any length, on the TF32x3
      kernel (fp32-accurate split products on TF32 wgmma), and at
      F32_TIMED's shapes PR 1's SIMT two-pass kernel beside it; the rows past
      1024 keys (the long kernel at bf16, the TF32x3 kernel at float32) at
      phase 2's 1x1176 and cross 1x8x1184 and the 224x2048 image's 1x1792
      and cross 1x8x1800, with P saved at 1x1176, and with bias2d and biasb
      at 2x1100, and the forward kernels' branch-free division against IEEE
-     `/` over every significand of l in [1, 2) at 2^0..2^13; every float32
+     `/` over every significand of l in [1, 2) at 2^0..2^13, and from
+     1x1176's P the long backwards (both dtypes) against the plain version,
+     the same bits twice and timed beside the two-pass pairs; every float32
      backward of up to 256 keys on the TF32x3 backward (a cluster per
-     (batch, head) over 64-key slabs), and at F32_TIMED's
-     training shapes the SIMT pair beside it; each call's route read
+     (batch, head) over 64-key slabs), longer ones (phase 12's float32
+     ViT-L/14 cross rows, the float32 448 px step's 784 and 792) on the
+     TF32x3 long backward, and bf16 ones past 1024 keys (the 672 px step's
+     1764 and 1772) on the long backward, each long backward the same bits
+     over two calls, and at F32_TIMED's training shapes the SIMT pair
+     beside it; each call's route read
      from the route counters; the host time per forward and per backward
      call (enqueue only) of each route; and the repaired fault: on
      CUDA, the outputs of `attention` and `group_assign` require grad when
@@ -124,7 +130,10 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      ways and B = 512 with remat (under the card's memory; B = 512 without
      remat estimated, not run); ViT-L/14 at B = 32 both ways and ViT-B/16
      at 448 px, B = 24 (finite losses that fall); one float32 ViT-L/14 step
-     at B = 2, whose cross blocks (264 keys) take the SIMT pair backward;
+     at B = 2, whose cross blocks (264 keys) take the TF32x3 long backward;
+     a cold and a warm step of ViT-B/16 at 448 px in float32, B = 2 (784
+     and 792 keys: the TF32x3 long backward), and at 672 px in bf16, B = 4
+     (1764 and 1772 keys: the long forward and backward), finite losses;
      each step's kernel shapes among phase 1's; run M's recipe (scripts/runM_batch192.sh, B = 192,
      remat) through cli.train in two --do-resume calls of one epoch on a
      192-scene corpus (launches, model.pt in the tp = 1 layout evaluating
@@ -173,13 +182,15 @@ and backward and of the float32 TF32x3 forward and backward and of the long forw
 ones too (the TF32x3 instances and the long kernel no ptxas spills). The
 forward's and the backward's launches by route (one-pass, cluster, long,
 TF32x3, two-pass) are printed per phase of the main path (phases 2-14;
-phase 9's ranks and phase 10's studies report their own); all eight routed
+phase 9's ranks and phase 10's studies report their own); all ten routed
 kernels must have launched, the cluster ones in phase 2 (the 224×336
 request) and phase 12 (448 px, ViT-L/14's cross blocks), the long forward
-only in phase 2 (the 448×672 and 224×2048 requests), every float32 forward
-on the TF32x3 kernel, no forward on the two-pass kernels, and every
-float32 backward of at most 256 keys on the TF32x3 backward (the SIMT pair
-only on phase 12's float32 ViT-L/14 cross rows). The profiles list the
+only in phase 2 (the 448×672 and 224×2048 requests) and phase 12 (the 672
+px step), every float32 forward
+on the TF32x3 kernel, no forward or backward on the two-pass kernels,
+every float32 backward of at most 256 keys on the TF32x3 backward, and
+the long backwards only in phase 12 (the TF32x3 long one on the float32
+ViT-L/14 and 448 px steps, the bf16 one on the 672 px step). The profiles list the
 port's own kernels (those in the `segclip_kernels` namespace) apart from
 PyTorch's.
 
@@ -209,8 +220,12 @@ PR 3's kernel in turns, and "host_us") at 1x1176, the one-pass backward
 ("attention_bwd_one_pass", with "two_pass_ms", "host_us" and "pair_ms",
 the forward with P plus the backward, beside SDPA's forward + backward)
 at 96x196, the cluster
-backward ("attention_bwd", with "two_pass_ms" and "pair_ms") and the
-two-pass backward ("attention_bwd_two_pass") at 24x784, the float32 TF32x3
+backward ("attention_bwd", with "two_pass_ms" and "pair_ms") at 24x784,
+the bf16 long backward ("attention_bwd_long", with "two_pass_ms", the
+mma.sync pair in turns, "pair_ms" and "host_us") at 672 px's 4x1764, the float32
+TF32x3 long backward ("attention_bwd_tf32x3_long", with "two_pass_ms", the
+SIMT pair in turns, "pair_ms" and "host_us") at the float32 448 px step's
+2x784, the float32 TF32x3
 backward ("attention_bwd_tf32x3", with "two_pass_ms", the SIMT pair in
 turns beside it, "pair_ms", the TF32x3 forward with P plus the backward,
 beside SDPA's float32 forward + backward, and "host_us") at 96x196, whose
@@ -225,8 +240,9 @@ both ranks of its CLI run included), "train_dp" (phase 9, both ranks),
 run, both ranks), "studies" (phase 10, every study), "train_remat" (phase
 12's B = 96 and 256 runs, both ways), "train_b512", "train_l14",
 "train_448" and "train_cli_runM" (phase 12), "eval_b32", "train_b32" and
-"train_cli_b32" (phase 13), "drift" (phase 14); "train_l14_f32", phase 12's
-float32 ViT-L/14 step), each kernel's figures at
+"train_cli_b32" (phase 13), "drift" (phase 14); "train_l14_f32",
+"train_448_f32" and "train_672", phase 12's float32 ViT-L/14, float32
+448 px and bf16 672 px steps), each kernel's figures at
 its ViT-B/32 training (or slide eval) shape as "b32_*", and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -259,6 +275,7 @@ ATTN_BWD_SRC = "segclip_tpu_torch/csrc/attention_bwd.cu"
 ATTN_TF32_SRC = "segclip_tpu_torch/csrc/attention_fwd_tf32x3.cu"
 ATTN_LONG_SRC = "segclip_tpu_torch/csrc/attention_fwd_long.cu"
 ATTN_BWD_TF32_SRC = "segclip_tpu_torch/csrc/attention_bwd_tf32x3.cu"
+ATTN_BWD_LONG_SRC = "segclip_tpu_torch/csrc/attention_bwd_long.cu"
 GROUP_SRC = "segclip_tpu_torch/csrc/group_assign.cu"
 ATTN_TPU = "segclip_tpu/ops/pallas/attention.py:60"
 ATTN_BWD_TPU = "segclip_tpu/ops/pallas/attention.py:96"
@@ -375,17 +392,24 @@ TRAIN_STEPS = 5             # timed, after one cold step
 # from a seeded init on phase 4's synthetic batch at its size, bf16:
 # name → (CLIP arch, ModelConfig overrides, batch). Phase 1 checks each
 # one's training shapes (`step_shapes`) and profiles LARGE_PROFILED's.
+# "448_f32" and "672" are image_resolution settings the JAX package takes
+# (segclip_tpu/config.py), at the batches one card steps in a few seconds:
+# a float32 448 px step (784 patches, cross 792: the float32 backward past
+# 256 keys) and a bf16 672 px step (1764 patches, cross 1772: the bf16
+# backward past 1024 keys).
 LARGE_CONFIGS = {
     "b512": ("ViT-B/16", {}, 512),
     "b256": ("ViT-B/16", {}, 256),
     "runM": ("ViT-B/16", {}, 192),
     "l14": ("ViT-L/14", {}, 32),
     "448": ("ViT-B/16", {"image_resolution": 448}, 24),
+    "448_f32": ("ViT-B/16", {"image_resolution": 448, "compute_dtype": "float32"}, 2),
+    "672": ("ViT-B/16", {"image_resolution": 672}, 4),
 }
-LARGE_PROFILED = ("b512", "l14", "448")
+LARGE_PROFILED = ("b512", "l14", "448", "672")
 # Phase 12's float32 ViT-L/14 step (the reference's precision at the large
-# preset): its batch; its cross blocks (8 + 256 keys) are the main path's
-# float32 rows past the TF32x3 backward's limit.
+# preset): its batch; its cross blocks (8 + 256 keys) are past the TF32x3
+# backward's limit and take the TF32x3 long backward.
 L14_F32_BATCH = 2
 # Phase 13: ViT-B/32 (CLIP_ARCH_PRESETS: patch 32, a 7 × 7 grid at 224 px),
 # what `cli.train --clip-arch ViT-B/32` trains, from a seeded init at
@@ -460,7 +484,8 @@ E2E_MIN_AGREE = 0.999       # share of pixels that must agree, and argmax-agree
 # MAE blocks (L = 3), and the rows past 1024 keys of the 448x672 and
 # 224x2048 whole requests (which the SIMT kernel took before the TF32x3
 # kernel's length limit was lifted), and phase 12's float32 ViT-L/14 cross
-# rows (whose backward is the SIMT pair's, profiled beside SDPA's float32
+# rows and float32 448 px step's rows (whose backward is the TF32x3 long
+# kernels', timed beside the SIMT pair they replaced and SDPA's float32
 # forward + backward); at F32_GATED the TF32x3 kernel must be the faster.
 # At bf16 every routed kernel is gated against the two-pass one.
 F32_TIMED = ("train vision 96x196", "train TP vision 96x196 H6", "train cross 96x8x204",
@@ -469,12 +494,15 @@ F32_TIMED = ("train vision 96x196", "train TP vision 96x196 H6", "train cross 96
              "text 20x77 causal", "vision 1x294 (whole 224x336)",
              "cross 1x8x302 (whole 224x336, 294 patches)", "drift MAE vision",
              "vision 1x1176", "cross 1x8x1184", "vision 1x1792", "cross 1x8x1800",
-             "l14 float32 cross 2x8x264")
+             "l14 float32 cross 2x8x264", "448_f32 vision 2x784", "448_f32 cross 2x8x792")
 F32_GATED = ("train vision 96x196", "train cross 96x8x204", "vision 2x196 (slide, 2 windows)",
              "vision 1x1176 (whole 448x672)", "cross 1x8x1184 (whole 448x672, 1176 patches)")
-# The float32 backward shapes at which the TF32x3 backward must beat the
-# SIMT pair (F32_TIMED's training shapes time both, in turns).
-F32_BWD_GATED = ("train vision 96x196", "train cross 96x8x204", "train TP vision 96x196 H6")
+# The float32 backward shapes at which the TF32x3 backward (and, past 256
+# keys, the TF32x3 long backward) must beat the SIMT pair (F32_TIMED's
+# training shapes time both, in turns).
+F32_BWD_GATED = ("train vision 96x196", "train cross 96x8x204", "train TP vision 96x196 H6",
+                 "l14 float32 cross 2x8x264 H16", "448_f32 vision 2x784 H12",
+                 "448_f32 cross 2x8x792 H12")
 PROFILE_TRIES = 3           # profiler runs before a time falls back to CUDA events
 L2_BYTES = 50e6             # the H100's L2 cache
 HOST_ROUNDS = 5             # rounds of host_us per forward route
@@ -645,9 +673,14 @@ def check_route(case, dtype, before: dict, backward: bool = False) -> str:
     counters moved since `before`, which must be the one `fwd_route` (or
     `bwd_route`) names for its dtype and Lk with the library's limits."""
     from segclip_tpu_torch.ops.kernels.attention import (
-        bwd_cluster_limit, bwd_one_pass_limit, bwd_route, bwd_tf32x3_limit, cluster_limit,
-        fwd_route, long_min_lk, one_pass_limit)
+        bwd_cluster_limit, bwd_long_min_lk, bwd_one_pass_limit, bwd_route, bwd_tf32x3_limit,
+        cluster_limit, fwd_route, long_min_lk, one_pass_limit)
     if backward:
+        check(bwd_long_min_lk("long") == bwd_cluster_limit() + 1
+              and bwd_long_min_lk("tf32x3_long") == bwd_tf32x3_limit() + 1,
+              f"the long backwards start at {bwd_long_min_lk('long')} (bf16) and "
+              f"{bwd_long_min_lk('tf32x3_long')} (float32) keys, the cluster and TF32x3 "
+              f"backwards end at {bwd_cluster_limit()} and {bwd_tf32x3_limit()}")
         route = bwd_route(dtype, case[3], bwd_one_pass_limit(), bwd_cluster_limit(),
                           bwd_tf32x3_limit())
         prefix, keys = "bwd_", BWD_ROUTES
@@ -839,14 +872,14 @@ def phase_kernels(dev) -> tuple:
                     and dtype == torch.bfloat16:
                 summary["grouping" if name == GROUP_CASES[0][0] else "b32_grouping"] = dict(
                     max_abs_err=out_err, timing=len(timings) - 1)
-    long_rows(dev, gen, summary)
+    long_rows(dev, gen, summary, timings)
     training_kernels(dev, gen, summary, timings)
     host_costs(dev, gen, summary)
     repaired_fault(dev)
     return summary, timings
 
 
-def long_rows(dev, gen, summary) -> None:
+def long_rows(dev, gen, summary, timings) -> None:
     """Phase 1, rows past 1024 keys beyond ATTN_CASES: the forward kernels'
     branch-free division (hopper.cuh div_normal) equal to IEEE `/` over
     every significand of l in [1, 2) scaled by 2^0..2^13 (every l of a row
@@ -855,8 +888,15 @@ def long_rows(dev, gen, summary) -> None:
     LONG_BIAS_CASE with bias2d and biasb, the routed forward (the long
     kernel at bf16, the TF32x3 kernel at float32) against the plain version
     under the phase's tolerances, O the same bits with and without P, and
-    P's columns [Lk, Lk8) zero."""
-    from segclip_tpu_torch.ops.kernels.attention import (attention_fwd, attention_fwd_plain,
+    P's columns [Lk, Lk8) zero; and from that P the routed backward (the
+    long backward at bf16, the TF32x3 long backward at float32) against the
+    plain version under the training shapes' rules, the same bits over two
+    calls, timed (at LONG_P_CASE, in both dtypes: the forward with P, and
+    the backward beside the two-pass pair it replaced, which must be the
+    slower)."""
+    from segclip_tpu_torch.ops.kernels import bounds
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd, attention_bwd_plain,
+                                                         attention_fwd, attention_fwd_plain,
                                                          division_check)
     from segclip_tpu_torch.ops.kernels.checks import ATTN_BF16_SHARE
     sig = 1 + torch.arange(2 ** 23, device=dev, dtype=torch.float64) / 2 ** 23
@@ -904,6 +944,50 @@ def long_rows(dev, gen, summary) -> None:
             if case is LONG_P_CASE and dtype == torch.bfloat16:
                 summary["attention_fwd_long"]["p_err"] = p_err
 
+            do = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            routes = read_routes()
+            grads = attention_bwd(p, do, q, k, v)
+            bwd_route = check_route(case, dtype, routes, backward=True)
+            again = attention_bwd(p, do, q, k, v)
+            refs = attention_bwd_plain(p, do, q, k, v)
+            torch.cuda.synchronize()
+            check(bwd_route == ("long" if dtype == torch.bfloat16 else "tf32x3_long"),
+                  f"{case[0]} {dtype}: backward route {bwd_route}")
+            check(all(torch.isfinite(g).all().item() for g in grads)
+                  and all(torch.equal(g, h) for g, h in zip(grads, again)),
+                  f"{case[0]} {dtype}: the backward is not finite or not the same bits twice")
+            if dtype == torch.bfloat16:
+                shares = [bf16_share(g, r) for g, r in zip(grads, refs)]
+                note = "; >1 ulp share dQ/dK/dV " + " ".join(f"{sh:.1e}" for sh, _ in shares)
+                for (sh, _), what in zip(shares, ("dQ", "dK", "dV")):
+                    check(sh <= ATTN_BF16_SHARE, f"{case[0]} bf16 {what}: share {sh}")
+            else:
+                rel = [(g - r).abs().max().item() / (1 + r.abs().max().item())
+                       for g, r in zip(grads, refs)]
+                note = "; rel err dQ/dK/dV " + " ".join(f"{x:.2e}" for x in rel)
+                check(max(rel) <= BWD_REL_TOL_F32, f"{case[0]} float32: backward rel err {rel}")
+            if case is not LONG_P_CASE:
+                print(f"  attention bwd {case[0]:30s} {str(dtype)[6:]:8s} {bwd_route}{note}; "
+                      "same bits twice")
+                continue
+            two, two_note, _ = bwd_two_pass_beside(case, (p, do, q, k, v), refs, LARGE_REPS)
+            print(f"  attention bwd {case[0]:30s} {str(dtype)[6:]:8s} {bwd_route}{note}; same "
+                  f"bits twice; {call_ms(lambda: attention_bwd(p, do, q, k, v), LARGE_REPS):.4f} "
+                  f"ms{two_note}")
+            _, b, lq, lk, h, _, _ = case
+            timings.append(dict(
+                name=f"attention fwd+P {case[0]} {str(dtype)[6:]}",
+                kernel=functools.partial(attention_fwd, q, k, v, save_p=True),
+                plain=functools.partial(attention_fwd_plain, q, k, v), two_pass=None,
+                work=(*bounds.attention_fwd_work(b, lq, lk, h, dtype, save_p=True), dtype),
+                library=sdpa_library(q, k, v, None, None)))
+            timings.append(dict(
+                name=f"attention bwd {case[0]} {str(dtype)[6:]}",
+                kernel=functools.partial(attention_bwd, p, do, q, k, v),
+                plain=functools.partial(attention_bwd_plain, p, do, q, k, v), two_pass=two,
+                gate=True, work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
+                library=sdpa_library(q, k, v, None, None, do), pair=len(timings) - 1))
+
 
 def host_costs(dev, gen, summary) -> None:
     """Host µs per forward call with P and per backward call (enqueue only,
@@ -917,7 +1001,10 @@ def host_costs(dev, gen, summary) -> None:
     pair's, into summary["f32_bwd_host_us"]; and at the 448x672 request's
     1x1176, per forward call through the long and the two-pass functions
     (bf16, summary["long_host_us"]) and the TF32x3 and two-pass functions
-    (float32, summary["f32_long_host_us"])."""
+    (float32, summary["f32_long_host_us"]), and per backward call through
+    the long and the two-pass functions (bf16, summary["long_bwd_host_us"])
+    and the TF32x3 long and two-pass functions (float32,
+    summary["f32_long_bwd_host_us"])."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     shapes = {"one_pass": TRAIN_ATTN_CASES[0],
               "cluster": step_shapes("448", large_config("448", False), LARGE_CONFIGS["448"][2])[0][0]}
@@ -955,12 +1042,20 @@ def host_costs(dev, gen, summary) -> None:
         print(f"  host time per float32 {what} at {TRAIN_ATTN_CASES[0][0]} (enqueue only, in "
               f"turns): " + ", ".join(f"{k} {v:.1f} us" for k, v in summary[key].items()))
     case = next(c for c in ATTN_CASES if c[0].startswith("vision 1x1176"))
-    for dtype, key, route in ((torch.bfloat16, "long_host_us", "long"),
-                              (torch.float32, "f32_long_host_us", "tf32x3")):
+    for dtype, key, route, bwd in ((torch.bfloat16, "long_host_us", "long", "long"),
+                                   (torch.float32, "f32_long_host_us", "tf32x3", "tf32x3_long")):
         args = attention_inputs(case, dtype, dev, gen)
         summary[key] = host_us_in_turns({r: functools.partial(
             getattr(kattn, f"attention_fwd_{r}"), *args) for r in (route, "two_pass")})
         print(f"  host time per {str(dtype)[6:]} forward call at {case[0]} (enqueue only, in "
+              f"turns): " + ", ".join(f"{k} {v:.1f} us" for k, v in summary[key].items()))
+        q, k, v = args[:3]
+        _, p = kattn.attention_fwd(q, k, v, save_p=True)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        key = key.replace("_host_us", "_bwd_host_us")
+        summary[key] = host_us_in_turns({r: functools.partial(
+            getattr(kattn, f"attention_bwd_{r}"), p, do, q, k, v) for r in (bwd, "two_pass")})
+        print(f"  host time per {str(dtype)[6:]} backward call at {case[0]} (enqueue only, in "
               f"turns): " + ", ".join(f"{k} {v:.1f} us" for k, v in summary[key].items()))
 
 
@@ -1002,7 +1097,8 @@ def training_kernels(dev, gen, summary, timings) -> None:
         if name in LARGE_PROFILED + ("b32",):       # the vision and cross blocks, both paths
             profiled.update(c[0] for c in attn[:2] + gumbel)
     b32_attn, b32_gumbel = shapes["b32"]
-    f32_only = {c[0] for group in shapes["l14 float32"] for c in group}   # runs only in float32
+    f32_only = {c[0] for name in ("l14 float32", "448_f32")      # run only in float32
+                for group in shapes[name] for c in group}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
         for case in TRAIN_ATTN_CASES + TRAIN_DP_ATTN_CASES + TRAIN_TP_ATTN_CASES + large_attn:
@@ -1022,6 +1118,9 @@ def training_kernels(dev, gen, summary, timings) -> None:
             torch.cuda.synchronize()
             check(all(torch.isfinite(g).all().item() for g in grads),
                   f"attention backward {case[0]}: non-finite")
+            if bwd_route in ("long", "tf32x3_long"):      # the same bits over two calls
+                check(all(torch.equal(g, h) for g, h in zip(grads, attention_bwd(p, do, q, k, v))),
+                      f"attention backward {case[0]} ({bwd_route}): bits differ between calls")
             out_err = (out.float() - ref.float()).abs().max().item()
             p_err = (p.float() - p_ref.float()).abs().max().item()
             rel = [(g.float() - r.float()).abs().max().item()
@@ -1086,12 +1185,15 @@ def training_kernels(dev, gen, summary, timings) -> None:
                 two_pass=bwd_two, gate=dtype == torch.bfloat16 or case[0] in F32_BWD_GATED,
                 work=(*bounds.attention_bwd_work(b, lq, lk, h, dtype), dtype),
                 library=sdpa_library(q, k, v, b2, bb, do), pair=len(timings) - 1))
-            if case is TRAIN_ATTN_CASES[0] and dtype == torch.float32:
-                summary["attention_bwd_tf32x3"] = dict(
+            f32_keys = {TRAIN_ATTN_CASES[0]: "attention_bwd_tf32x3",
+                        shapes["448_f32"][0][0]: "attention_bwd_tf32x3_long"}   # Lk 784
+            if dtype == torch.float32 and case in f32_keys:
+                summary[f32_keys[case]] = dict(
                     max_abs_err=max((g - r).abs().max().item() for g, r in zip(grads, grads_ref)),
                     rel_err=max(rel), two_pass_err=bwd_two_err, timing=len(timings) - 1)
             keys = {TRAIN_ATTN_CASES[0]: "attention_bwd_one_pass", b32_attn[0]: "b32_attention_bwd",
-                    shapes["448"][0][0]: "attention_bwd_cluster"}   # Lk 784: cluster
+                    shapes["448"][0][0]: "attention_bwd_cluster",   # Lk 784: cluster
+                    shapes["672"][0][0]: "attention_bwd_long"}      # Lk 1764: long
             if dtype == torch.bfloat16 and case in keys:
                 summary[keys[case]] = dict(max_abs_err=max((g.float() - r.float()).abs().max().item()
                                                            for g, r in zip(grads, grads_ref)),
@@ -1192,13 +1294,15 @@ def reset_counters() -> None:
 
 
 ROUTES = ("one_pass", "cluster", "long", "tf32x3", "two_pass")
-BWD_ROUTES = ("one_pass", "cluster", "tf32x3", "two_pass")
+BWD_ROUTES = ("one_pass", "cluster", "long", "tf32x3", "tf32x3_long", "two_pass")
 ROUTE_FUNCTIONS = {"one_pass": "attention_fwd_one_pass", "cluster": "attention_fwd_cluster",
                    "long": "attention_fwd_long", "tf32x3": "attention_fwd_tf32x3",
                    "two_pass": "attention_fwd_two_pass",
                    "bwd_one_pass": "attention_bwd_one_pass",
                    "bwd_cluster": "attention_bwd_cluster",
+                   "bwd_long": "attention_bwd_long",
                    "bwd_tf32x3": "attention_bwd_tf32x3",
+                   "bwd_tf32x3_long": "attention_bwd_tf32x3_long",
                    "bwd_two_pass": "attention_bwd_two_pass"}
 
 
@@ -1213,7 +1317,7 @@ def reset_routes() -> None:
 def read_routes() -> dict:
     """Launches by route in this process: forward {"one_pass", "cluster",
     "long", "tf32x3", "two_pass"} and backward {"bwd_one_pass", "bwd_cluster",
-    "bwd_tf32x3", "bwd_two_pass"}."""
+    "bwd_long", "bwd_tf32x3", "bwd_tf32x3_long", "bwd_two_pass"}."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     return {key: getattr(kattn, fn).launches for key, fn in ROUTE_FUNCTIONS.items()}
 
@@ -1499,7 +1603,8 @@ def phase_train(dev) -> tuple:
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
         check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "long": 0,
                          "tf32x3": 0, "two_pass": 0, "bwd_one_pass": expected["attention_bwd"],
-                         "bwd_cluster": 0, "bwd_tf32x3": 0, "bwd_two_pass": 0},
+                         "bwd_cluster": 0, "bwd_long": 0, "bwd_tf32x3": 0,
+                         "bwd_tf32x3_long": 0, "bwd_two_pass": 0},
               f"step {i}: launches by route {routes}, expected every one of the "
               f"{expected['attention_fwd']} forwards and {expected['attention_bwd']} backwards "
               "on the one-pass kernels")
@@ -1992,7 +2097,8 @@ def tensor_core_counts(library) -> dict:
     the bf16 attention kernels and the bf16 grouping kernel's 16-byte path
     must have tensor-core instructions, and every instance of the one-pass
     and the cluster kernels and of the float32 TF32x3 kernels, forward and
-    backward, and the bf16 long forward HGMMA and TMA ones.
+    backward, of the bf16 long forward and of both long backwards' row and
+    slab passes HGMMA and TMA ones.
     Returns the tensor-core instructions of each kernel of the kernels JSON
     line, by its name there (empty without cuobjdump)."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -2027,7 +2133,11 @@ def tensor_core_counts(library) -> dict:
                               ("attention_bwd_cluster_kernel", 1),
                               ("attention_fwd_tf32x3_kernel", 4),
                               ("attention_fwd_long_kernel", 2),
-                              ("attention_bwd_tf32x3_kernel", 1)):
+                              ("attention_bwd_tf32x3_kernel", 1),
+                              ("attention_bwd_long_rows_kernel", 2),
+                              ("attention_bwd_long_cols_kernel", 1),
+                              ("attention_bwd_tf32x3_long_rows_kernel", 1),
+                              ("attention_bwd_tf32x3_long_cols_kernel", 1)):
         hopper[prefix] = [k for k in counts if k.startswith(prefix)]
         check(len(hopper[prefix]) == instances, f"{prefix} instances in the SASS: {hopper[prefix]}")
         for kernel in hopper[prefix]:
@@ -2040,8 +2150,12 @@ def tensor_core_counts(library) -> dict:
             "attention_fwd_tf32x3": sum(counts[k] for k in hopper["attention_fwd_tf32x3_kernel"]),
             "attention_bwd": sum(counts[k] for k in hopper["attention_bwd_cluster_kernel"]),
             "attention_bwd_tf32x3": sum(counts[k] for k in hopper["attention_bwd_tf32x3_kernel"]),
-            "attention_bwd_two_pass": counts["attention_bwd_dq_bf16_kernel"]
-            + counts["attention_bwd_dkv_bf16_kernel"],
+            "attention_bwd_long": sum(counts[k] for p in ("attention_bwd_long_rows_kernel",
+                                                          "attention_bwd_long_cols_kernel")
+                                      for k in hopper[p]),
+            "attention_bwd_tf32x3_long": sum(
+                counts[k] for p in ("attention_bwd_tf32x3_long_rows_kernel",
+                                    "attention_bwd_tf32x3_long_cols_kernel") for k in hopper[p]),
             "attention_bwd_one_pass": sum(
                 counts[k] for k in hopper["attention_bwd_one_pass_kernel"]),
             "group_assign": counts[group], "group_assign_st": counts[group]}
@@ -3262,18 +3376,24 @@ def train_run(dev, name: str, mcfg, b: int, steps: int, keep: bool = False) -> d
           f"{name}: launches per step {out['counts']}, expected {expected}")
     check(all(np.isfinite(out["loss"])) and not any(out["skipped"]),
           f"{name}: losses {out['loss']}, skipped {out['skipped']}")
-    long_rows = {c[0] for c in step_shapes(name, mcfg, b)[0] if c[3] > 256}
-    if mcfg.compute_dtype == "float32":   # the TF32x3 kernels; the SIMT pair for rows past 256
-        check(all(r["tf32x3"] > 0 and r["bwd_tf32x3"] > 0 and (r["bwd_two_pass"] > 0)
-                  == bool(long_rows) and r["one_pass"] == r["cluster"] == r["two_pass"]
-                  == r["bwd_one_pass"] == r["bwd_cluster"] == 0 for r in out["routes"]),
-              f"{name}: attention by route per step {out['routes']}; {sorted(long_rows)} "
-              "must take the SIMT pair backward, every other float32 call the TF32x3 kernels")
-    elif long_rows:       # bf16 rows past the one-pass limit: the cluster kernels, both ways
-        check(all(r["cluster"] > 0 and r["bwd_cluster"] > 0 and r["two_pass"] == 0
-                  and r["bwd_two_pass"] == 0 for r in out["routes"]),
-              f"{name}: attention by route per step {out['routes']}; {sorted(long_rows)} "
-              "must take the cluster kernels")
+    lks = [c[3] for c in step_shapes(name, mcfg, b)[0]]
+    long_rows = [lk for lk in lks if lk > 256]
+    if mcfg.compute_dtype == "float32":   # the TF32x3 kernels, the long backward past 256 keys
+        check(all(r["tf32x3"] > 0 and r["bwd_tf32x3"] > 0 and (r["bwd_tf32x3_long"] > 0)
+                  == bool(long_rows) and r["one_pass"] == r["cluster"] == r["long"]
+                  == r["two_pass"] == r["bwd_one_pass"] == r["bwd_cluster"] == r["bwd_long"]
+                  == r["bwd_two_pass"] == 0 for r in out["routes"]),
+              f"{name}: attention by route per step {out['routes']}; rows of {long_rows} keys "
+              "must take the TF32x3 long backward, every other float32 call the TF32x3 kernels")
+    else:                 # bf16: the cluster kernels to 1024 keys, the long kernels past it
+        cluster = any(256 < lk <= 1024 for lk in lks)
+        longer = any(lk > 1024 for lk in lks)
+        check(all((r["cluster"] > 0) == (r["bwd_cluster"] > 0) == cluster
+                  and (r["long"] > 0) == (r["bwd_long"] > 0) == longer
+                  and r["two_pass"] == r["bwd_two_pass"] == r["tf32x3"] == r["bwd_tf32x3"]
+                  == r["bwd_tf32x3_long"] == 0 for r in out["routes"]),
+              f"{name}: attention by route per step {out['routes']}; rows of {long_rows} keys "
+              "must take the cluster kernels (to 1024 keys) and the long kernels (past it)")
     if keep:
         out["step"] = lambda: step(state, batch)
     return out
@@ -3296,11 +3416,15 @@ def phase_remat(dev, smi: str) -> tuple:
     phase 9's ranks print under this phase's name): ViT-B/16 at B = 96 with
     and without remat (gradients before the optimizer compared), at B = 256
     both ways, ViT-L/14 at B = 32 both ways, ViT-B/16 at 448 px, B = 24,
-    and B = 512 with remat, kept for the profile; and one float32 ViT-L/14
-    step at B = 2 (L14_F32_BATCH), whose cross blocks' 264 keys are past the
-    TF32x3 backward's limit and take the SIMT pair. Returns the launch
-    counts by path, the B = 512 step, the 448 px step and the float32
-    ViT-L/14 step's SIMT backward launches."""
+    and B = 512 with remat, kept for the profile; one float32 ViT-L/14 step
+    at B = 2 (L14_F32_BATCH), whose cross blocks' 264 keys are past the
+    TF32x3 backward's limit and take the TF32x3 long backward; and a cold
+    and a warm step of each of "448_f32" (float32 448 px, B = 2: its 784 and
+    792 take the TF32x3 long backward) and "672" (bf16 672 px, B = 4: its
+    1764 and 1772 take the long kernels both ways). Returns the launch
+    counts by path, the B = 512 step, the 448 px step and the long
+    backwards' launches by step ({"l14_f32", "448_f32": TF32x3 long; "672":
+    long}) and the 672 px step's long forwards ("672_fwd")."""
     from segclip_tpu_torch.config import ModelConfig
 
     t_phase = time.perf_counter()
@@ -3379,9 +3503,18 @@ def phase_remat(dev, smi: str) -> tuple:
     f32 = train_run(dev, "l14 float32", l14_f32_config(), L14_F32_BATCH, 1)
     report_run("ViT-L/14 float32", L14_F32_BATCH, False, f32)
     add("train_l14_f32", f32)
-    simt = sum(r["bwd_two_pass"] for r in f32["routes"])
+    long_counts = {"l14_f32": sum(r["bwd_tf32x3_long"] for r in f32["routes"])}
+    for name, label, key in (("448_f32", "ViT-B/16 448 px float32", "bwd_tf32x3_long"),
+                             ("672", "ViT-B/16 672 px", "bwd_long")):
+        b = LARGE_CONFIGS[name][2]
+        run = train_run(dev, name, large_config(name, False), b, 1)
+        report_run(label, b, False, run)
+        add(f"train_{name}", run)
+        long_counts[name] = sum(r[key] for r in run["routes"])
+        if name == "672":                      # its 1764 and 1772 take the long forward too
+            long_counts["672_fwd"] = sum(r["long"] for r in run["routes"])
     print(f"  phase 12's steps took {time.perf_counter() - t_phase:.1f} s")
-    return counts, b512.pop("step"), large[("448", False)].pop("step"), simt
+    return counts, b512.pop("step"), large[("448", False)].pop("step"), long_counts
 
 
 def runm_args(data: str, out: str) -> list:
@@ -3607,11 +3740,12 @@ def phase_drift(dev, smi: str) -> dict:
 
 
 def profile_step(name: str) -> int:
-    """`python3 chip_smoke.py profile-step <LARGE_CONFIGS name>`: 1 + 3 warm
-    bf16 steps of `make_train_step` at that configuration (no remat) on the
-    synthetic batch, then one profiled step (device busy, idle share, the
-    port's kernels). Uses only what the port had before the cluster kernels,
-    so that the same script measures an older tree too."""
+    """`python3 chip_smoke.py profile-step <LARGE_CONFIGS name, or l14_f32>`:
+    1 + 3 warm steps of `make_train_step` at that configuration (no remat;
+    "l14_f32" is phase 12's float32 ViT-L/14 at B = 2) on the synthetic
+    batch, then one profiled step (device busy, idle share, the port's
+    kernels). Uses only what the port had before the cluster kernels, so
+    that the same script measures an older tree too."""
     from segclip_tpu_torch.config import Config
     from segclip_tpu_torch.kernels import build
     from segclip_tpu_torch.models.segclip import init_segclip
@@ -3625,8 +3759,8 @@ def profile_step(name: str) -> int:
     print(smi.stdout.strip().splitlines()[0])
     build.load()
     dev = torch.device("cuda")
-    mcfg = large_config(name, False)
-    b = LARGE_CONFIGS[name][2]
+    mcfg, b = ((l14_f32_config(), L14_F32_BATCH) if name == "l14_f32"
+               else (large_config(name, False), LARGE_CONFIGS[name][2]))
     cfg = Config(model=mcfg)
     model = init_segclip(mcfg, seed=0, device=dev)
     step = make_train_step(model, create_optimizer(model, cfg, t_total=100), cfg)
@@ -3774,8 +3908,9 @@ def main() -> int:
     spilled = print_ptxas(build.build_log())
     no_spill = {k: n for k, n in spilled.items()
                 if k.startswith(("attention_fwd_tf32x3_kernel", "attention_bwd_tf32x3_kernel",
-                                 "attention_fwd_long_kernel"))}
-    check(len(no_spill) == 7 and not any(no_spill.values()),
+                                 "attention_fwd_long_kernel", "attention_bwd_long_",
+                                 "attention_bwd_tf32x3_long_"))}
+    check(len(no_spill) == 12 and not any(no_spill.values()),
           f"the TF32x3 and long kernels' instances and their spill bytes: {no_spill}")
     hmma = tensor_core_counts(build.build())
 
@@ -3816,7 +3951,7 @@ def main() -> int:
                                                          "peak_mib": train_peak})
         mark("b32")
     phase_transports(dev, smi, transport_batches)
-    remat_counts, b512_step, px448_step, l14_f32_simt = phase_remat(dev, smi)
+    remat_counts, b512_step, px448_step, long_counts = phase_remat(dev, smi)
     mark("remat_large")
     runm_counts = phase_runm(smi)
     mark("train_cli_runM")
@@ -3827,7 +3962,8 @@ def main() -> int:
     print("launches by route on the main path, per phase (forward; backward): " + "; ".join(
         f"{path} {r['one_pass']} one-pass / {r['cluster']} cluster / {r['long']} long / "
         f"{r['tf32x3']} tf32x3 / {r['two_pass']} two-pass; {r['bwd_one_pass']} one-pass / "
-        f"{r['bwd_cluster']} cluster / {r['bwd_tf32x3']} tf32x3 / {r['bwd_two_pass']} two-pass"
+        f"{r['bwd_cluster']} cluster / {r['bwd_long']} long / {r['bwd_tf32x3']} tf32x3 / "
+        f"{r['bwd_tf32x3_long']} tf32x3 long / {r['bwd_two_pass']} two-pass"
         for path, r in routes.items()))
     for path in ("eval", "remat_large"):      # the 224x336 request; 448 px and ViT-L/14
         check(routes[path]["cluster"] > 0, f"{path}: no forward on the cluster kernel")
@@ -3835,8 +3971,8 @@ def main() -> int:
     for path in ("eval_f32", "train_f32", "drift"):   # float32 only: the TF32x3 kernels
         r = routes[path]
         check(r["tf32x3"] > 0 and r["two_pass"] == r["one_pass"] == r["cluster"] == r["long"]
-              == r["bwd_one_pass"] == r["bwd_cluster"] == r["bwd_two_pass"] == 0
-              and (r["bwd_tf32x3"] > 0) == (path != "eval_f32"),
+              == r["bwd_one_pass"] == r["bwd_cluster"] == r["bwd_long"] == r["bwd_tf32x3_long"]
+              == r["bwd_two_pass"] == 0 and (r["bwd_tf32x3"] > 0) == (path != "eval_f32"),
               f"{path} (float32): launches by route {r}")
     for path in ("eval_sharded", "train_dp_tp", "studies", "b32"):     # their float32 parts
         check(routes[path]["tf32x3"] > 0, f"{path}: its float32 forwards did not take the "
@@ -3844,22 +3980,30 @@ def main() -> int:
     for path in ("train_dp_tp", "b32", "remat_large"):   # their float32 steps' backwards
         check(routes[path]["bwd_tf32x3"] > 0, f"{path}: its float32 backwards did not take "
               f"the TF32x3 kernel: {routes[path]}")
-    # every float32 backward of phases 2-14 of at most 256 keys on the TF32x3
-    # kernel: the SIMT pair only for phase 12's float32 ViT-L/14 cross rows
-    simt = {path: r["bwd_two_pass"] for path, r in routes.items() if r["bwd_two_pass"]}
-    check(simt == {"remat_large": l14_f32_simt} and l14_f32_simt > 0,
-          f"SIMT pair backwards on the main path: {simt} (expected {l14_f32_simt}, phase 12's "
-          f"float32 ViT-L/14 cross rows of 264 keys, and no other)")
+    # no backward of phases 2-14 on the two-pass pairs: the long backwards
+    # only in phase 12, the TF32x3 long one for the float32 ViT-L/14 step's
+    # cross rows (264 keys) and the float32 448 px step's 784 and 792, the
+    # bf16 long one for the 672 px step's 1764 and 1772
+    two_bwd = {path: r["bwd_two_pass"] for path, r in routes.items() if r["bwd_two_pass"]}
+    f32_long = {path: r["bwd_tf32x3_long"] for path, r in routes.items() if r["bwd_tf32x3_long"]}
+    bf16_long = {path: r["bwd_long"] for path, r in routes.items() if r["bwd_long"]}
+    want_f32 = long_counts["l14_f32"] + long_counts["448_f32"]
+    check(not two_bwd and f32_long == {"remat_large": want_f32} and bf16_long == {
+              "remat_large": long_counts["672"]} and min(long_counts.values()) > 0,
+          f"two-pass backwards on the main path: {two_bwd}; TF32x3 long: {f32_long}, long: "
+          f"{bf16_long} (expected phase 12's alone, by step {long_counts})")
     # no forward of phases 2-14 on the two-pass kernels: every float32 one on
     # the TF32x3 kernel, the long kernel only for phase 2's bf16 rows past
-    # CLUSTER_LIMIT (the 448x672 and 224x2048 whole requests)
+    # CLUSTER_LIMIT (the 448x672 and 224x2048 whole requests) and phase 12's
+    # 672 px step
     two_pass = {path: r["two_pass"] for path, r in routes.items() if r["two_pass"]}
     long = {path: r["long"] for path, r in routes.items() if r["long"]}
-    check(not two_pass and long == {"eval": eval_long},
+    check(not two_pass and long == {"eval": eval_long, "remat_large": long_counts["672_fwd"]},
           f"two-pass forwards on the main path: {two_pass}; long forwards: {long} (expected "
-          f"{eval_long}, the 448x672 and 224x2048 whole requests' long rows, in eval only)")
+          f"{eval_long} in eval, the 448x672 and 224x2048 whole requests' long rows, and "
+          f"{long_counts['672_fwd']} in phase 12, the 672 px step's)")
     for route in ROUTE_FUNCTIONS:
-        check(route == "two_pass" or sum(r[route] for r in routes.values()) > 0,
+        check(route.endswith("two_pass") or sum(r[route] for r in routes.values()) > 0,
               f"the {ROUTE_FUNCTIONS[route]} kernel was never launched on the main path")
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
                              b32_step, px448_step)
@@ -3875,15 +4019,15 @@ def main() -> int:
             ("attention_bwd", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster", "bwd_cluster"),
             ("attention_bwd_tf32x3", ATTN_BWD_TF32_SRC, ATTN_BWD_TPU, "attention_bwd_tf32x3",
              "bwd_tf32x3"),
-            ("attention_bwd_two_pass", ATTN_BWD_SRC, ATTN_BWD_TPU, "attention_bwd_cluster",
-             "bwd_two_pass"),
+            ("attention_bwd_long", ATTN_BWD_LONG_SRC, ATTN_BWD_TPU, "attention_bwd_long",
+             "bwd_long"),
+            ("attention_bwd_tf32x3_long", ATTN_BWD_LONG_SRC, ATTN_BWD_TPU,
+             "attention_bwd_tf32x3_long", "bwd_tf32x3_long"),
             ("group_assign", GROUP_SRC, GROUP_TPU, "grouping", "group_assign"),
             ("group_assign_st", GROUP_SRC, GROUP_ST_TPU, "grouping_st", "group_assign_st")):
         t = timings[summary[key]["timing"]]
         row = dict(rows[summary[key]["timing"]])
         err = summary[key]["max_abs_err"]
-        if name.endswith("two_pass"):    # PR 3's backward, in turns beside the cluster kernels
-            row["ms"], err = row["two_pass_ms"], summary[key]["two_pass_err"]
         if counter in ROUTE_FUNCTIONS:
             by_path = {path: r[counter] for path, r in routes.items()}
             direction = "attention_bwd" if counter.startswith("bwd_") else "attention_fwd"
@@ -3928,6 +4072,9 @@ def main() -> int:
                          two_pass_host_us=summary["f32_host_us"]["two_pass"])
         if name.startswith("attention_bwd"):
             entry["host_us"] = (summary["f32_bwd_host_us"]["tf32x3"] if counter == "bwd_tf32x3"
+                                else summary["long_bwd_host_us"]["long"] if counter == "bwd_long"
+                                else summary["f32_long_bwd_host_us"]["tf32x3_long"]
+                                if counter == "bwd_tf32x3_long"
                                 else summary["bwd_host_us"][counter[len("bwd_"):]])
         if name.endswith(("one_pass", "tf32x3", "long")) or name in ("attention_fwd",
                                                                       "attention_bwd"):
@@ -3946,15 +4093,19 @@ def main() -> int:
                                      f"under autograd ({row['library_backend']}); "
                                      "compare with pair_ms")
             entry["pair_ms"] = row["pair_ms"]
-            if name == "attention_bwd_two_pass":   # PR 3's forward + backward, in turns
-                entry["pair_ms"] = rows[t["pair"]]["two_pass_ms"] + row["ms"]
-            if name == "attention_bwd_tf32x3":     # float32: the SIMT pair in turns beside it
+            if name == "attention_bwd_long":       # the mma.sync pair in turns beside it
+                entry.update(two_pass_max_abs_err=summary[key]["two_pass_err"],
+                             two_pass_host_us=summary["long_bwd_host_us"]["two_pass"])
+            if name in ("attention_bwd_tf32x3", "attention_bwd_tf32x3_long"):
+                # float32: the SIMT pair in turns beside it
                 entry["library_call"] = ("scaled_dot_product_attention forward + backward at "
                                          f"float32, TF32 off, under autograd "
                                          f"({row['library_backend']}); compare with pair_ms")
+                host = ("f32_bwd_host_us" if name == "attention_bwd_tf32x3"
+                        else "f32_long_bwd_host_us")
                 entry.update(rel_err=summary[key]["rel_err"],
                              two_pass_max_abs_err=summary[key]["two_pass_err"],
-                             two_pass_host_us=summary["f32_bwd_host_us"]["two_pass"])
+                             two_pass_host_us=summary[host]["two_pass"])
         if not name.startswith(("attention_fwd", "attention_bwd")) or name.endswith("one_pass"):
             # the cluster and two-pass kernels take no ViT-B/32 row
             b32 = summary[{"attention_fwd_train": "b32_attention_fwd",

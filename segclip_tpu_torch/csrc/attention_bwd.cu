@@ -29,8 +29,12 @@
 // products are exact. No kernel uses atomics: the gradients are the same
 // bits from run to run.
 //
-// Four kernels; the wrapper (ops/kernels/attention.py `bwd_route`) picks one
-// by dtype and Lk alone, and nothing falls back:
+// Four kernels. The wrapper (ops/kernels/attention.py `bwd_route`) picks the
+// one-pass or the cluster kernel by dtype and Lk alone, and nothing falls
+// back; rows past BWD_CLUSTER_LIMIT (bf16) and every float32 row take
+// attention_bwd_long.cu's and attention_bwd_tf32x3.cu's kernels, so no
+// route reaches the two-pass pairs below (`attention_bwd_two_pass` launches
+// them directly, and chip_smoke.py times them beside those kernels):
 //
 // bfloat16, Lk ≤ BWD_ONE_PASS_LIMIT (256): `attention_bwd_one_pass_kernel`,
 // the path of the model (every backward of the B = 96 and B = 512 steps and
@@ -111,8 +115,9 @@
 //   No atomics and no D scratch in HBM: the gradients are the same bits from
 //   run to run.
 //
-// bfloat16, Lk > BWD_CLUSTER_LIMIT: `attention_bwd_{dq,dkv}_bf16_kernel`,
-// two passes on `mma.sync` (tc_bf16.cuh), any Lk. Blocks of this design own
+// bfloat16, any Lk, no route (rows past BWD_CLUSTER_LIMIT took it until
+// attention_bwd_long.cu): `attention_bwd_{dq,dkv}_bf16_kernel`, two passes
+// on `mma.sync` (tc_bf16.cuh). Blocks of this design own
 // 64 rows, and blocks run in no order, so the sum of dK and dV over query
 // blocks cannot be carried across them without atomics. Instead:
 //   (a) one block per (b, h, query rows): D, written to a (B, H, Lq4) fp32
@@ -133,7 +138,8 @@
 //   - pass (b) reads Pᵀ fragments with `ldmatrix.trans`, rebuilds dPᵀ = V·dOᵀ
 //     on tensor cores, and sums dV and dK in fp32 registers.
 //
-// float32, `attention_bwd_{dq,dkv}_simt_kernel`: the parity path, fp32 FMAs
+// float32, any Lk, no route (rows past 256 keys took it until
+// attention_bwd_long.cu): `attention_bwd_{dq,dkv}_simt_kernel`, fp32 FMAs
 // (no TF32), the two passes above. Pass (a) takes 16 query rows per block
 // and walks the keys twice in 64-row tiles (D, then dS and dQ); pass (b)
 // takes 64 key rows and walks the queries in 32-row tiles.

@@ -7,7 +7,8 @@
 // and tensor-parallel float32 steps, ViT-B/32's) and the drift replay.
 // `ops/kernels/attention.bwd_route` sends every float32 call with Lk ≤
 // BWD_TF32X3_LIMIT (256) here (`attention_bwd_tf32x3_kernel`); longer float32
-// rows stay on attention_bwd.cu's SIMT pair.
+// rows take attention_bwd_long.cu's TF32x3 long kernels (this kernel's
+// per-block column work, without the cluster exchange, is their slab pass).
 //
 // What it computes, per batch and head, from P (the forward's (Lq, Lk)
 // probabilities), dO, Q, K and V, all fp32:
@@ -116,72 +117,6 @@ struct BwdTf32Args {
   int batch, heads, lq, lk;
   float scale;
 };
-
-// The A fragments (m64k8, TF32) of the k-steps of an m64n32 accumulator that
-// holds query rows {2t, 2t + 1} of each 8-wide step in thread t: a0 ↔
-// d[4kk], a1 ↔ d[4kk + 2], a2 ↔ d[4kk + 1], a3 ↔ d[4kk + 3] (slot t ↔ row 2t,
-// slot t + 4 ↔ row 2t + 1), as hi and lo parts.
-__device__ __forceinline__ void fragments(const float (&d)[16], uint32_t (&hi)[4][4],
-                                          uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = d[4 * kk + ((e & 1) << 1) + (e >> 1)];
-      hi[kk][e] = tf32_rna(x);
-      lo[kk][e] = tf32_rna(x - __uint_as_float(hi[kk][e]));
-    }
-}
-
-// acc (m64n64) += A·B over `steps` 8-row k-steps from k-step k0, A the
-// fragments (hi, lo) in registers, B a 64 × 64 fp32 tile pair (hi at b_addr,
-// lo at b_addr + F32_PIECE) in shared memory: hi·lo and hi·hi per k-step,
-// then lo·hi.
-__device__ __forceinline__ void product_rs(float (&acc)[32], uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4], uint32_t b_addr, int k0,
-                                           int steps) {
-  fence_regs(acc);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    fence_regs(hi[kk]);
-    fence_regs(lo[kk]);
-  }
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    if (kk < steps) {
-      const uint32_t off = ((k0 + kk) >> 2) * F32_HALF + ((k0 + kk) & 3) * 32;
-      wgmma_m64n64k8_tf32_rs(acc, hi[kk], desc_sw128(b_addr + F32_PIECE + off), 1);
-      wgmma_m64n64k8_tf32_rs(acc, hi[kk], desc_sw128(b_addr + off), 1);
-    }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    if (kk < steps) {
-      const uint32_t off = ((k0 + kk) >> 2) * F32_HALF + ((k0 + kk) & 3) * 32;
-      wgmma_m64n64k8_tf32_rs(acc, lo[kk], desc_sw128(b_addr + off), 1);
-    }
-  wgmma_commit();
-}
-
-// acc (m64n32) = A·B over `steps` k-steps, A and B fp32 tile pairs (hi, then
-// lo at + F32_PIECE) in shared memory, both K-major, B's 32 rows from
-// b_addr: per k-step lo·hi, hi·lo, hi·hi.
-__device__ __forceinline__ void product_ss(float (&acc)[16], uint32_t a_addr, uint32_t b_addr,
-                                           int steps) {
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    if (kk < steps) {
-      const uint32_t off = (kk >> 2) * F32_HALF + (kk & 3) * 32;
-      const uint64_t ah = desc_sw128(a_addr + off), al = desc_sw128(a_addr + F32_PIECE + off);
-      const uint64_t bh = desc_sw128(b_addr + off), bl = desc_sw128(b_addr + F32_PIECE + off);
-      wgmma_m64n32k8_tf32_ss(acc, al, bh, kk);
-      wgmma_m64n32k8_tf32_ss(acc, ah, bl, 1);
-      wgmma_m64n32k8_tf32_ss(acc, ah, bh, 1);
-    }
-  wgmma_commit();
-}
 
 // Grid (C, G) in clusters of C along x, G at most the clusters the card
 // holds at once: cluster g walks the (batch, head) rows g, g + G, ..., its
@@ -318,7 +253,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // into registers at the accumulator's places (key r0 + 8r, query row
       // col0 + 8j + c2 + e).
       float x[16], p[16];
-      product_ss(x, v_addr, do_addr + col0 * 128, 8);
+      tf32_product_ss(x, v_addr, do_addr + col0 * 128, 8);
       mbar_wait(bar_p, ph);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -411,8 +346,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       // registers, dOᵀ (rows permuted alike) as B.
       {
         uint32_t fh[4][4], fl[4][4];
-        fragments(p, fh, fl);
-        product_rs(dv, fh, fl, dot_addr, 4 * wg, qsteps);
+        tf32_fragments(p, fh, fl);
+        tf32_product_rs(dv, fh, fl, dot_addr, 4 * wg, qsteps);
         wgmma_wait<0>();
         fence_regs(dv);
 #pragma unroll
@@ -431,8 +366,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       float dq[16];
       {
         uint32_t sh[4][4], sl[4][4];
-        fragments(x, sh, sl);
-        product_rs(dk, sh, sl, do_addr, 4 * wg, qsteps);
+        tf32_fragments(x, sh, sl);
+        tf32_product_rs(dk, sh, sl, do_addr, 4 * wg, qsteps);
         const int slot = 4 * (g & 1) + (g >> 1);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -450,7 +385,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
         fence_proxy_async();
         __syncthreads();
-        product_ss(dq, ds_addr, kt_addr + col0 * 128, ksteps);
+        tf32_product_ss(dq, ds_addr, kt_addr + col0 * 128, ksteps);
         wgmma_wait<0>();
         fence_regs(dq);
         fence_regs(dk);

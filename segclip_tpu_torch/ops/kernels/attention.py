@@ -1,8 +1,8 @@
 """Attention over (B, L, H·64) operands: the CUDA kernels
 `csrc/attention_fwd.cu`, `csrc/attention_fwd_long.cu`,
-`csrc/attention_fwd_tf32x3.cu` (forward), `csrc/attention_bwd.cu` and
-`csrc/attention_bwd_tf32x3.cu` (backward), their plain PyTorch versions, and
-the autograd Function that joins them.
+`csrc/attention_fwd_tf32x3.cu` (forward), `csrc/attention_bwd.cu`,
+`csrc/attention_bwd_tf32x3.cu` and `csrc/attention_bwd_long.cu` (backward),
+their plain PyTorch versions, and the autograd Function that joins them.
 
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 segclip_tpu/ops/pallas/attention.py (`attention_vmem` and its custom VJP).
@@ -12,9 +12,9 @@ tensor cores and are bound by the bytes of Q, K, V, dO and the saved P;
 they read the q|k|v column views of the packed projection in place (a row
 stride per operand), with no head transpose and no copy. The float32
 forward and backward run fp32-accurate split products on TF32 tensor
-cores (`csrc/attention_{fwd,bwd}_tf32x3.cu`: three TF32 products per fp32
-product, as PyTorch's float32 SDPA computes them); float32 backward rows
-past BWD_TF32X3_LIMIT keys run fp32 FMAs (no TF32).
+cores (`csrc/attention_{fwd,bwd}_tf32x3.cu`, `csrc/attention_bwd_long.cu`:
+three TF32 products per fp32 product, as PyTorch's float32 SDPA computes
+them).
 
 The forward has four routes, and `fwd_route` picks one by dtype and Lk
 alone: bfloat16 rows of at most ONE_PASS_LIMIT keys (every row of the B = 96
@@ -37,20 +37,30 @@ route's; those four functions launch their kernel directly.
 float32 on FMAs) directly, with its own counter: no route reaches them, and
 chip_smoke.py times them beside the routes' kernels.
 
-The backward has four kernels too, and `bwd_route` picks one by dtype and
-Lk alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward
-of the B = 96 and B = 512 steps) go to the one-pass kernel (one block per
+The backward has five routes, and `bwd_route` picks one by dtype and Lk
+alone: bfloat16 rows of at most BWD_ONE_PASS_LIMIT keys (every backward of
+the B = 96 and B = 512 steps) go to the one-pass kernel (one block per
 (batch, head), dK and dV summed on chip, TMA copies, `wgmma`); bf16 rows of
 up to BWD_CLUSTER_LIMIT keys to the cluster kernel (the one-pass design
 over a cluster: each block one key slab's dK and dV, D and dQ summed
-through distributed shared memory); float32 rows of up to BWD_TF32X3_LIMIT
-keys (every float32 backward of the model: the float32 steps, the drift
-replay) to the TF32x3 kernel ("tf32x3": a cluster per (batch, head) over
-64-key slabs, TF32 `wgmma`, TMA); longer rows of either dtype to the
-two-pass kernels. `attention_bwd.launches` counts every backward launch,
-and `attention_bwd_one_pass.launches`, `attention_bwd_cluster.launches`,
-`attention_bwd_tf32x3.launches` and `attention_bwd_two_pass.launches` each
-route's; those four functions launch their kernel directly.
+through distributed shared memory); longer bf16 rows, from BWD_LONG_MIN_LK
+keys on (a 672 px step's 1764 and 1772), to the long kernels ("long": a row
+pass for D and dQ per 64-row query tile, then a slab pass for dK and dV per
+128-key slab, D through a scratch, `wgmma`, TMA); float32 rows of up to
+BWD_TF32X3_LIMIT keys (every float32 backward of the B = 96 step, the
+drift replay) to the TF32x3 kernel ("tf32x3": a cluster per (batch, head)
+over 64-key slabs, TF32 `wgmma`, TMA); longer float32 rows (ViT-L/14's
+cross 264, a float32 448 px step's 784 and 792) to the TF32x3 long kernels
+("tf32x3_long": the long route's two passes on TF32 `wgmma`).
+`attention_bwd.launches` counts every backward call, and
+`attention_bwd_one_pass.launches`, `attention_bwd_cluster.launches`,
+`attention_bwd_long.launches`, `attention_bwd_tf32x3.launches` and
+`attention_bwd_tf32x3_long.launches` each route's; those five functions
+launch their kernels directly (a long route's call is two launches, counted
+once). `attention_bwd_two_pass` launches the two-pass kernels (the bf16
+pair on `mma.sync`, the float32 SIMT pair) directly, with its own counter:
+no route reaches them, and chip_smoke.py times them beside the routes'
+kernels.
 
 `attention` is differentiable on every device. Under autograd its forward
 saves P (B, H, Lq, Lk) in V's dtype and its backward starts from that P, as
@@ -89,6 +99,11 @@ LONG_MIN_LK = 1025
 # The longest float32 rows the TF32x3 backward takes: BWD_TF32X3_LIMIT of
 # csrc/attention_bwd_tf32x3.cu (`bwd_tf32x3_limit`).
 BWD_TF32X3_LIMIT = 256
+# The shortest rows the long backward kernels take: BWD_LONG_MIN_LK (bf16)
+# and BWD_TF32X3_LONG_MIN_LK (float32) of csrc/attention_bwd_long.cu, which
+# the library reports (`bwd_long_min_lk("long")`, `bwd_long_min_lk("tf32x3_long")`).
+BWD_LONG_MIN_LK = 1025
+BWD_TF32X3_LONG_MIN_LK = 257
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -365,17 +380,35 @@ def bwd_tf32x3_limit() -> int:
     return fn()
 
 
+@lru_cache(maxsize=None)
+def _bwd_long_entry(route: str):
+    fn = getattr(build.load(), f"segclip_attention_bwd_{route}")
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def bwd_long_min_lk(route: str = "long") -> int:
+    """The shortest Lk the "long" (bf16) or "tf32x3_long" (float32) backward
+    takes, as the library reports it (`segclip_attention_bwd_<route>_min_lk`);
+    BWD_LONG_MIN_LK and BWD_TF32X3_LONG_MIN_LK mirror them."""
+    fn = getattr(build.load(), f"segclip_attention_bwd_{route}_min_lk")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def bwd_route(dtype: torch.dtype, lk: int, limit: int = BWD_ONE_PASS_LIMIT,
               cluster: int = BWD_CLUSTER_LIMIT, tf32x3: int = BWD_TF32X3_LIMIT) -> str:
     """Which backward kernel takes a call on the card, by its dtype and Lk
     alone: "one_pass" for bfloat16 rows of at most `limit` keys, "cluster"
-    for bf16 rows of up to `cluster` keys, "tf32x3" for float32 rows of up
-    to `tf32x3` keys, else "two_pass" (longer rows of either dtype)."""
+    for bf16 rows of up to `cluster` keys, "long" for longer bf16 rows,
+    "tf32x3" for float32 rows of up to `tf32x3` keys and "tf32x3_long" for
+    longer float32 rows."""
     if dtype == torch.float32:
-        return "tf32x3" if lk <= tf32x3 else "two_pass"
-    if lk > cluster:
-        return "two_pass"
-    return "one_pass" if lk <= limit else "cluster"
+        return "tf32x3" if lk <= tf32x3 else "tf32x3_long"
+    return "one_pass" if lk <= limit else "cluster" if lk <= cluster else "long"
 
 
 def _check(q, k, v, bias2d, biasb):
@@ -646,17 +679,19 @@ def _check_bwd(p, do, q, k, v) -> torch.device:
 
 
 def _launch_bwd(route, p, do, q, k, v, scale):
-    """One launch of a backward kernel on CUDA tensors (checked): "one_pass"
+    """One call of a backward route on CUDA tensors (checked): "one_pass"
     (`segclip_attention_bwd_one_pass`, bf16, Lk ≤ the limit), "cluster"
     (`segclip_attention_bwd_cluster`, bf16, the limit < Lk ≤ the cluster
+    limit), "long" (`segclip_attention_bwd_long`, bf16, Lk ≥ its lower
     limit), "tf32x3" (`segclip_attention_bwd_tf32x3`, float32, Lk ≤ its
-    limit) or "two_pass" (`segclip_attention_bwd`, with its D scratch).
-    Returns (dQ, dK, dV). As
+    limit), "tf32x3_long" (`segclip_attention_bwd_tf32x3_long`, float32, Lk ≥
+    its lower limit) or "two_pass" (`segclip_attention_bwd`); the last three
+    with a (B, H, Lq4) fp32 D scratch. Returns (dQ, dK, dV). As
     `_launch_fwd`: a raw stream handle, and the device switched only when
     the tensors are not on the current one."""
     device = q.device
     _unit_last_stride(q, k, v)
-    tma = q.dtype == torch.bfloat16 or route == "tf32x3"
+    tma = q.dtype == torch.bfloat16 or route in ("tf32x3", "tf32x3_long")
     if tma:
         _check_aligned(q, k, v)
     b, lq, dm = q.shape
@@ -674,6 +709,11 @@ def _launch_bwd(route, p, do, q, k, v, scale):
                              f"{bwd_one_pass_limit() + 1} to {bwd_cluster_limit()} keys, got "
                              f"{q.dtype}, Lk = {lk}")
         cluster_shape("bwd", lk, b * heads, device.index)
+    if route in ("long", "tf32x3_long"):
+        dtype = torch.bfloat16 if route == "long" else torch.float32
+        if q.dtype != dtype or lk < bwd_long_min_lk(route):
+            raise ValueError(f"the {route} backward takes {str(dtype)[6:]} rows of at least "
+                             f"{bwd_long_min_lk(route)} keys, got {q.dtype}, Lk = {lk}")
     p, do = _kernel_p(p, tma), _kernel_do(do, tma)
     dq = torch.empty((b, lq, dm), dtype=q.dtype, device=device)
     dk = torch.empty((b, lk, dm), dtype=k.dtype, device=device)
@@ -690,8 +730,12 @@ def _launch_bwd(route, p, do, q, k, v, scale):
     else:
         drow = torch.empty((b, heads, (lq + 3) // 4 * 4), dtype=torch.float32,
                            device=device)
-        entry, args = _bwd_entry(), (_DTYPES[q.dtype], *ptrs, drow.data_ptr(), b, heads,
-                                     lq, lk, *rest)
+        if route == "two_pass":
+            entry, args = _bwd_entry(), (_DTYPES[q.dtype], *ptrs, drow.data_ptr(), b, heads,
+                                         lq, lk, *rest)
+        else:
+            entry = _bwd_long_entry(route)
+            args = (*ptrs, drow.data_ptr(), b, heads, lq, lk, *rest)
     if device.index == torch.cuda.current_device():
         err = entry(*args)
     else:
@@ -730,6 +774,17 @@ def attention_bwd_cluster(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     return _bwd_route_call("cluster", p, do, q, k, v, scale)
 
 
+def attention_bwd_long(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor,
+                       scale: float = HEAD_DIM ** -0.5
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 long-row backward kernels alone (Lk ≥ their lower limit; it
+    raises on anything else), as `attention_bwd` returns; the plain version
+    on the CPU. `attention_bwd` routes to it; chip_smoke.py times it
+    directly."""
+    return _bwd_route_call("long", p, do, q, k, v, scale)
+
+
 def attention_bwd_tf32x3(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
                          k: torch.Tensor, v: torch.Tensor,
                          scale: float = HEAD_DIM ** -0.5
@@ -740,19 +795,31 @@ def attention_bwd_tf32x3(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
     return _bwd_route_call("tf32x3", p, do, q, k, v, scale)
 
 
+def attention_bwd_tf32x3_long(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor,
+                              scale: float = HEAD_DIM ** -0.5
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 TF32x3 long-row backward kernels alone (Lk ≥ their lower
+    limit; it raises on anything else), as `attention_bwd` returns; the
+    plain version on the CPU. `attention_bwd` routes to it; chip_smoke.py
+    times it directly."""
+    return _bwd_route_call("tf32x3_long", p, do, q, k, v, scale)
+
+
 def attention_bwd_two_pass(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
                            k: torch.Tensor, v: torch.Tensor,
                            scale: float = HEAD_DIM ** -0.5
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The two-pass backward kernels alone (bf16 on tensor cores, float32 on
-    FMAs, the SIMT pair; any Lk), as `attention_bwd` returns; the plain
-    version on the CPU. `attention_bwd` routes to it; chip_smoke.py times
-    it directly."""
+    """The two-pass backward kernels alone (the bf16 pair on `mma.sync`, the
+    float32 SIMT pair on FMAs; any Lk), as `attention_bwd` returns; the
+    plain version on the CPU. No route of `attention_bwd` reaches them;
+    chip_smoke.py times them beside the routes' kernels."""
     return _bwd_route_call("two_pass", p, do, q, k, v, scale)
 
 
 _BWD_ROUTES = {"one_pass": attention_bwd_one_pass, "cluster": attention_bwd_cluster,
-               "tf32x3": attention_bwd_tf32x3, "two_pass": attention_bwd_two_pass}
+               "long": attention_bwd_long, "tf32x3": attention_bwd_tf32x3,
+               "tf32x3_long": attention_bwd_tf32x3_long, "two_pass": attention_bwd_two_pass}
 
 
 def attention_bwd(p: torch.Tensor, do: torch.Tensor, q: torch.Tensor,
@@ -822,5 +889,7 @@ attention_fwd_two_pass.launches = 0     # direct launches of the two-pass kernel
 attention_bwd.launches = 0      # backward kernel launches, every route
 attention_bwd_one_pass.launches = 0     # backward launches of the one-pass kernel
 attention_bwd_cluster.launches = 0      # backward launches of the cluster kernel
+attention_bwd_long.launches = 0         # backward calls of the bf16 long-row kernels
 attention_bwd_tf32x3.launches = 0       # backward launches of the float32 TF32x3 kernel
-attention_bwd_two_pass.launches = 0     # backward launches of the two-pass kernels
+attention_bwd_tf32x3_long.launches = 0  # backward calls of the float32 TF32x3 long-row kernels
+attention_bwd_two_pass.launches = 0     # direct calls of the two-pass kernels (no route)

@@ -924,19 +924,21 @@ def test_bf16_cluster_limit_mirrors_the_library():
 @pytest.mark.parametrize("lk", [1024, 1025])
 def test_bf16_cluster_route_at_its_limit(cuda, lk):
     """CLUSTER_LIMIT keys take the cluster kernels, one more the long
-    forward and the two-pass backward; the cluster functions refuse what
-    they do not take."""
+    forward and the long backward; the cluster functions refuse what they
+    do not take."""
     from segclip_tpu_torch.ops.kernels.attention import (
-        CLUSTER_LIMIT, attention_bwd_cluster, attention_fwd_cluster, attention_fwd_long,
-        fwd_route)
+        CLUSTER_LIMIT, attention_bwd_cluster, attention_bwd_long, attention_fwd_cluster,
+        attention_fwd_long, fwd_route)
     p, do, q, k, v = _bwd_case(cuda, 1, 17, lk, 2, None, True, seed=lk)
     routes, long = _cluster_routes(), attention_fwd_long.launches
+    bwd_long = attention_bwd_long.launches
     attention_bwd(p, do, q, k, v)
     attention(q, k, v)
     inside = int(lk <= CLUSTER_LIMIT)
     assert fwd_route(torch.bfloat16, lk) == ("cluster" if inside else "long")
     assert _cluster_routes() == (routes[0] + inside, routes[1] + inside)
     assert attention_fwd_long.launches == long + 1 - inside
+    assert attention_bwd_long.launches == bwd_long + 1 - inside
     if not inside:
         with pytest.raises(ValueError, match="cluster"):
             attention_fwd_cluster(q, k, v)
@@ -1447,13 +1449,16 @@ def test_tf32x3_bwd_copies_a_p_or_do_it_cannot_read_in_place(cuda, kind):
 @pytest.mark.parametrize("lk", [256, 257])
 def test_float32_backward_route_at_the_limit(cuda, lk):
     """Lk at BWD_TF32X3_LIMIT takes the TF32x3 backward, one past it the
-    SIMT pair; the TF32x3 function refuses what it does not take."""
-    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_tf32x3
+    TF32x3 long backward (never the SIMT pair); the TF32x3 function refuses
+    what it does not take."""
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd_tf32x3,
+                                                         attention_bwd_tf32x3_long)
     p, do, q, k, v = _bwd_f32_case(cuda, 2, 33, lk, 2, None, True, seed=lk)
-    routes = _bwd_f32_routes()
+    routes, long = _bwd_f32_routes(), attention_bwd_tf32x3_long.launches
     grads = attention_bwd(p, do, q, k, v)
     moved = tuple(a - b for a, b in zip(_bwd_f32_routes(), routes))
-    assert moved == ((1, 0) if lk <= 256 else (0, 1))
+    assert moved == ((1, 0) if lk <= 256 else (0, 0))
+    assert attention_bwd_tf32x3_long.launches == long + int(lk > 256)
     _assert_f32_grads_close(grads, attention_bwd_plain(p, do, q, k, v))
     if lk > 256:
         with pytest.raises(ValueError, match="at most 256 keys"):
@@ -1464,3 +1469,140 @@ def test_float32_backward_route_at_the_limit(cuda, lk):
     with pytest.raises(ValueError, match="16-byte"):
         attention_bwd_tf32x3(torch.zeros(2, 1, 9, 9, device=cuda), torch.zeros(2, 9, 64, device=cuda),
                              x[..., 1:65], x[..., 65:129], x[..., 129:193])
+
+
+# The long-row backwards (csrc/attention_bwd_long.cu: a row pass for D and
+# dQ per 64-row query tile, then a slab pass for dK and dV per key slab):
+# bf16 rows past BWD_CLUSTER_LIMIT ("long") and float32 rows past
+# BWD_TF32X3_LIMIT ("tf32x3_long"), each routed call held to the plain
+# version (bf16: the share rule; float32: 1e-5·(1 + max|ref|)) and beside
+# it the two-pass pair it replaced (the mma.sync pair, the SIMT pair) by
+# the same rules. The shapes are the main path's (the 672 px step's 4×1764
+# and cross 4×8×1772; a 448×672 request's 1176; the float32 ViT-L/14 cross
+# rows 2×8×264 at H = 16, the float32 448 px step's 2×784 and cross 2×8×792)
+# and rows ragged against the 64-row tiles, the 64-key pieces and the
+# 128-key slabs.
+BWD_LONG_MAIN_PATH = [           # (dtype, B, Lq, Lk, H, cross)
+    (torch.bfloat16, 4, 1764, 1764, 12, False), (torch.bfloat16, 4, 8, 1772, 12, True),
+    (torch.bfloat16, 1, 1176, 1176, 12, False), (torch.float32, 2, 8, 264, 16, True),
+    (torch.float32, 2, 784, 784, 12, False), (torch.float32, 2, 8, 792, 12, True)]
+BWD_LONG_EDGES = (
+    [(torch.bfloat16, 2, lq, lk, 2, True) for lq in (1, 8, 63, 65, 130)
+     for lk in (1025, 1087, 1088, 1089, 1153, 2049)]
+    + [(torch.float32, 2, lq, lk, 2, True) for lq in (1, 8, 63, 65, 130)
+       for lk in (257, 287, 288, 289, 320, 321, 1025)])
+
+
+def _bwd_long_case(cuda, dtype, b, lq, lk, h, cross, seed, bias=None):
+    q, k, v, bias2d, biasb = _long_case(cuda, dtype, b, lq, lk, h, cross, seed, bias)[:5]
+    _, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    do = torch.randn(b, lq, h * 64, generator=gen, device=cuda).to(dtype)
+    return p, do, q, k, v
+
+
+def _assert_long_grads_close(grads, ref):
+    if grads[0].dtype == torch.float32:
+        _assert_f32_grads_close(grads, ref)
+    else:
+        _assert_grads_close(grads, ref)
+
+
+def _long_fn(dtype):
+    from segclip_tpu_torch.ops.kernels.attention import (attention_bwd_long,
+                                                         attention_bwd_tf32x3_long)
+    return attention_bwd_long if dtype == torch.bfloat16 else attention_bwd_tf32x3_long
+
+
+@pytest.mark.parametrize("dtype, b, lq, lk, h, cross", BWD_LONG_MAIN_PATH + BWD_LONG_EDGES)
+def test_long_bwd_matches_plain_and_the_two_pass_pair(cuda, dtype, b, lq, lk, h, cross):
+    from segclip_tpu_torch.ops.kernels.attention import attention_bwd_two_pass
+    p, do, q, k, v = _bwd_long_case(cuda, dtype, b, lq, lk, h, cross, seed=lq * 7 + lk)
+    fn = _long_fn(dtype)
+    before, two_before = fn.launches, attention_bwd_two_pass.launches
+    grads = attention_bwd(p, do, q, k, v)
+    assert fn.launches == before + 1 and attention_bwd_two_pass.launches == two_before
+    own = fn(p, do, q, k, v)
+    two = attention_bwd_two_pass(p, do, q, k, v)
+    ref = attention_bwd_plain(p, do, q, k, v)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, o) for g, o in zip(grads, own))
+    _assert_long_grads_close(grads, ref)
+    _assert_long_grads_close(two, ref)
+
+
+@pytest.mark.parametrize("dtype, l", [(torch.bfloat16, 1100), (torch.float32, 300)])
+@pytest.mark.parametrize("bias", ["causal", "padding"])
+def test_long_bwd_biases(cuda, dtype, l, bias):
+    """Causal bias2d, and padding biasb with one sample padded everywhere but
+    its first key."""
+    q, k, v, bias2d, biasb = _long_case(cuda, dtype, 3, l, l, 2, False, seed=l, bias=bias)[:5]
+    if biasb is not None:
+        biasb[1, 1:] = -1e6
+    _, p = attention_fwd(q, k, v, bias2d, biasb, save_p=True)
+    do = torch.randn_like(q)
+    _assert_long_grads_close(attention_bwd(p, do, q, k, v), attention_bwd_plain(p, do, q, k, v))
+
+
+@pytest.mark.parametrize("dtype, lk", [(torch.bfloat16, 1100), (torch.float32, 300)])
+def test_long_bwd_fully_masked_row_is_nan_like_the_plain_version(cuda, dtype, lk):
+    """A row whose every key is masked has P = NaN: dQ's row is NaN, the
+    other rows of dQ within the tolerance, and dK and dV NaN wherever the
+    plain version's are."""
+    q, k, v = _long_case(cuda, dtype, 1, 70, lk, 1, True, seed=lk)[:3]
+    bias2d = torch.zeros(70, lk, device=cuda)
+    bias2d[66] = float("-inf")                     # a row of the second query tile
+    _, p = attention_fwd(q, k, v, bias2d, save_p=True)
+    do = torch.randn_like(q)
+    grads = _long_fn(dtype)(p, do, q, k, v)
+    ref = attention_bwd_plain(p, do, q, k, v)
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[66] = False
+    assert torch.isnan(grads[0][0, 66].float()).all() and torch.isnan(ref[0][0, 66].float()).all()
+    rows, want = grads[0][:, keep].float(), ref[0][:, keep].float()
+    if dtype == torch.float32:
+        assert (rows - want).abs().max().item() <= BWD_F32_TOL * (1 + want.abs().max().item())
+    else:
+        _assert_bf16_close(grads[0][:, keep], ref[0][:, keep])
+    for g, r in zip(grads[1:], ref[1:]):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+
+
+@pytest.mark.parametrize("dtype, lq, lk", [(torch.bfloat16, 1176, 1176),
+                                           (torch.bfloat16, 8, 1184),
+                                           (torch.float32, 300, 300), (torch.float32, 8, 264)])
+def test_long_bwd_repeats_bit_for_bit_and_rows_do_not_depend_on_the_batch(cuda, dtype, lq, lk):
+    """Two calls give the same bits (no atomics, every sum in a fixed
+    order), and each (batch, head) row of a batch of 3 is the bits of that
+    element alone."""
+    p, do, q, k, v = _bwd_long_case(cuda, dtype, 3, lq, lk, 4, lq != lk, seed=lk)
+    fn = _long_fn(dtype)
+    first, second = fn(p, do, q, k, v), fn(p, do, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for i in (0, 2):
+        one = fn(p[i:i + 1], do[i:i + 1], q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert all(torch.equal(a, b[i:i + 1]) for a, b in zip(one, first))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_long_bwd_limits_and_refusals(cuda, dtype):
+    """The library's lower limits are BWD_LONG_MIN_LK and
+    BWD_TF32X3_LONG_MIN_LK, one past the cluster and TF32x3 backwards';
+    each long function refuses shorter rows and the other dtype; a P the
+    TMA cannot read is copied and gives the bits of a contiguous one."""
+    from segclip_tpu_torch.ops.kernels import attention as kattn
+    route = "long" if dtype == torch.bfloat16 else "tf32x3_long"
+    assert kattn.bwd_long_min_lk("long") == kattn.BWD_LONG_MIN_LK == kattn.bwd_cluster_limit() + 1
+    assert (kattn.bwd_long_min_lk("tf32x3_long") == kattn.BWD_TF32X3_LONG_MIN_LK
+            == kattn.bwd_tf32x3_limit() + 1)
+    fn, lk = _long_fn(dtype), kattn.bwd_long_min_lk(route)
+    p, do, q, k, v = _bwd_long_case(cuda, dtype, 2, 9, lk - 1, 2, True, seed=3)
+    with pytest.raises(ValueError, match=route):
+        fn(p, do, q, k, v)
+    p, do, q, k, v = _bwd_long_case(cuda, dtype, 2, 9, lk, 2, True, seed=3)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match=route):
+        fn(*(t.to(other) for t in (p, do, q, k, v)))
+    swapped = p.transpose(0, 1).contiguous().transpose(0, 1)
+    assert all(torch.equal(a, b) for a, b in zip(fn(swapped, do, q, k, v),
+                                                 fn(p.contiguous(), do, q, k, v)))

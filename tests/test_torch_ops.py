@@ -382,6 +382,68 @@ def test_attention_gradients_match_jax(case):
                                    err_msg=name_)
 
 
+# Rows past the backward kernels' old limits (the "tf32x3_long" route at
+# float32 past 256 keys, the "long" route at bf16 past 1024) on the card:
+# (name, dtype, B, Lq, Lk, heads).
+LONG_BWD_CASES = [("f32_self_300", torch.float32, 1, 300, 300, 2),
+                  ("bf16_self_1100", torch.bfloat16, 1, 1100, 1100, 2)]
+
+
+@pytest.mark.parametrize("case", LONG_BWD_CASES, ids=[c[0] for c in LONG_BWD_CASES])
+def test_attention_backward_past_the_old_limits_matches_jax(case):
+    """The port's `attention` backward on the CPU (the saved-P backward's
+    plain version, the long routes' oracle) against `jax.vjp` of JAX's
+    `sdpa` and of the TPU kernel (`attention_vmem`, interpret mode), on the
+    same numpy inputs and cotangent in the case's dtype. float32: within
+    1e-5 of `sdpa`'s VJP (fp32 sums in another order) and within the TPU
+    kernel's own 2e-2 of its VJP (it saves P in bf16). bf16, per gradient:
+    against the TPU kernel's VJP, whose dtype chain the port's follows (P
+    saved in bf16, the backward from it in fp32), max |err| ≤ 2e-3·(1 +
+    max|ref|) and the share rule (at most ATTN_BF16_SHARE of the elements
+    more than one bf16 ulp apart; measured 1.4e-5); against `sdpa`'s VJP,
+    which rounds inside its own autodiff, max |err| ≤ 5e-3·(1 + max|ref|)
+    and at most 1 % of the elements more than 4 ulps apart (measured 1.5e-3
+    and 0.6 %)."""
+    name, dtype, b, lq, lk, h = case
+    rng = np.random.default_rng(sum(map(ord, name)) + 2)
+    q, k, v = (_t(x).to(dtype) for x in _qkv(rng, b, lq, lk, h))
+    w = _t(rng.normal(size=(b, lq, h * 64)).astype(np.float32)).to(dtype)
+    to_jax = _to_jax_bf16 if dtype == torch.bfloat16 else (lambda x: jnp.asarray(_np(x)))
+    jq, jk, jv, jw = (to_jax(x) for x in (q, k, v, w))
+
+    def sdpa_fn(q_, k_, v_):
+        return jattn._merge_heads(jattn.sdpa(jattn._split_heads(q_, h),
+                                             jattn._split_heads(k_, h),
+                                             jattn._split_heads(v_, h)))
+
+    def vmem_fn(q_, k_, v_):
+        return attention_vmem(q_, k_, v_, None, None, 64 ** -0.5, True)
+
+    refs = []
+    for fn in (sdpa_fn, vmem_fn):
+        _, vjp = jax.vjp(fn, jq, jk, jv)
+        refs.append([np.asarray(g.astype(jnp.float32)) for g in vjp(jw)])
+    tq, tk, tv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    attention(tq, tk, tv).backward(w)
+    got = [_np(g.float()) for g in (tq.grad, tk.grad, tv.grad)]
+    assert all(g.dtype == dtype for g in (tq.grad, tk.grad, tv.grad))
+    for which, ref in zip(("sdpa", "attention_vmem"), refs):
+        for name_, g, r in zip("qkv", got, ref):
+            if dtype == torch.float32:
+                tol = TOL if which == "sdpa" else 2e-2
+                np.testing.assert_allclose(g, r, atol=tol, rtol=0 if which == "sdpa" else tol,
+                                           err_msg=f"{which} d{name_}")
+            else:
+                err = np.abs(g - r).max() / (1 + np.abs(r).max())
+                ulps = bf16_ulps(_t(g), _t(r))
+                if which == "sdpa":
+                    assert err <= 5e-3, (which, name_, err)
+                    assert (ulps > 4).float().mean().item() <= 1e-2, (which, name_)
+                else:
+                    assert err <= 2e-3, (which, name_, err)
+                    assert (ulps > 1).float().mean().item() <= ATTN_BF16_SHARE, (which, name_)
+
+
 def test_attention_bwd_plain_matches_autodiff_of_the_plain_forward():
     """The backward's plain version from a saved P equals torch autograd
     through the plain forward (float32)."""
@@ -746,10 +808,12 @@ def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
     (Lk 196, 204, 8, 48, 56, 32), of the B = 512 step and of ViT-B/32 (49,
     57) goes to the one-pass kernel, as does ViT-L/14's 256; the longer rows
     up to BWD_CLUSTER_LIMIT (ViT-L/14's cross 264, 448 px's 784 and 792,
-    294, 257) to the cluster kernel; rows past BWD_CLUSTER_LIMIT to the
-    two-pass kernels; float32 rows of at most BWD_TF32X3_LIMIT (256) keys,
-    every float32 backward of the step, of ViT-B/32 and of the drift replay
-    (L = 3), to the TF32x3 kernel and longer float32 rows to the SIMT pair."""
+    294, 257) to the cluster kernel; rows past BWD_CLUSTER_LIMIT (the 672
+    px step's 1764 and 1772) to the long kernels; float32 rows of at most
+    BWD_TF32X3_LIMIT (256) keys, every float32 backward of the step, of
+    ViT-B/32 and of the drift replay (L = 3), to the TF32x3 kernel and
+    longer float32 rows (ViT-L/14's cross 264, the float32 448 px step's 784
+    and 792) to the TF32x3 long kernels. No row goes to the two-pass pairs."""
     from segclip_tpu_torch.config import ModelConfig
     from segclip_tpu_torch.ops.kernels.attention import (BWD_CLUSTER_LIMIT,
                                                          BWD_ONE_PASS_LIMIT, bwd_route)
@@ -766,12 +830,16 @@ def test_backward_route_sends_the_main_paths_rows_to_the_one_pass_kernel():
         assert bwd_route(torch.bfloat16, lk) == "one_pass", lk
     for lk in (264, 784, 792, 294, 257, BWD_ONE_PASS_LIMIT + 1, BWD_CLUSTER_LIMIT):
         assert bwd_route(torch.bfloat16, lk) == "cluster", lk
-    for lk in (BWD_CLUSTER_LIMIT + 1, 2 * BWD_CLUSTER_LIMIT):
-        assert bwd_route(torch.bfloat16, lk) == "two_pass", lk
+    px672 = {c[3] for c in smoke.step_shapes("672", smoke.large_config("672", False), 4)[0]}
+    assert {1764, 1772} <= px672
+    for lk in (BWD_CLUSTER_LIMIT + 1, 1764, 1772, 2 * BWD_CLUSTER_LIMIT):
+        assert bwd_route(torch.bfloat16, lk) == "long", lk
     for lk in step | b32 | {1, 3, 256}:
         assert bwd_route(torch.float32, lk) == "tf32x3", lk
-    for lk in (257, 264, 784, BWD_CLUSTER_LIMIT, BWD_CLUSTER_LIMIT + 1):
-        assert bwd_route(torch.float32, lk) == "two_pass", lk
+    for lk in (257, 264, 784, 792, BWD_CLUSTER_LIMIT, BWD_CLUSTER_LIMIT + 1):
+        assert bwd_route(torch.float32, lk) == "tf32x3_long", lk
+    for lk in range(1, 2049):
+        assert "two_pass" not in (bwd_route(torch.bfloat16, lk), bwd_route(torch.float32, lk))
 
 
 def test_bwd_one_pass_limit_mirrors_the_cuda_constant():
@@ -860,27 +928,31 @@ def test_cluster_source_headers_name_their_tpu_kernel_bound_and_design(source, n
         assert needle in hopper, needle
 
 
-@pytest.mark.parametrize("route", ["routed", "one_pass", "cluster", "tf32x3", "two_pass"])
+@pytest.mark.parametrize("route", ["routed", "one_pass", "cluster", "long", "tf32x3",
+                                   "tf32x3_long", "two_pass"])
 def test_backward_routes_take_the_plain_version_on_the_cpu(route):
     """The routed backward and each route's function, given CPU tensors,
     return the plain version's gradients and launch nothing (no counter
-    moves); the cluster function at rows past the one-pass limit, where it
-    runs on the card, and the TF32x3 function at float32."""
+    moves); each function at rows it takes on the card: the cluster one
+    past the one-pass limit, the long one past the cluster limit, the
+    TF32x3 ones at float32, the TF32x3 long one past 256 keys."""
     from segclip_tpu_torch.ops.kernels import attention as kattn
     rng = np.random.default_rng(6)
-    lk = 300 if route == "cluster" else 9
-    dtype = torch.float32 if route == "tf32x3" else torch.bfloat16
+    lk = {"cluster": 300, "long": 1100, "tf32x3_long": 300}.get(route, 9)
+    dtype = torch.float32 if route.startswith("tf32x3") else torch.bfloat16
     qkv = _t(rng.normal(size=(2, lk, 3 * 128)).astype(np.float32)).to(dtype)
     q, k, v = qkv[:, :9, :128], qkv[..., 128:256], qkv[..., 256:]
     _, p = kattn.attention_fwd(q, k, v, save_p=True)
     do = _t(rng.normal(size=(2, 9, 128)).astype(np.float32)).to(dtype)
     fn = {"routed": kattn.attention_bwd, "one_pass": kattn.attention_bwd_one_pass,
-          "cluster": kattn.attention_bwd_cluster, "tf32x3": kattn.attention_bwd_tf32x3,
+          "cluster": kattn.attention_bwd_cluster, "long": kattn.attention_bwd_long,
+          "tf32x3": kattn.attention_bwd_tf32x3, "tf32x3_long": kattn.attention_bwd_tf32x3_long,
           "two_pass": kattn.attention_bwd_two_pass}[route]
 
     def counts():
         return (kattn.attention_bwd.launches, kattn.attention_bwd_one_pass.launches,
-                kattn.attention_bwd_cluster.launches, kattn.attention_bwd_tf32x3.launches,
+                kattn.attention_bwd_cluster.launches, kattn.attention_bwd_long.launches,
+                kattn.attention_bwd_tf32x3.launches, kattn.attention_bwd_tf32x3_long.launches,
                 kattn.attention_bwd_two_pass.launches)
     before = counts()
     grads = fn(p, do, q, k, v)

@@ -163,16 +163,17 @@ def test_split_products_hold_a_tenth_of_the_backward_tolerance(name, lq, lk, h, 
 @pytest.mark.parametrize("lk, route", [(1, "tf32x3"), (3, "tf32x3"), (8, "tf32x3"),
                                        (49, "tf32x3"), (57, "tf32x3"), (64, "tf32x3"),
                                        (65, "tf32x3"), (196, "tf32x3"), (204, "tf32x3"),
-                                       (255, "tf32x3"), (256, "tf32x3"), (257, "two_pass"),
-                                       (294, "two_pass"), (784, "two_pass"),
-                                       (1025, "two_pass")])
+                                       (255, "tf32x3"), (256, "tf32x3"), (257, "tf32x3_long"),
+                                       (294, "tf32x3_long"), (784, "tf32x3_long"),
+                                       (1025, "tf32x3_long")])
 def test_backward_route_sends_float32_rows_to_the_tf32x3_kernel(lk, route):
     """Every float32 backward of at most BWD_TF32X3_LIMIT (256) keys takes
-    "tf32x3", longer ones the SIMT pair; bfloat16 routes are unchanged."""
+    "tf32x3", longer ones the TF32x3 long kernels; bfloat16 rows take the
+    one-pass, cluster and long kernels."""
     assert kattn.bwd_route(torch.float32, lk) == route
     assert kattn.bwd_route(torch.bfloat16, lk) == ("one_pass" if lk <= 256 else
-                                                   "cluster" if lk <= 1024 else "two_pass")
-    assert kattn.bwd_route(torch.float32, lk, tf32x3=lk - 1) == "two_pass"
+                                                   "cluster" if lk <= 1024 else "long")
+    assert kattn.bwd_route(torch.float32, lk, tf32x3=lk - 1) == "tf32x3_long"
 
 
 @pytest.mark.parametrize("needle", [
