@@ -3,8 +3,8 @@ pretraining through the CLI on its three input transports, checkpoint
 ingest, the demo, the sharded evaluator, data- and tensor-parallel
 training, the studies that load a model, the device-side transforms,
 block rematerialisation with the JAX package's memory-bound training
-configurations, ViT-B/32 and the JAX package's 12-step training trajectory
-on one CUDA card (an H100), and check them.
+configurations, ViT-B/32, the JAX package's 12-step training trajectory
+and its Orbax checkpoints on one CUDA card (an H100), and check them.
 
     python3 chip_smoke.py
 
@@ -158,6 +158,21 @@ Builds the port's CUDA kernels from segclip_tpu_torch/csrc, then:
      by tests/test_torch_drift.py), TF32 off, every step's loss within rtol
      5e-4 of JAX's (the JAX test's own bound; the worst gap per step
      printed), launches per step equal to the path's count;
+ 15. Orbax ingest: tests/fixtures/orbax (the JAX package's save_params and
+     save_checkpoint directories, tests/make_orbax_fixture.py) read by the
+     port's reader (checkpoint/orbax_io.py: OCDBT in Python, zstd by the
+     port's C++ decoder): every leaf's SHA-256 as recorded, the decoder's
+     MB/s on its frames, a float32 and a bf16 whole request from its
+     weights through `load_model` against the JAX segmenter's CPU logits
+     and group map, and the float32 step resumed from its ckpt_epoch_1
+     within rtol 5e-4 of JAX's next-step loss; then phase 6's ViT-B/16
+     ckpt_epoch_0 (params, both moments, the counters) through
+     `orbax_io.save_checkpoint` and `restore_checkpoint` bit for bit (bytes,
+     write and read seconds), `cli.eval_zeroshot --init-model <the Orbax
+     directory>` against the same weights' model.pt (every prediction bit
+     for bit) and `cli.train --do-resume` from it against the resume from
+     the torch checkpoint (losses and model.pt bit for bit), as paths
+     "eval_orbax" and "train_orbax";
 every earlier phase runs as before and holds every kernel against its
 plain version as before;
 then device time from torch.profiler: each kernel, its plain version and,
@@ -181,7 +196,7 @@ instructions, and every instance of the one-pass and the cluster forward
 and backward and of the float32 TF32x3 forward and backward and of the long forward HGMMA and TMA
 ones too (the TF32x3 instances and the long kernel no ptxas spills). The
 forward's and the backward's launches by route (one-pass, cluster, long,
-TF32x3, two-pass) are printed per phase of the main path (phases 2-14;
+TF32x3, two-pass) are printed per phase of the main path (phases 2-15;
 phase 9's ranks and phase 10's studies report their own); all ten routed
 kernels must have launched, the cluster ones in phase 2 (the 224×336
 request) and phase 12 (448 px, ViT-L/14's cross blocks), the long forward
@@ -240,7 +255,8 @@ both ranks of its CLI run included), "train_dp" (phase 9, both ranks),
 run, both ranks), "studies" (phase 10, every study), "train_remat" (phase
 12's B = 96 and 256 runs, both ways), "train_b512", "train_l14",
 "train_448" and "train_cli_runM" (phase 12), "eval_b32", "train_b32" and
-"train_cli_b32" (phase 13), "drift" (phase 14); "train_l14_f32",
+"train_cli_b32" (phase 13), "drift" (phase 14), "eval_orbax" and
+"train_orbax" (phase 15); "train_l14_f32",
 "train_448_f32" and "train_672", phase 12's float32 ViT-L/14, float32
 448 px and bf16 672 px steps), each kernel's figures at
 its ViT-B/32 training (or slide eval) shape as "b32_*", and as its last
@@ -423,6 +439,26 @@ B32_ARCH = "ViT-B/32"
 DRIFT_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                              "fixtures", "torch_drift.npz")
 DRIFT_RTOL = 5e-4
+# Phase 15: Orbax directories the JAX package wrote (tests/fixtures/orbax,
+# tests/make_orbax_fixture.py) read by the port: every leaf's SHA-256 as
+# recorded; the float32 request from them within phase 3's E2E_PIXEL_TOL /
+# E2E_MIN_AGREE of the JAX segmenter's CPU logits (argmax and group map on
+# E2E_MIN_AGREE of the pixels); the bf16 one against JAX's bf16 run on the
+# CPU, each channel within phase 1's bf16 tolerance on ORBAX_BF16_MIN_AGREE
+# of the pixels, argmax and group map there too: two bf16 runs that round
+# in another order part at near ties (of two classes, of the background
+# threshold, of two groups), and one patch of this 5×7-patch image is 2.9 %
+# of its pixels (the port's CPU run against JAX's: 0.992 agree, the group
+# map 0.992, the float32 run 4.8e-7 at worst); the float32 step resumed from the
+# training checkpoint within DRIFT_RTOL of JAX's next-step loss. Then at
+# ViT-B/16 width, phase 6's checkpoint through the port's Orbax writer and
+# reader bit for bit, the eval CLI and a resume from it against the same
+# state's torch checkpoint bit for bit.
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                             "fixtures", "orbax")
+ORBAX_BF16_MIN_AGREE = 0.95
+ORBAX_SRC = "orbax_src_ckpt_epoch_0"     # phase 6's run A ckpt_epoch_0, kept for phase 15
+ORBAX_DECODE_REPS = 5
 LARGE_STEPS = 3             # timed, after one cold step
 LARGE_REPS = 10             # CUDA-event calls per phase-1 time at these shapes
 # Remat against no remat at B = 96: bit for bit is expected (the same ops
@@ -1892,6 +1928,7 @@ def phase_train_cli(smi: str, warm_step_ms: float, tmp: str) -> tuple:
           f"resume differs from run A: |Δparam| {worst}, loss rel {loss_rel}")
     del result_a, result_b, a, b
     shutil.copy(os.path.join(run_a, "ckpt_best", "model.pt"), os.path.join(tmp, STUDY_CKPT))
+    shutil.copytree(os.path.join(run_a, "ckpt_epoch_0"), os.path.join(tmp, ORBAX_SRC))
     shutil.rmtree(run_a)
     shutil.rmtree(run_b)
     torch.cuda.empty_cache()
@@ -3739,6 +3776,312 @@ def phase_drift(dev, smi: str) -> dict:
     return {"drift": {k: sum(c[k] for c in run["counts"]) for k in expected}}
 
 
+def orbax_fixture() -> tuple:
+    """tests/fixtures/orbax's fixture.json and fixture.npz."""
+    with open(os.path.join(ORBAX_FIXTURE, "fixture.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(ORBAX_FIXTURE, "fixture.npz")) as f:
+        arrays = {k: f[k] for k in f.files}
+    return meta, arrays
+
+
+def tree_sha256(tree: dict, prefix: tuple = ()) -> dict:
+    """{dotted name: SHA-256 of the leaf's C-order bytes} of a tree the
+    port's Orbax reader gives (bfloat16 leaves as their bits)."""
+    import hashlib
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(tree_sha256(v, prefix + (k,)))
+            continue
+        if isinstance(v, torch.Tensor):
+            v = v.view(torch.int16).numpy() if v.dtype == torch.bfloat16 else v.numpy()
+        out[".".join(prefix + (k,))] = hashlib.sha256(np.asarray(v, order="C").tobytes()
+                                                      ).hexdigest()
+    return out
+
+
+def orbax_fixture_hashes() -> dict:
+    """Phase 15 (a): both directories of the fixture read by the port, every
+    leaf against its recorded SHA-256; the decoder's rate on every zstd
+    frame they hold (best of ORBAX_DECODE_REPS passes, decoded bytes per
+    second)."""
+    from segclip_tpu_torch.checkpoint import ocdbt, orbax_io, zstd
+    meta, _ = orbax_fixture()
+    got = {name: tree_sha256(orbax_io.read_tree(os.path.join(ORBAX_FIXTURE, name)))
+           for name in ("params", "ckpt_epoch_1")}
+    bad = [f"{d}/{k}" for d in got for k in set(got[d]) | set(meta["sha256"][d])
+           if got[d].get(k) != meta["sha256"][d].get(k)]
+    check(not bad, f"Orbax fixture: leaves unlike their recorded SHA-256: {bad[:5]}")
+    frames = []
+    for name in ("params", "ckpt_epoch_1"):
+        with ocdbt.OcdbtStore(os.path.join(ORBAX_FIXTURE, name)) as store:
+            for key in store.keys():
+                if not key.endswith("/.zarray") and store[key][:4] == b"\x28\xb5\x2f\xfd":
+                    frames.append(store[key])
+    best = float("inf")
+    for _ in range(ORBAX_DECODE_REPS):
+        t0 = time.perf_counter()
+        decoded = sum(len(zstd.decompress(f)) for f in frames)
+        best = min(best, time.perf_counter() - t0)
+    return {"leaves": sum(len(v) for v in got.values()), "frames": len(frames),
+            "frame_bytes": sum(map(len, frames)), "decoded_bytes": decoded, "decode_s": best}
+
+
+def orbax_fixture_requests(dev) -> dict:
+    """Phase 15 (a): a float32 and a bf16 whole request on `dev` from the
+    fixture's params/ through `cli.common.load_model` (an Orbax
+    --init-model), against the JAX segmenter's logits and group map."""
+    from segclip_tpu_torch.cli.common import load_model
+    from segclip_tpu_torch.config import ModelConfig
+    from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
+
+    meta, arrays = orbax_fixture()
+    out = {}
+    for dtype, key, tol, share in (("float32", "f32", E2E_PIXEL_TOL, E2E_MIN_AGREE),
+                                   ("bfloat16", "bf16", ATTN_TOL[torch.bfloat16],
+                                    ORBAX_BF16_MIN_AGREE)):
+        cfg = ModelConfig(**{**meta["model"], "compute_dtype": dtype})
+        model, got_cfg = load_model(os.path.join(ORBAX_FIXTURE, "params"), cfg, dev)
+        check(got_cfg == cfg, f"Orbax fixture: load_model inferred {got_cfg}, not {cfg}")
+        seg = ZeroShotSegmenter(model, torch.from_numpy(arrays["text_bank"]).to(dev),
+                                **meta["segmenter"])
+        logits = seg.whole(arrays["image"])
+        groups = seg.group_map(arrays["image"])
+        ref, ref_groups = arrays[f"logits_{dtype}"], arrays[f"group_map_{dtype}"]
+        check(logits.shape == ref.shape and groups.shape == ref_groups.shape,
+              f"Orbax fixture {dtype}: shapes {logits.shape} {groups.shape}, JAX's "
+              f"{ref.shape} {ref_groups.shape}")
+        diff = np.abs(logits - ref)
+        out[key] = {"max_abs": float(diff.max()),
+                    "agree": float((diff.max(axis=0) <= tol).mean()),
+                    "argmax_agree": float((logits.argmax(0) == ref.argmax(0)).mean()),
+                    "group_agree": float((groups == ref_groups).mean()), "tol": tol,
+                    "share": share}
+        r = out[key]
+        check(np.isfinite(logits).all() and r["agree"] >= share and r["argmax_agree"] >= share
+              and r["group_agree"] >= share,
+              f"Orbax fixture {dtype} request against JAX's: {r}")
+    return out
+
+
+def orbax_fixture_step(dev) -> dict:
+    """Phase 15 (a): the float32 step resumed on `dev` from the fixture's
+    ckpt_epoch_1 through `orbax_io.restore_checkpoint`, JAX's Gumbel draw
+    injected, against JAX's next-step loss."""
+    from segclip_tpu_torch.checkpoint import orbax_io
+    from segclip_tpu_torch.config import Config, ModelConfig, OptimConfig
+    from segclip_tpu_torch.models.segclip import SegCLIP
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
+
+    meta, arrays = orbax_fixture()
+    cfg = Config(model=ModelConfig(**meta["model"]), optim=OptimConfig(**meta["optim"]))
+    model = SegCLIP(cfg.model).to(dev)
+    optimizer = create_optimizer(model, cfg, t_total=meta["t_total"])
+    state, epoch = orbax_io.restore_checkpoint(
+        os.path.join(ORBAX_FIXTURE, "ckpt_epoch_1"), model, optimizer,
+        TrainState(step=0, seed=meta["train_seed"]))
+    check(epoch == meta["epoch"] and state.step == optimizer.step_count == 2,
+          f"Orbax fixture: restored epoch {epoch}, step {state.step}, optimizer step "
+          f"{optimizer.step_count}")
+    batch = {k.split("/", 1)[1]: torch.from_numpy(v) for k, v in arrays.items()
+             if k.startswith("batch/")}
+    batch = {k: (v if v.is_floating_point() else v.long()).to(dev) for k, v in batch.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        metrics = make_train_step(model, optimizer, cfg)(
+            state, batch, {"gumbel": torch.from_numpy(arrays["gumbel"]).to(dev)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    loss = float(metrics["loss"])
+    rel = abs(loss - meta["next_loss"]) / abs(meta["next_loss"])
+    check(not float(metrics["skipped_nan"]) and rel <= DRIFT_RTOL,
+          f"Orbax fixture: the resumed step's loss {loss!r} against JAX's "
+          f"{meta['next_loss']!r} (rel {rel:.2e}, bound {DRIFT_RTOL:g})")
+    return {"loss": loss, "jax_loss": meta["next_loss"], "loss_rel": rel}
+
+
+def orbax_fixture_checks(dev) -> dict:
+    """All of phase 15 (a) on `dev` (the tests run it on the CPU)."""
+    return {**orbax_fixture_hashes(), **orbax_fixture_requests(dev), **orbax_fixture_step(dev)}
+
+
+class RecordedPredictions:
+    """Every prediction `ZeroShotSegmenter.predict` returns inside a `with`
+    block, in order."""
+
+    def __enter__(self):
+        from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
+        self.predict, self.out = ZeroShotSegmenter.predict, []
+        probe = self
+
+        def predict(segmenter, *args, **kw):
+            pred = probe.predict(segmenter, *args, **kw)
+            probe.out.append(np.array(pred, copy=True))
+            return pred
+        ZeroShotSegmenter.predict = predict
+        return self
+
+    def __exit__(self, *exc):
+        from segclip_tpu_torch.evalseg.inference import ZeroShotSegmenter
+        ZeroShotSegmenter.predict = self.predict
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_orbax(dev, smi: str, tmp: str, voc: str, mark) -> dict:
+    """Phase 15: Orbax ingest. (a) the committed fixture of the JAX
+    package's directories: hashes, the decoder's rate, a float32 and a bf16
+    request, a resumed float32 step. (b) at ViT-B/16 width: phase 6's
+    ckpt_epoch_0 (params, both moments, the counters) through
+    `orbax_io.save_checkpoint` and back bit for bit, `cli.eval_zeroshot
+    --init-model <the Orbax directory>` against the same weights' model.pt
+    (every prediction bit for bit) and `cli.train --do-resume` from it
+    against the resume from the torch checkpoint (model.pt and loss bit for
+    bit). The eval parts run as path "eval_orbax", the training parts as
+    "train_orbax"; returns their launch counts."""
+    from segclip_tpu_torch.checkpoint import io as ckpt_io
+    from segclip_tpu_torch.checkpoint import orbax_io
+    from segclip_tpu_torch.cli import eval_zeroshot
+    from segclip_tpu_torch.cli import train as train_cli
+    from segclip_tpu_torch.config import Config
+    from segclip_tpu_torch.models.segclip import SegCLIP
+    from segclip_tpu_torch.train.step import TrainState, create_optimizer
+
+    t_phase = time.perf_counter()
+    fixture = orbax_fixture_hashes()
+    src = os.path.join(tmp, ORBAX_SRC)
+    run_t, run_o = os.path.join(tmp, "orbax_t"), os.path.join(tmp, "orbax_o")
+
+    # (b) the round trip, at ViT-B/16 width
+    cfg = Config()
+    model = SegCLIP(cfg.model).to(dev)
+    optimizer = create_optimizer(model, cfg, t_total=4)
+    state, epoch = ckpt_io.restore_checkpoint(src, model, optimizer, TrainState(step=0, seed=0))
+    names = {p: n for n, p in model.named_parameters()}
+    ref_model = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ref_moments = {names[p]: {k: t.cpu().clone() for k, t in m.items()}
+                   for p, m in optimizer.state.items()}
+    ref_counts = (state.step, state.seed, epoch, optimizer.step_count)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = orbax_io.save_checkpoint(run_o, epoch, model, optimizer, state)
+    write_s = time.perf_counter() - t0
+    nbytes = dir_bytes(path)
+    with torch.no_grad():                  # nothing of the state may survive in memory
+        for p in model.parameters():
+            p.zero_()
+        for m in optimizer.state.values():
+            for t in m.values():
+                t.zero_()
+    optimizer.step_count = -1
+    t0 = time.perf_counter()
+    state2, epoch2 = orbax_io.restore_checkpoint(path, model, optimizer,
+                                                 TrainState(step=0, seed=state.seed))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    got = model.state_dict()
+    same_model = got.keys() == ref_model.keys() and all(
+        torch.equal(got[k].cpu(), ref_model[k]) for k in ref_model)
+    moments = {names[p]: m for p, m in optimizer.state.items()}
+    same_moments = moments.keys() == ref_moments.keys() and all(
+        moments[n].keys() == ref_moments[n].keys()
+        and all(m.dtype == ref_moments[n][k].dtype and torch.equal(m.cpu(), ref_moments[n][k])
+                for k, m in moments[n].items()) for n in ref_moments)
+    counts2 = (state2.step, state2.seed, epoch2, optimizer.step_count)
+    n_tensors = len(ref_model) + sum(len(m) for m in ref_moments.values())
+    check(same_model and same_moments and counts2 == ref_counts,
+          f"phase 15: the Orbax round trip at ViT-B/16 width: model {same_model}, moments "
+          f"{same_moments}, counters {counts2} against {ref_counts}")
+    del model, optimizer, got, moments, ref_model, ref_moments
+    torch.cuda.empty_cache()
+
+    # eval_orbax: (a)'s requests, then the eval CLI from model.pt and from
+    # the Orbax directory
+    reset_counters()
+    routes0 = read_routes()
+    requests = orbax_fixture_requests(dev)
+    evals = {}
+    for kind, init in (("model.pt", os.path.join(src, ckpt_io.MODEL_FILE)), ("orbax", path)):
+        with RecordedPredictions() as rec:
+            metrics = eval_zeroshot.main(eval_cli_args(voc, init) + [
+                "--output-dir", os.path.join(tmp, f"eval_{kind}")])
+        evals[kind] = (rec.out, metrics)
+    eval_counts = read_counters()
+    mark("eval_orbax")
+    eval_routes = {k: n - routes0[k] for k, n in read_routes().items()}
+    (pt_preds, pt_metrics), (ob_preds, ob_metrics) = evals["model.pt"], evals["orbax"]
+    same_preds = len(pt_preds) == len(ob_preds) > 0 and all(
+        a.shape == b.shape and np.array_equal(a, b) for a, b in zip(pt_preds, ob_preds))
+    summary = [{k: m[k] for k in ("mIoU", "mAcc", "aAcc")} for m in (pt_metrics, ob_metrics)]
+    check(same_preds and summary[0] == summary[1],
+          f"phase 15: eval CLI from the Orbax directory differs from model.pt: predictions "
+          f"equal {same_preds}, mIoU {ob_metrics.get('mIoU')} against {pt_metrics.get('mIoU')}")
+
+    # train_orbax: (a)'s step, then cli.train --do-resume from the torch
+    # checkpoint and from the Orbax one
+    reset_counters()
+    routes0 = read_routes()
+    step = orbax_fixture_step(dev)
+    shutil.copytree(src, os.path.join(run_t, "ckpt_epoch_0"))
+    argv = ["--preset", "shapes-learnability", "--data-dir", os.path.join(tmp, "shapes"),
+            "--epochs", "2", "--num-workers", "0", "--n-display", "1", "--do-resume"]
+    runs = {}
+    for kind, out in (("torch", run_t), ("orbax", run_o)):
+        t0 = time.perf_counter()
+        result = train_cli.main(argv + ["--output-dir", out])
+        runs[kind] = (result["epochs_run"], [m["loss"] for m in read_metrics(out) if "loss" in m],
+                      time.perf_counter() - t0)
+        del result
+        torch.cuda.empty_cache()
+    train_counts = read_counters()
+    mark("train_orbax")
+    train_routes = {k: n - routes0[k] for k, n in read_routes().items()}
+    a = torch.load(os.path.join(run_t, "ckpt_epoch_1", ckpt_io.MODEL_FILE), weights_only=True)
+    b = torch.load(os.path.join(run_o, "ckpt_epoch_1", ckpt_io.MODEL_FILE), weights_only=True)
+    same_run = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    check(runs["torch"][0] == runs["orbax"][0] == 1 and runs["torch"][1] == runs["orbax"][1]
+          and len(runs["orbax"][1]) == 2 and same_run,
+          f"phase 15: the resume from the Orbax directory differs from the torch one: runs "
+          f"{runs}, model.pt bit-identical {same_run}")
+    del a, b
+    for d in (run_t, run_o, src):
+        shutil.rmtree(d, ignore_errors=True)
+
+    rate = fixture["decoded_bytes"] / fixture["decode_s"] / 1e6
+    f32, bf16 = requests["f32"], requests["bf16"]
+    print(f"phase 15: Orbax ingest ({smi}): the fixture's {fixture['leaves']} leaves equal "
+          f"their recorded SHA-256; the zstd decoder on its {fixture['frames']} frames "
+          f"({fixture['frame_bytes']} bytes → {fixture['decoded_bytes']}): "
+          f"{fixture['decode_s'] * 1e3:.3f} ms, {rate:.1f} MB/s decoded (best of "
+          f"{ORBAX_DECODE_REPS}, host); float32 request against JAX's: max |dlogit| "
+          f"{f32['max_abs']:.3e}, pixels within {f32['tol']:g} {f32['agree']:.5f}, argmax "
+          f"{f32['argmax_agree']:.5f}, group map {f32['group_agree']:.5f}; bf16: max |dlogit| "
+          f"{bf16['max_abs']:.3e}, pixels within {bf16['tol']:g} {bf16['agree']:.5f}, argmax "
+          f"{bf16['argmax_agree']:.5f}, group map {bf16['group_agree']:.5f}; the step resumed "
+          f"from ckpt_epoch_1 (float32, TF32 off): loss {step['loss']!r} against JAX's "
+          f"{step['jax_loss']!r} (rel {step['loss_rel']:.2e}, bound {DRIFT_RTOL:g})")
+    print(f"  ViT-B/16 (phase 6's ckpt_epoch_0, {n_tensors} tensors: params and both "
+          f"moments): Orbax directory {nbytes} bytes written in {write_s:.2f} s, read back in "
+          f"{read_s:.2f} s ({nbytes / write_s / 1e6:.0f} / {nbytes / read_s / 1e6:.0f} MB/s), "
+          f"every tensor and counter bit-identical; eval CLI from it: {len(ob_preds)} "
+          f"predictions bit-identical to model.pt's, mIoU {ob_metrics['mIoU']:.4f}; "
+          f"cli.train --do-resume from it: losses {runs['orbax'][1]} ({runs['orbax'][2]:.1f} s) "
+          f"equal to the torch resume's ({runs['torch'][2]:.1f} s), model.pt bit-identical")
+    print(f"  launches by route, eval_orbax {eval_routes}; train_orbax {train_routes}; "
+          f"counters eval {eval_counts}, train {train_counts}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(eval_routes["tf32x3"] > 0 and eval_routes["one_pass"] > 0,
+          f"eval_orbax: its float32 and bf16 requests' routes {eval_routes}")
+    check(train_routes["bwd_tf32x3"] > 0 and train_routes["bwd_one_pass"] > 0,
+          f"train_orbax: its float32 and bf16 backwards' routes {train_routes}")
+    return {"eval_orbax": eval_counts, "train_orbax": train_counts}
+
+
 def profile_step(name: str) -> int:
     """`python3 chip_smoke.py profile-step <LARGE_CONFIGS name, or l14_f32>`:
     1 + 3 warm steps of `make_train_step` at that configuration (no remat;
@@ -3950,6 +4293,7 @@ def main() -> int:
         b32_counts, b32_step = phase_b32(dev, smi, tmp, {"warm_ms": warm_step_ms,
                                                          "peak_mib": train_peak})
         mark("b32")
+        orbax_counts = phase_orbax(dev, smi, tmp, voc, mark)
     phase_transports(dev, smi, transport_batches)
     remat_counts, b512_step, px448_step, long_counts = phase_remat(dev, smi)
     mark("remat_large")
@@ -4048,7 +4392,8 @@ def main() -> int:
                        **{path: c[counter] for path, c in remat_counts.items()},
                        "train_cli_runM": runm_counts[counter],
                        **{path: c[counter] for path, c in b32_counts.items()},
-                       "drift": drift_counts["drift"][counter]}
+                       "drift": drift_counts["drift"][counter],
+                       **{path: c[counter] for path, c in orbax_counts.items()}}
             step_launches, request_launches = per_step[counter], per_request[counter]
         entry = dict(name=name, route="cuda", source=src, replaces=tpu,
                      launches=sum(by_path.values()), launches_by_path=by_path,

@@ -107,7 +107,18 @@ def restore_checkpoint(path: str, model: torch.nn.Module, optimizer: AdaptAdamW,
                              weights_only=True)
     saved = torch.load(os.path.join(path, TRAIN_STATE_FILE),
                        map_location=device, weights_only=True)
-    optimizer_state = saved["optimizer"]
+    load_training_state(model, optimizer, model_state, saved["optimizer"], shard)
+    optimizer.step_count = int(saved["optimizer_step_count"])
+    return TrainState(step=int(saved["step"]), seed=int(saved["seed"])), int(saved["epoch"])
+
+
+def load_training_state(model: torch.nn.Module, optimizer: AdaptAdamW, model_state: dict,
+                        optimizer_state: dict,
+                        shard: Optional[Callable[[dict, dict], Tuple[dict, dict]]] = None
+                        ) -> None:
+    """Load full (model, optimizer) state dicts into `model` and `optimizer`,
+    through `shard` when one is given; the moments keep the optimizer's
+    moment_dtype. Shared with checkpoint/orbax_io.restore_checkpoint."""
     if shard is not None:
         model_state, optimizer_state = shard(model_state, optimizer_state)
     model.load_state_dict(model_state)
@@ -118,5 +129,3 @@ def restore_checkpoint(path: str, model: torch.nn.Module, optimizer: AdaptAdamW,
         for key in ("exp_avg", "exp_avg_sq"):
             if key in moments:
                 moments[key] = moments[key].to(optimizer.moment_dtype)
-    optimizer.step_count = int(saved["optimizer_step_count"])
-    return TrainState(step=int(saved["step"]), seed=int(saved["seed"])), int(saved["epoch"])

@@ -1,11 +1,13 @@
-"""Shared CLI plumbing: the model from a torch checkpoint or a seeded random
-init (segclip_tpu/cli/common.py)."""
+"""Shared CLI plumbing: the model from a torch checkpoint, an Orbax
+directory or a seeded random init (segclip_tpu/cli/common.py)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from segclip_tpu_torch.checkpoint import orbax_io
+from segclip_tpu_torch.checkpoint.convert import load_into
 from segclip_tpu_torch.checkpoint.torch_convert import (infer_model_config,
                                                         load_torch_state_dict,
                                                         merge_state_dict, to_port_layout)
@@ -25,18 +27,21 @@ def load_model(init_model: Optional[str], cfg: ModelConfig, device: torch.device
         unless infer_from_ckpt=False; the split point, the grouping
         bottleneck and the loss switches below stay the caller's. Weights
         the file lacks keep the seeded init (seed 0), and are reported;
-      - None: a random init from seed 0, as the JAX package's.
-    The JAX package also reads Orbax parameter directories; the port does
-    not (ROADMAP.md, 'do not port')."""
+      - an Orbax directory the JAX package wrote (save_params, or a whole
+        training checkpoint `ckpt_epoch_N`, whose params are taken), or the
+        port's orbax_io wrote: every parameter is loaded strictly (a
+        decoder the configuration does not build is dropped); the
+        architecture is inferred as above;
+      - None: a random init from seed 0, as the JAX package's."""
     logger = get_logger()
-    if init_model and not init_model.endswith((".pt", ".bin", ".pth")):
-        raise ValueError(f"--init-model must be a torch checkpoint (.pt/.bin/.pth), "
-                         f"got {init_model!r}: Orbax directories are not read by the "
-                         f"port (ROADMAP.md)")
     if not init_model:
         logger.info("random initialization (no --init-model)")
         return init_segclip(cfg, seed=0).to(device).eval(), cfg
-    sd = load_torch_state_dict(init_model)
+    orbax = not init_model.endswith((".pt", ".bin", ".pth"))
+    if orbax:
+        sd = orbax_io.state_dict_from_tree(orbax_io.restore_params(init_model))
+    else:
+        sd = load_torch_state_dict(init_model)
     if infer_from_ckpt:
         cfg = infer_model_config(
             sd, first_stage_layer=cfg.first_stage_layer, base=cfg,
@@ -46,7 +51,12 @@ def load_model(init_model: Optional[str], cfg: ModelConfig, device: torch.device
             use_seglabel=cfg.use_seglabel, max_words=cfg.max_words,
             compute_dtype=cfg.compute_dtype, attention_impl=cfg.attention_impl)
     model = init_segclip(cfg, seed=0)
-    merge_state_dict(model, to_port_layout(sd, cfg.first_stage_layer),
-                     log_fn=logger.info)
-    logger.info("loaded torch checkpoint %s", init_model)
+    if orbax:
+        dropped = load_into(model, sd)
+        logger.info("restored Orbax params from %s%s", init_model,
+                    f" (dropped {dropped})" if dropped else "")
+    else:
+        merge_state_dict(model, to_port_layout(sd, cfg.first_stage_layer),
+                         log_fn=logger.info)
+        logger.info("loaded torch checkpoint %s", init_model)
     return model.to(device).eval(), cfg

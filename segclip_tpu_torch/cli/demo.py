@@ -59,8 +59,8 @@ def main(argv=None):
     ap.add_argument("--first-n", type=int, default=10,
                     help="images to visualize in dataset mode")
     ap.add_argument("--init-model", default=None,
-                    help="torch checkpoint: OpenAI ViT-B-16.pt, segclip.bin or a "
-                         "model.pt; default: random init")
+                    help="torch checkpoint (OpenAI ViT-B-16.pt, segclip.bin or a "
+                         "model.pt) or an Orbax directory; default: random init")
     ap.add_argument("--dataset", choices=sorted(DATASET_SPECS), default="voc",
                     help="class vocabulary to segment against")
     ap.add_argument("--vis", nargs="+", default=["input_pred"], choices=VIS_MODES)

@@ -47,8 +47,8 @@ def main(argv=None):
     ap.add_argument("--dataset", choices=sorted(DATASET_SPECS), default="voc")
     ap.add_argument("--data-root", required=True)
     ap.add_argument("--init-model", default=None,
-                    help="reference-layout torch state dict (.bin/.pt); "
-                         "default: random init")
+                    help="reference-layout torch state dict (.bin/.pt) or an "
+                         "Orbax directory; default: random init")
     ap.add_argument("--template", default="simple",
                     choices=["simple", "subset", "full", "identity"])
     ap.add_argument("--bg-thresh", type=float, default=None,

@@ -163,9 +163,11 @@ def main(argv=None):
     ap.add_argument("--use-text-mae-recon", action="store_true")
     ap.add_argument("--init-model", default=None,
                     help="reference-layout torch state dict (.bin/.pt/.pth), "
-                         "e.g. <output-dir>/ckpt_epoch_N/model.pt")
+                         "e.g. <output-dir>/ckpt_epoch_N/model.pt, or an Orbax "
+                         "directory (the JAX package's params or ckpt_epoch_N)")
     ap.add_argument("--resume-model", default=None,
-                    help="checkpoint directory to resume from")
+                    help="checkpoint directory to resume from (the port's or an "
+                         "Orbax one)")
     ap.add_argument("--do-resume", action="store_true",
                     help="resume from the latest <output-dir>/ckpt_epoch_N")
     ap.add_argument("--num-workers", type=int, default=0,

@@ -19,6 +19,7 @@ import subprocess
 import tempfile
 from functools import lru_cache
 from pathlib import Path
+from typing import Sequence
 
 SRC_DIR = Path(__file__).resolve().parent
 SOURCES = ("felzenszwalb.cc", "records.cc")
@@ -39,26 +40,30 @@ def _host_cpu() -> bytes:
     return platform.machine().encode()
 
 
-def library_path() -> Path:
+def library_path(src_dir: Path = SRC_DIR, sources: Sequence[str] = SOURCES,
+                 stem: str = "libsegclip_native") -> Path:
+    """`<BUILD_DIR>/<stem>_<hash>.so` for `sources` (names in `src_dir`)."""
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + _host_cpu())
-    for name in SOURCES:
+    for name in sources:
         digest.update(name.encode())
-        digest.update((SRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libsegclip_native_{digest.hexdigest()[:16]}.so"
+        digest.update((src_dir / name).read_bytes())
+    return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(src_dir: Path = SRC_DIR, sources: Sequence[str] = SOURCES,
+          stem: str = "libsegclip_native") -> Path:
     """Compile the library if it is not built yet; return its path. The
     result is moved into place atomically, so processes that build at the
-    same time (spawned data workers) never load half a file."""
-    lib = library_path()
+    same time (spawned data workers) never load half a file. Other host
+    libraries of the port (checkpoint/zstd.py) build through it too."""
+    lib = library_path(src_dir, sources, stem)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = Path(tmp) / lib.name
         proc = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", str(out), *(str(SRC_DIR / s) for s in SOURCES)],
+            ["g++", *CXX_FLAGS, "-o", str(out), *(str(src_dir / s) for s in sources)],
             capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr}")

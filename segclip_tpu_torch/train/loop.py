@@ -17,7 +17,9 @@ the same branch. A warm-up collective runs before the first step.
 `train.epochs_per_run` = N > 0 trains at most N epochs per run and stops
 (a segment); `--do-resume` goes on from the last checkpoint, the schedule
 spanning all `train.epochs`, and best.json carries keep_best's running
-best across segments.
+best across segments. The checkpoint resumed from may be the port's own
+(`model.pt`, checkpoint/io.py) or an Orbax directory (`_METADATA`, the JAX
+package's, checkpoint/orbax_io.py); the loop writes its own kind.
 
 `train.tensor_parallelism` = T > 1 (segclip_tpu/train/loop.py:103-125,
 270-281): the world is split into world // T data indices × T model ranks
@@ -45,8 +47,8 @@ import os
 import time
 from typing import Callable, Optional
 
-from segclip_tpu_torch.checkpoint.io import (auto_resume_path, restore_checkpoint,
-                                             save_checkpoint)
+from segclip_tpu_torch.checkpoint import io as ckpt_io
+from segclip_tpu_torch.checkpoint import orbax_io
 from segclip_tpu_torch.config import Config
 from segclip_tpu_torch.data.pipeline import BatchLoader, ShardedEpochSampler, build_dataset
 from segclip_tpu_torch.models.segclip import SegCLIP, check_kernel_fields, init_segclip
@@ -142,10 +144,13 @@ def train(cfg: Config, init_model: Optional[str] = None, resume: bool = False,
 
         start_epoch = 0
         if resume:
-            path = cfg.train.resume or auto_resume_path(cfg.train.output_dir)
+            path = cfg.train.resume or orbax_io.auto_resume_path(cfg.train.output_dir)
             if path:
-                state, last_epoch = restore_checkpoint(path, model, optimizer, state,
-                                                       shard=shard)
+                # by what the directory holds: model.pt is the port's own
+                # checkpoint, _METADATA an Orbax one (the JAX package's)
+                restore = (orbax_io.restore_checkpoint if orbax_io.is_orbax_dir(path)
+                           else ckpt_io.restore_checkpoint)
+                state, last_epoch = restore(path, model, optimizer, state, shard=shard)
                 start_epoch = last_epoch + 1
                 logger.info("resumed from %s → epoch %d", path, start_epoch)
 
@@ -204,8 +209,8 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
         # a collective under tensor parallelism: every rank gathers
         full = gspmd.gather_state_dict(model, optimizer.state_dict()) if sharded else None
         if lead:
-            path = save_checkpoint(cfg.train.output_dir, epoch, model, optimizer, state,
-                                   name=name, state_dicts=full)
+            path = ckpt_io.save_checkpoint(cfg.train.output_dir, epoch, model, optimizer,
+                                           state, name=name, state_dicts=full)
         dist.barrier()
         return path
 

@@ -5,11 +5,12 @@ wrappers never leave the device they were given.
 A fresh interpreter imports only segclip_tpu_torch, runs a tiny
 encode_image, encode_text and predict, and a tiny training step on a batch
 of each transport, on the CPU, imports the loop, the train CLI and
-prepare_data and runs the native superpixels, loads a checkpoint through load_model and imports the demo,
+prepare_data and runs the native superpixels, loads a checkpoint and an Orbax directory (the
+port's own writer and reader) through load_model and imports the demo,
 the process-group plumbing and tensor parallelism, the sharded evaluator, the five studies and
-the profiling helpers, and must end with no module of segclip_tpu, jax or
-flax in sys.modules. An AST scan holds every file of the port, and
-chip_smoke.py, to importing nothing of segclip_tpu, and the studies to
+the profiling helpers, and must end with no module of segclip_tpu, jax, flax, orbax, tensorstore or
+zstandard in sys.modules. An AST scan holds every file of the port, and
+chip_smoke.py, to importing none of them, and the studies to
 importing no cv2 (the card's machine need not have OpenCV).
 """
 import ast
@@ -86,16 +87,20 @@ import segclip_tpu_torch.studies.host_stage_bench
 from segclip_tpu_torch.utils.profiling import StepTimer, step_annotation
 import os, tempfile
 from segclip_tpu_torch.cli.common import load_model
+from segclip_tpu_torch.checkpoint import orbax_io
 with tempfile.TemporaryDirectory() as tmp:
     torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
-    loaded, inferred = load_model(os.path.join(tmp, "model.pt"), cfg.model, torch.device("cpu"))
-assert inferred == cfg.model
-assert all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
-                                              model.state_dict().values()))
+    orbax_io.save_params(tmp, "params", model.state_dict())
+    for init in ("model.pt", "params"):
+        loaded, inferred = load_model(os.path.join(tmp, init), cfg.model, torch.device("cpu"))
+        assert inferred == cfg.model
+        assert all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                      model.state_dict().values()))
 from segclip_tpu_torch.data.superpixel import felzenszwalb
 assert felzenszwalb(rng.integers(0, 256, (16, 16, 3)).astype(np.uint8)).shape == (16, 16)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("segclip_tpu", "jax", "flax"))
+                if m.split(".")[0] in ("segclip_tpu", "jax", "flax", "orbax", "tensorstore",
+                                       "zstandard"))
 print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)
 """
@@ -127,7 +132,8 @@ def test_port_files_import_nothing_of_the_jax_package():
     assert len(files) > 30
     offenders = {str(f.relative_to(REPO)): sorted(bad) for f in files
                  if (bad := {m for m in _imported_modules(f)
-                             if m.split(".")[0] in ("segclip_tpu", "jax", "flax")})}
+                             if m.split(".")[0] in ("segclip_tpu", "jax", "flax", "orbax",
+                                                    "tensorstore", "zstandard")})}
     assert offenders == {}
 
 
