@@ -1,0 +1,10 @@
+"""Device ms per step of the port's own kernels (`segclip_kernels::`:
+attention and grouping) in the device stretch."""
+
+
+def read(ctx):
+    summary = ctx.get("summary") if ctx.get("kind") == "pretrain" else None
+    if summary is None or not ctx.get("units_profiled"):
+        return None
+    seconds = summary.device_seconds(port=True)
+    return 1e3 * seconds / ctx["units_profiled"] if seconds > 0 else None
