@@ -175,7 +175,8 @@ def main(argv=None):
     ap.add_argument("--n-display", type=int, default=50)
     ap.add_argument("--grad-accum-steps", type=int, default=1)
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the first epoch")
+                    help="write a torch.profiler trace of the first epoch; it carries "
+                         "the program's spans (train.step and its phases)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--output-dir", default="output/pretrain")
     ap.add_argument("--eval-each-epoch", action="store_true")

@@ -16,6 +16,13 @@ here every slide window is crop × crop, so the windows of any several
 images go through one `_decode_crops` call and are split back per image
 (`ZeroShotSegmenter.predict_batch`), and ranks of a process group each take
 a strided share of the dataset (`evaluate_dataset_sharded`).
+
+Under a torch.profiler the evaluators record the spans (utils/profiling)
+"eval.group" (a decode call's images, or one image), "eval.load", "eval.prep"
+(windows, their stack, the copy to the device), "eval.encode", "eval.decode",
+"eval.stitch", "eval.labels" (resize, arg-max, `.cpu()`) and "eval.meter";
+they count "eval.images" and, at each site that waits for the card,
+"host_syncs".
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 from segclip_tpu_torch.evalseg.miou import MIoUMeter
 from segclip_tpu_torch.ops.pos_embed import interp_tensor
 from segclip_tpu_torch.parallel import dist
+from segclip_tpu_torch.utils.profiling import count, span
 
 
 def _upsample_attn(soft_attn: torch.Tensor, gh: int, gw: int, out_h: int,
@@ -57,34 +65,36 @@ def _decode_crops(model, crops: torch.Tensor, text_bank: torch.Tensor,
                   with_bg: bool, bg_thresh: float, out_h: int, out_w: int,
                   gh: int, gw: int) -> torch.Tensor:
     """crops (N, h, w, 3) → per-pixel class logits (N, C[+bg], out_h, out_w)."""
-    vis = model.encode_image(crops)
-    attn_up = _upsample_attn(vis.mid["soft_attn"], gh, gw, out_h, out_w)
-    onehot = F.one_hot(attn_up.argmax(dim=-1), attn_up.shape[-1]).float()
+    with span("eval.encode"):
+        vis = model.encode_image(crops)
+    with span("eval.decode"):
+        attn_up = _upsample_attn(vis.mid["soft_attn"], gh, gw, out_h, out_w)
+        onehot = F.one_hot(attn_up.argmax(dim=-1), attn_up.shape[-1]).float()
 
-    groups = vis.hidden[:, 1:, :].float()                 # (N, G, E)
-    pooled = vis.pooled.float()                           # (N, E)
-    groups = groups / groups.norm(dim=-1, keepdim=True)
-    pooled = pooled / pooled.norm(dim=-1, keepdim=True)
+        groups = vis.hidden[:, 1:, :].float()                 # (N, G, E)
+        pooled = vis.pooled.float()                           # (N, E)
+        groups = groups / groups.norm(dim=-1, keepdim=True)
+        pooled = pooled / pooled.norm(dim=-1, keepdim=True)
 
-    scale = model.clip.logit_scale.float().exp().clamp(max=100.0)
-    text = text_bank.float()                              # (C, E)
+        scale = model.clip.logit_scale.float().exp().clamp(max=100.0)
+        text = text_bank.float()                              # (C, E)
 
-    group_aff = torch.einsum("nge,ce->ngc", groups, text) * scale
-    pre_aff = torch.softmax(group_aff, dim=-1)
-    avg_aff = torch.softmax(torch.einsum("ne,ce->nc", pooled, text) * scale,
-                            dim=-1)
-    top_idx = avg_aff.topk(min(5, text.shape[0]), dim=-1).indices
-    gate = torch.zeros_like(avg_aff).scatter_(1, top_idx, 1.0)
-    gated = group_aff.masked_fill(gate[:, None, :] == 0, float("-inf"))
-    aff = torch.softmax(gated, dim=-1) * pre_aff          # (N, G, C)
+        group_aff = torch.einsum("nge,ce->ngc", groups, text) * scale
+        pre_aff = torch.softmax(group_aff, dim=-1)
+        avg_aff = torch.softmax(torch.einsum("ne,ce->nc", pooled, text) * scale,
+                                dim=-1)
+        top_idx = avg_aff.topk(min(5, text.shape[0]), dim=-1).indices
+        gate = torch.zeros_like(avg_aff).scatter_(1, top_idx, 1.0)
+        gated = group_aff.masked_fill(gate[:, None, :] == 0, float("-inf"))
+        aff = torch.softmax(gated, dim=-1) * pre_aff          # (N, G, C)
 
-    fg = torch.einsum("nhwg,ngc->nhwc", onehot, aff)      # (N, H, W, C)
-    if with_bg:
-        crop_max = aff.amax(dim=(1, 2))                   # (N,)
-        thresh = crop_max.clamp(max=bg_thresh)[:, None, None]
-        bg = (fg.amax(dim=-1) < thresh).float()[..., None]
-        fg = torch.cat([bg, fg], dim=-1)
-    return fg.permute(0, 3, 1, 2)
+        fg = torch.einsum("nhwg,ngc->nhwc", onehot, aff)      # (N, H, W, C)
+        if with_bg:
+            crop_max = aff.amax(dim=(1, 2))                   # (N,)
+            thresh = crop_max.clamp(max=bg_thresh)[:, None, None]
+            bg = (fg.amax(dim=-1) < thresh).float()[..., None]
+            fg = torch.cat([bg, fg], dim=-1)
+        return fg.permute(0, 3, 1, 2)
 
 
 class ZeroShotSegmenter:
@@ -105,7 +115,9 @@ class ZeroShotSegmenter:
         self.num_classes = text_bank.shape[0] + (1 if with_bg else 0)
 
     def _decode(self, crops: np.ndarray, out_h: int, out_w: int) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(crops, np.float32)).to(self.device)
+        with span("eval.prep"):
+            x = torch.from_numpy(np.ascontiguousarray(crops, np.float32)).to(self.device)
+            count("host_syncs")     # a copy from pageable memory waits for the card
         gh, gw = x.shape[1] // self.patch, x.shape[2] // self.patch
         return _decode_crops(self.model, x, self.text_bank, self.with_bg,
                              self.bg_thresh, out_h, out_w, gh, gw)
@@ -136,17 +148,20 @@ class ZeroShotSegmenter:
     def _stitch(self, logits: torch.Tensor, wins, h0: int, w0: int) -> torch.Tensor:
         """Window logits → the image's (C, h0, w0) logits, averaged where
         windows overlap."""
-        h, w = max(h0, self.crop), max(w0, self.crop)
-        canvas = torch.zeros((self.num_classes, h, w), device=self.device)
-        count = torch.zeros((1, h, w), device=self.device)
-        for lg, (y1, x1, y2, x2) in zip(logits, wins):
-            canvas[:, y1:y2, x1:x2] += lg
-            count[:, y1:y2, x1:x2] += 1.0
-        return (canvas / count)[:, :h0, :w0]
+        with span("eval.stitch"):
+            h, w = max(h0, self.crop), max(w0, self.crop)
+            canvas = torch.zeros((self.num_classes, h, w), device=self.device)
+            count = torch.zeros((1, h, w), device=self.device)
+            for lg, (y1, x1, y2, x2) in zip(logits, wins):
+                canvas[:, y1:y2, x1:x2] += lg
+                count[:, y1:y2, x1:x2] += 1.0
+            return (canvas / count)[:, :h0, :w0]
 
     def _slide(self, image: np.ndarray) -> torch.Tensor:
-        crops, wins = self._slide_windows(image)
-        logits = self._decode(np.stack(crops), self.crop, self.crop)
+        with span("eval.prep"):
+            crops, wins = self._slide_windows(image)
+            crops = np.stack(crops)
+        logits = self._decode(crops, self.crop, self.crop)
         return self._stitch(logits, wins, *image.shape[:2])
 
     def _whole(self, image: np.ndarray) -> torch.Tensor:
@@ -160,13 +175,17 @@ class ZeroShotSegmenter:
         """image: normalised (H, W, 3) → class logits (C, H, W). Images
         smaller than the crop on a side are zero-padded to it and the
         logits cropped back."""
-        return self._slide(image).cpu().numpy()
+        logits = self._slide(image)
+        count("host_syncs")
+        return logits.cpu().numpy()
 
     @torch.inference_mode()
     def whole(self, image: np.ndarray) -> np.ndarray:
         """Whole-image mode: the encoder floors H and W to patch multiples;
         the attention maps are upsampled to the full (H, W)."""
-        return self._whole(image).cpu().numpy()
+        logits = self._whole(image)
+        count("host_syncs")
+        return logits.cpu().numpy()
 
     @torch.inference_mode()
     def group_map(self, image: np.ndarray) -> np.ndarray:
@@ -176,9 +195,11 @@ class ZeroShotSegmenter:
         wf = w // self.patch * self.patch
         x = torch.from_numpy(np.ascontiguousarray(image[None, :hf, :wf],
                                                   np.float32)).to(self.device)
+        count("host_syncs")
         vis = self.model.encode_image(x)
         attn = _upsample_attn(vis.mid["soft_attn"], hf // self.patch,
                               wf // self.patch, h, w)[0]
+        count("host_syncs")
         return attn.argmax(dim=-1).to(torch.int32).cpu().numpy()
 
     @torch.inference_mode()
@@ -193,10 +214,12 @@ class ZeroShotSegmenter:
 
     @staticmethod
     def _labels(logits: torch.Tensor, orig_shape: Tuple[int, int]) -> np.ndarray:
-        oh, ow = orig_shape
-        if logits.shape[1:] != (oh, ow):
-            logits = _resize_chw(logits, oh, ow)
-        return logits.argmax(dim=0).to(torch.int32).cpu().numpy()
+        with span("eval.labels"):
+            oh, ow = orig_shape
+            if logits.shape[1:] != (oh, ow):
+                logits = _resize_chw(logits, oh, ow)
+            count("host_syncs")
+            return logits.argmax(dim=0).to(torch.int32).cpu().numpy()
 
     @torch.inference_mode()
     def predict_batch(self, images: Sequence[np.ndarray],
@@ -204,9 +227,10 @@ class ZeroShotSegmenter:
         """Slide-mode `predict` of several images with one decode call over
         all their windows (every window is crop × crop), split back per
         image. One image gives `predict`'s decode call exactly."""
-        per_image = [self._slide_windows(image) for image in images]
-        logits = self._decode(np.stack([c for crops, _ in per_image for c in crops]),
-                              self.crop, self.crop)
+        with span("eval.prep"):
+            per_image = [self._slide_windows(image) for image in images]
+            crops = np.stack([c for crops, _ in per_image for c in crops])
+        logits = self._decode(crops, self.crop, self.crop)
         preds, start = [], 0
         for image, (crops, wins), shape in zip(images, per_image, orig_shapes):
             part = logits[start:start + len(crops)]
@@ -220,10 +244,15 @@ def evaluate_dataset(segmenter: ZeroShotSegmenter, dataset,
     """Zero-shot mIoU over a SegEvalDataset, one image at a time."""
     meter = MIoUMeter(segmenter.num_classes,
                       ignore_index=dataset.spec.ignore_index)
-    for i, sample in enumerate(dataset):
-        pred = segmenter.predict(sample.image, sample.orig_shape)
-        if sample.label is not None:
-            meter.update(pred, sample.label)
+    for i in range(len(dataset)):
+        with span("eval.group"):
+            with span("eval.load"):
+                sample = dataset.load(i)
+            pred = segmenter.predict(sample.image, sample.orig_shape)
+            if sample.label is not None:
+                with span("eval.meter"):
+                    meter.update(pred, sample.label)
+        count("eval.images")
         if logger and (i + 1) % log_every == 0:
             logger.info("eval %d/%d  running mIoU %.2f", i + 1, len(dataset),
                         meter.results()["mIoU"])
@@ -251,11 +280,14 @@ def evaluate_dataset_sharded(segmenter: ZeroShotSegmenter, dataset, log_every: i
 
     def flush():
         nonlocal n_done
-        preds = segmenter.predict_batch([s.image for s in group],
-                                        [s.orig_shape for s in group])
-        for sample, pred in zip(group, preds):
-            if sample.label is not None:
-                meter.update(pred, sample.label)
+        with span("eval.group"):
+            preds = segmenter.predict_batch([s.image for s in group],
+                                            [s.orig_shape for s in group])
+            for sample, pred in zip(group, preds):
+                if sample.label is not None:
+                    with span("eval.meter"):
+                        meter.update(pred, sample.label)
+        count("eval.images", len(group))
         n_done += len(group)
         if logger and n_done % max(log_every, per_call) < len(group):
             logger.info("eval %d/%d (rank %d)  running mIoU %.2f", n_done, len(mine),
@@ -263,7 +295,8 @@ def evaluate_dataset_sharded(segmenter: ZeroShotSegmenter, dataset, log_every: i
         group.clear()
 
     for i in mine:
-        group.append(dataset.load(i))
+        with span("eval.load"):
+            group.append(dataset.load(i))
         if len(group) == per_call:
             flush()
     if group:

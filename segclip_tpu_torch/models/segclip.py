@@ -30,6 +30,7 @@ from segclip_tpu_torch.models.clip import CLIPModule
 from segclip_tpu_torch.models.layers import LayerNormFP32
 from segclip_tpu_torch.models.mae_decoder import TextMAEDecoder, VisionMAEDecoder
 from segclip_tpu_torch.parallel.collectives import global_gather, rank_of
+from segclip_tpu_torch.utils.profiling import count
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # scene_classes is an int32 bitmask: class c > 0 is bit c − 1.
@@ -87,6 +88,7 @@ def info_nce_pair(text_feat: torch.Tensor, vis_feat: torch.Tensor,
     v = vis_feat / torch.linalg.vector_norm(vis_feat, dim=-1, keepdim=True)
     scale = torch.minimum(logit_scale.float().exp(),
                           torch.tensor(100.0, device=logit_scale.device))
+    count("host_syncs")         # the scalar's copy from pageable memory waits for the card
     v_all, t_all = global_gather(v), global_gather(t)
     logits_t2v = scale * (t.float() @ v_all.float().T)
     logits_v2t = scale * (v.float() @ t_all.float().T)

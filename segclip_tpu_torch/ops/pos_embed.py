@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from segclip_tpu_torch.utils.profiling import count
+
 
 def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
@@ -89,6 +91,11 @@ def interp_matrix(in_size: int, out_size: int, method: str = "cubic") -> np.ndar
 
 def interp_tensor(in_size: int, out_size: int, method: str,
                   device: torch.device) -> torch.Tensor:
+    """`interp_matrix` built on the host and copied to `device`; each build
+    counts in "interp_builds" and, as its copy from pageable memory waits
+    for the card, in "host_syncs" (utils/profiling)."""
+    count("interp_builds")
+    count("host_syncs")
     return torch.from_numpy(interp_matrix(in_size, out_size, method)).to(device)
 
 

@@ -57,7 +57,7 @@ from segclip_tpu_torch.parallel.prefetch import prefetch_to_device
 from segclip_tpu_torch.train.step import TrainState, create_optimizer, make_train_step
 from segclip_tpu_torch.utils.device import resolve_device
 from segclip_tpu_torch.utils.logging import MetricWriter, get_logger
-from segclip_tpu_torch.utils.profiling import trace_if
+from segclip_tpu_torch.utils.profiling import count, trace_if
 
 
 def check_supported(cfg: Config) -> None:
@@ -241,6 +241,7 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
                 metrics = step_fn(state, batch)
                 if lead and state.step % cfg.train.log_every == 0:
                     loss = float(metrics["loss"])
+                    count("host_syncs", 1 + len(metrics))   # the loss, then each logged metric
                     lr = cfg.optim.lr * optimizer.schedule_factor(optimizer.step_count)
                     dt = (time.time() - window_start) / cfg.train.log_every
                     window_start = time.time()
@@ -253,6 +254,7 @@ def _run_epochs(cfg, epochs, loader, step_fn, state, model, optimizer, device,
                 n_steps += 1
 
         final_loss = float(metrics["loss"])
+        count("host_syncs")
         logger.info("Epoch %d done in %.1fs, last loss %f",
                     epoch + 1, time.time() - t_start, final_loss)
 

@@ -50,6 +50,7 @@ from segclip_tpu_torch.parallel.collectives import mean_across_ranks_, rank_of
 from segclip_tpu_torch.parallel.dist import data_size, model_group
 from segclip_tpu_torch.train.optimizer import AdaptAdamW, global_norm_clip
 from segclip_tpu_torch.train.param_groups import freeze, param_groups
+from segclip_tpu_torch.utils.profiling import count, span
 
 LOGIT_SCALE_MAX = math.log(100.0)
 BATCH_KEYS = ("input_ids", "attention_mask", "image", "image_seg",
@@ -93,6 +94,7 @@ def normalize_images(batch: Dict[str, torch.Tensor], resolution: int
         return batch
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=image.device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=image.device)
+    count("host_syncs", 2)      # a copy from pageable memory waits for the card
     batch["image"] = (image / 255.0 - mean) / std
     return batch
 
@@ -119,7 +121,13 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
     keys of models.segclip.NOISE_KEYS, at micro-batch size) replaces the
     draws in every micro-batch; it is for tests. In a process group the
     batch is this rank's data shard, and the metrics are the means over the
-    data ranks."""
+    data ranks. Under a torch.profiler the step records the spans
+    "train.step" (unit: the state's step) and, inside it, "train.normalize",
+    "train.forward", "train.backward", "train.allreduce" (ranks > 1),
+    "train.clip", "train.nan_check" and "train.optimizer", the device-side
+    ones device-timed on a card; it counts "train.steps" and, at each site
+    that waits for the card (the normalisation's two constants, the loss's
+    logit-scale cap, the NaN check), "host_syncs" (utils/profiling)."""
     accum = cfg.train.grad_accum_steps
     max_norm = cfg.optim.max_grad_norm
     resolution = cfg.model.image_resolution
@@ -131,50 +139,61 @@ def make_train_step(model: SegCLIP, optimizer: AdaptAdamW, cfg: Config
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              noise: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:
-        batch = normalize_images({k: v for k, v in batch.items() if v is not None},
-                                 resolution)
-        b = batch["image"].shape[0]
-        if accum < 1 or b % accum:
-            raise ValueError(f"batch {b} does not split into {accum} micro-batches")
-        gen = step_generator(batch["image"].device, state.seed, state.step, rank)
-        for p in params:
-            p.grad = None
-        sums: Dict[str, torch.Tensor] = {}
-        for micro in range(accum):
-            lo, hi = micro * b // accum, (micro + 1) * b // accum
-            mb = {k: v[lo:hi] for k, v in batch.items() if k in BATCH_KEYS}
-            losses = model(mb["input_ids"], mb["attention_mask"], mb["image"],
-                           mb.get("image_seg"), training=True,
-                           text_class=mb.get("text_class"),
-                           scene_classes=mb.get("scene_classes"),
-                           noise=noise, generator=gen)
-            losses["loss"].backward()
-            for k, v in losses.items():
-                sums[k] = sums.get(k, 0) + v.detach()
-        metrics = {k: v / accum for k, v in sums.items()}
-        if accum > 1:
+        with span("train.step", unit=state.step):
+            with span("train.normalize"):
+                batch = normalize_images({k: v for k, v in batch.items() if v is not None},
+                                         resolution)
+            b = batch["image"].shape[0]
+            if accum < 1 or b % accum:
+                raise ValueError(f"batch {b} does not split into {accum} micro-batches")
+            on_card = batch["image"].device.type == "cuda"
+            gen = step_generator(batch["image"].device, state.seed, state.step, rank)
             for p in params:
-                if p.grad is not None:
-                    p.grad.div_(accum)
-        if world > 1:
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            mean_across_ranks_([p.grad for p in params])
-            keys = sorted(metrics)
-            values = torch.stack([metrics[k].float() for k in keys])
-            mean_across_ranks_([values])
-            metrics = dict(zip(keys, values.unbind()))
+                p.grad = None
+            sums: Dict[str, torch.Tensor] = {}
+            for micro in range(accum):
+                lo, hi = micro * b // accum, (micro + 1) * b // accum
+                mb = {k: v[lo:hi] for k, v in batch.items() if k in BATCH_KEYS}
+                with span("train.forward", device=on_card):
+                    losses = model(mb["input_ids"], mb["attention_mask"], mb["image"],
+                                   mb.get("image_seg"), training=True,
+                                   text_class=mb.get("text_class"),
+                                   scene_classes=mb.get("scene_classes"),
+                                   noise=noise, generator=gen)
+                with span("train.backward", device=on_card):
+                    losses["loss"].backward()
+                for k, v in losses.items():
+                    sums[k] = sums.get(k, 0) + v.detach()
+            metrics = {k: v / accum for k, v in sums.items()}
+            if accum > 1:
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+            if world > 1:
+                with span("train.allreduce", device=on_card):
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    mean_across_ranks_([p.grad for p in params])
+                    keys = sorted(metrics)
+                    values = torch.stack([metrics[k].float() for k in keys])
+                    mean_across_ranks_([values])
+                    metrics = dict(zip(keys, values.unbind()))
 
-        metrics["grad_norm"] = global_norm_clip(params, max_norm, row)
-        skipped = bool(torch.isnan(metrics["loss"]))
-        if not skipped:
-            optimizer.step()
-            with torch.no_grad():
-                logit_scale.copy_(torch.minimum(
-                    logit_scale, torch.full_like(logit_scale, LOGIT_SCALE_MAX)))
-        metrics["skipped_nan"] = torch.tensor(float(skipped))
-        state.step += 1
+            with span("train.clip", device=on_card):
+                metrics["grad_norm"] = global_norm_clip(params, max_norm, row)
+            with span("train.nan_check"):
+                skipped = bool(torch.isnan(metrics["loss"]))
+                count("host_syncs")
+            if not skipped:
+                with span("train.optimizer", device=on_card):
+                    optimizer.step()
+                    with torch.no_grad():
+                        logit_scale.copy_(torch.minimum(
+                            logit_scale, torch.full_like(logit_scale, LOGIT_SCALE_MAX)))
+            metrics["skipped_nan"] = torch.tensor(float(skipped))
+            state.step += 1
+        count("train.steps")
         return metrics
 
     return step

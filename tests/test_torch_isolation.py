@@ -84,7 +84,7 @@ from segclip_tpu_torch.evalseg.inference import evaluate_dataset_sharded
 import segclip_tpu_torch.studies.classprobe, segclip_tpu_torch.studies.spatial_margin_probe
 import segclip_tpu_torch.studies.holdout_study, segclip_tpu_torch.studies.eval_ipd_study
 import segclip_tpu_torch.studies.host_stage_bench
-from segclip_tpu_torch.utils.profiling import StepTimer, step_annotation
+from segclip_tpu_torch.utils.profiling import count, counters, span, spans
 import os, tempfile
 from segclip_tpu_torch.cli.common import load_model
 from segclip_tpu_torch.checkpoint import orbax_io

@@ -88,7 +88,9 @@ def test_train_cli_synthetic_writes_log_metrics_checkpoint_and_trace(tmp_path):
     assert all(np.isfinite(m["loss"]) for m in metrics)
     assert sorted(os.listdir(out / "ckpt_epoch_0")) == ["model.pt", "train_state.pt"]
     assert result["epochs_run"] == 1 and result["state"].step == 2
-    assert any(f.endswith(".pt.trace.json") for f in os.listdir(trace))
+    [name] = [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+    names = {e.get("name") for e in json.loads((trace / name).read_text())["traceEvents"]}
+    assert {"train.step", "train.forward", "train.optimizer"} <= names
 
 
 def test_train_cli_preset_keeps_best_and_explicit_flags_win(tmp_path, corpus):

@@ -1,5 +1,5 @@
 """The port's studies (segclip_tpu_torch/studies) against the JAX package's
-scripts on the CPU, and the port's profiling helpers against the JAX ones.
+scripts on the CPU.
 
 Each JAX script is loaded from scripts/ by file (unchanged) and its
 `main()` called with sys.argv; the port's study runs with `--device cpu`.
@@ -28,7 +28,6 @@ import json
 import math
 import os
 import sys
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -39,12 +38,10 @@ import jax
 from segclip_tpu.checkpoint.torch_export import export_state_dict
 from segclip_tpu.config import ModelConfig
 from segclip_tpu.models.segclip import init_segclip as jax_init_segclip
-from segclip_tpu.utils import profiling as jprofiling
 
 from segclip_tpu_torch.cli import prepare_data
 from segclip_tpu_torch.studies import (classprobe, eval_ipd_study, holdout_study,
                                        spatial_margin_probe)
-from segclip_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -258,36 +255,6 @@ def test_center_crop_pads_a_short_side():
     assert out.shape == (224, 224, 3)
     np.testing.assert_array_equal(out[:, :200], img[3:227])
     assert not out[:, 200:].any()
-
-
-def test_step_timer_follows_the_jax_semantics():
-    port, ref = profiling.StepTimer(warmup=2), jprofiling.StepTimer(warmup=2)
-    for tick in range(5):
-        assert port.steps_timed == ref.steps_timed == max(0, tick - 2)
-        assert math.isnan(port.rate()) == math.isnan(ref.rate()) == (tick <= 2)
-        port.tick(torch.tensor(1.0))
-        ref.tick(np.float32(1.0))
-    assert port.steps_timed == ref.steps_timed == 3
-    assert port.rate(per_step_items=8) > 0 and ref.rate(per_step_items=8) > 0
-
-
-def test_step_timer_rate_counts_the_steps_after_the_warm_up(monkeypatch):
-    """The clock starts at the warm-up's last tick; rate() reads it again:
-    three steps of 8 items over 2 s."""
-    clock = iter([10.0, 12.0])
-    monkeypatch.setattr(profiling, "time", SimpleNamespace(perf_counter=lambda: next(clock)))
-    timer = profiling.StepTimer(warmup=1)
-    for _ in range(4):
-        timer.tick()
-    assert timer.steps_timed == 3 and timer.rate(per_step_items=8) == 12.0
-
-
-def test_step_annotation_is_a_named_profiler_span():
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with profiling.step_annotation(7):
-            torch.ones(4).add_(1)
-    assert "train_step 7" in {e.key for e in prof.key_averages()}
-    assert isinstance(jprofiling.step_annotation(7), jax.profiler.StepTraceAnnotation)
 
 
 @pytest.mark.parametrize("study", [classprobe, spatial_margin_probe, holdout_study,
