@@ -209,6 +209,14 @@ ViT-L/14 and 448 px steps, the bf16 one on the 672 px step). The profiles list t
 port's own kernels (those in the `segclip_kernels` namespace) apart from
 PyTorch's.
 
+After the device-time profiles, the optimizer row (`optimizer_row`): the
+multi-tensor clip and AdaptAdamW (csrc/adamw.cu) at the benchmark's
+ViT-B/16 step's trainable leaves, their device ms per step against the HBM
+bound of their bytes, the plain path's device ms and both paths' host ms
+beside them, the launches per step (at most 16), and one step's largest
+difference from the plain path; phase 4 also requires 2 + 1 + 1 launches of
+them per step (`python3 chip_smoke.py optimizer` runs the row alone).
+
 `python3 chip_smoke.py study <name> <result.json> <argv...>` is phase
 10's subprocess: one study with the launch counters read around it.
 `python3 chip_smoke.py long-requests` times and profiles the 448×672 and
@@ -1630,11 +1638,18 @@ def phase_train(dev) -> tuple:
           f"{len(frozen)} frozen parameter tensors; expected launches per step {expected}")
     torch.cuda.reset_peak_memory_stats(dev)
     totals, times = {}, []
+    from segclip_tpu_torch.ops.kernels import adamw as kadamw
+    optimizer_kernels = (kadamw.multi_tensor_norm, kadamw.multi_tensor_scale,
+                         kadamw.multi_tensor_adamw)
     for i in range(1 + TRAIN_STEPS):
         reset_counters()
         routes = read_routes()
+        fused = [f.launches for f in optimizer_kernels]
         metrics, ms = timed(lambda: step(state, batch))
         counts = read_counters()
+        fused = [f.launches - n for f, n in zip(optimizer_kernels, fused)]
+        check(fused == [2, 1, 1], f"step {i}: clip and update launches (norm, scale, update) "
+              f"{fused}, expected [2, 1, 1]")
         routes = {k: n - routes[k] for k, n in read_routes().items()}
         check(counts == expected, f"step {i}: launches {counts}, expected {expected}")
         check(routes == {"one_pass": expected["attention_fwd"], "cluster": 0, "long": 0,
@@ -4172,6 +4187,163 @@ def float32_paths() -> int:
     return 0
 
 
+OPT_REPS = 20                   # clip + update calls a profile of the kernels
+OPT_PLAIN_REPS = 3              # ... of the plain path
+OPT_DIFF = 1e-5                 # kernel against plain after one step (see optimizer_row)
+HBM_BYTES_S = 3.35e12
+
+
+def optimizer_row(dev) -> dict:
+    """The fused clip and update (csrc/adamw.cu) at the ViT-B/16 step's
+    trainable leaves, as the benchmark's pretraining traffic trains them
+    (every block, `freeze_layer_num` 0): their device ms per step summed
+    over their kernels by torch.profiler, against the HBM bound of their
+    bytes (the update reads p, g, m, v and writes p, m, v; the norm reads g;
+    the scale reads and writes it), the plain path's device ms beside them,
+    each path's host-clock ms per step (synchronised), the launches per
+    step, and the largest difference of one step from the plain path's on
+    the same state: the clip on the same gradients (the norm and the
+    clipped gradients relative; only the order of the norm's sums
+    differs), then the update on the same clipped gradients (the
+    parameters beyond one ulp relative to the leaf's largest move, the
+    moments relative to their largest value), each held under OPT_DIFF,
+    and the leaves whose parameters agree bit for bit counted.
+    The schedule is at its peak (no warm-up), as the benchmark's traffic
+    sets it, so that a step moves the parameters by many ulps."""
+    from unittest import mock
+
+    from segclip_tpu_torch.config import Config, OptimConfig
+    from segclip_tpu_torch.models.segclip import init_segclip
+    from segclip_tpu_torch.ops.kernels import adamw as kadamw
+    from segclip_tpu_torch.train import optimizer as toptim
+    from segclip_tpu_torch.train.step import create_optimizer
+
+    cfg = Config(optim=OptimConfig(freeze_layer_num=0, freeze_text_layer_num=0,
+                                   warmup_proportion=0.0))
+    sides = {}
+    for side in ("kernel", "plain"):
+        model = init_segclip(cfg.model, seed=0, device=dev)
+        opt = create_optimizer(model, cfg, t_total=100000)
+        sides[side] = (opt, [p for g in opt.param_groups for p in g["params"]])
+    (kopt, kparams), (popt, pparams) = sides["kernel"], sides["plain"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3 for p in kparams]
+    numel = sum(p.numel() for p in kparams)
+    p_size = kparams[0].element_size()
+    m_size = torch.empty((), dtype=kopt.moment_dtype).element_size()
+    bound_ms = numel * (6 * p_size + 4 * m_size) / HBM_BYTES_S * 1e3
+    print(f"optimizer (csrc/adamw.cu): {len(kparams)} trainable leaves, {numel / 1e6:.1f} M "
+          f"parameters in {len(kopt.param_groups)} groups; HBM bound of the clip and update "
+          f"{bound_ms:.4f} ms")
+
+    def clip(side: str) -> torch.Tensor:
+        with mock.patch.object(toptim, "_plain", return_value=side == "plain"):
+            return toptim.global_norm_clip(sides[side][1], cfg.optim.max_grad_norm)
+
+    def update(side: str) -> None:
+        with mock.patch.object(toptim, "_plain", return_value=side == "plain"):
+            sides[side][0].step()
+
+    def run(side: str) -> torch.Tensor:
+        norm = clip(side)
+        update(side)
+        return norm
+
+    def launches() -> list:
+        return [f.launches for f in (kadamw.multi_tensor_norm, kadamw.multi_tensor_scale,
+                                     kadamw.multi_tensor_adamw)]
+
+    # one step of each side from the same state: the clip on the same
+    # gradients, then the update on the kernels' clipped gradients
+    starts = [p.detach().clone() for p in pparams]
+    norms, per_step = {}, {}
+    for side, (_, leaves) in sides.items():
+        for p, g in zip(leaves, grads):
+            p.grad = g.clone()
+        before = launches()
+        norms[side] = clip(side).item()
+        per_step[side] = [a - b for a, b in zip(launches(), before)]
+
+    def worst(a, b, unit=None) -> float:
+        diff = (a.double() - b.double()).abs().max()
+        return (diff / (b.double().abs().max() if unit is None else unit)).item()
+
+    diffs = {"norm": abs(norms["kernel"] - norms["plain"]) / norms["plain"],
+             "grad": max(worst(k.grad, p.grad) for k, p in zip(kparams, pparams))}
+    for k, p in zip(kparams, pparams):
+        p.grad.copy_(k.grad)
+    for side in sides:
+        before = launches()
+        update(side)
+        per_step[side] = [n + a - b for n, a, b in zip(per_step[side], launches(), before)]
+    check(per_step["plain"] == [0, 0, 0], f"the plain path launched kernels: {per_step}")
+    check(sum(per_step["kernel"]) <= 16, f"launches a step {per_step['kernel']}")
+
+    def past_an_ulp(k, p, p0) -> float:
+        """How far the kernels' parameters lie from the plain path's beyond
+        one ulp of each, relative to the leaf's largest move in the step
+        (0 for a leaf that did not move)."""
+        p64 = p.detach().double()
+        excess = ((k.detach().double() - p64).abs()
+                  - torch.finfo(p.dtype).eps * p64.abs()).clamp(min=0).max()
+        return (excess / (p64 - p0.double()).abs().max().clamp(min=1e-30)).item()
+
+    diffs["param"] = max(past_an_ulp(k, p, p0) for k, p, p0 in zip(kparams, pparams, starts))
+    equal = sum(int(torch.equal(k, p)) for k, p in zip(kparams, pparams))
+    diffs.update({key: max(worst(kopt.state[k][key], popt.state[p][key])
+                           for k, p in zip(kparams, pparams))
+                  for key in ("exp_avg", "exp_avg_sq")})
+    del starts
+    print(f"  one step, kernels against the plain path: norm {norms['kernel']:.6f} / "
+          f"{norms['plain']:.6f}; largest differences " + ", ".join(
+              f"{k} {v:.3g}" for k, v in diffs.items())
+          + f"; parameters equal bit for bit in {equal} of {len(kparams)} leaves")
+    check(all(v <= OPT_DIFF for v in diffs.values()), f"kernels against plain: {diffs}")
+
+    timing = {}
+    for side, reps in (("kernel", OPT_REPS), ("plain", OPT_PLAIN_REPS)):
+        run(side)
+        walls = sorted(timed(lambda: run(side))[1] for _ in range(reps))
+        rows = device_rows(lambda: [run(side) for _ in range(reps)])
+        timing[side] = {"host_ms": walls[len(walls) // 2],
+                        "device_ms": sum(e.self_device_time_total for e in rows) / reps / 1e3
+                        if rows else None}
+        if side == "kernel" and rows:
+            timing[side]["by_kernel"] = {
+                e.key[:60]: round(e.self_device_time_total / reps / 1e3, 4) for e in rows}
+    ms = timing["kernel"]["device_ms"]
+    row = dict(name="multi_tensor_clip_adamw", source="segclip_tpu_torch/csrc/adamw.cu",
+               replaces="none (segclip_tpu/train/optimizer.py: global_norm_clip, adapt_adamw, jnp)",
+               leaves=len(kparams), parameters=numel, launches_per_step=dict(zip(
+                   ("multi_tensor_norm", "multi_tensor_scale", "multi_tensor_adamw"),
+                   per_step["kernel"])),
+               ms=ms, bound_ms=bound_ms, share_of_bound=None if ms is None else bound_ms / ms,
+               host_ms=timing["kernel"]["host_ms"], by_kernel=timing["kernel"].get("by_kernel"),
+               plain_ms=timing["plain"]["device_ms"], plain_host_ms=timing["plain"]["host_ms"],
+               max_diff=diffs, param_leaves_bit_equal=equal)
+    print(f"  kernels {ms if ms is None else round(ms, 4)} ms a step on the card "
+          f"({'' if ms is None else f'{bound_ms / ms:.1%} of '}the bound {bound_ms:.4f}), host "
+          f"{row['host_ms']:.2f} ms; plain {row['plain_ms']} ms on the card, host "
+          f"{row['plain_host_ms']:.2f} ms; launches a step {row['launches_per_step']}")
+    return row
+
+
+def optimizer_only() -> int:
+    """`python3 chip_smoke.py optimizer`: `optimizer_row` alone."""
+    from segclip_tpu_torch.kernels import build
+    from segclip_tpu_torch.utils.device import resolve_device
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    build.load()
+    print(json.dumps({"optimizer": optimizer_row(resolve_device("cuda"))}))
+    return 0
+
+
 def long_requests() -> int:
     """`python3 chip_smoke.py long-requests`: phase 2's whole requests past
     1024 patches alone, as a user runs them, with nothing checked: 448x672
@@ -4224,6 +4396,8 @@ def main() -> int:
         return profile_step(sys.argv[2])
     if sys.argv[1:2] == ["float32-paths"]:
         return float32_paths()
+    if sys.argv[1:2] == ["optimizer"]:
+        return optimizer_only()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4351,6 +4525,7 @@ def main() -> int:
               f"the {ROUTE_FUNCTIONS[route]} kernel was never launched on the main path")
     rows = phase_device_time(seg, requests, timings, lambda: step(state, batch), b512_step,
                              b32_step, px448_step)
+    optimizer = optimizer_row(dev)
 
     kernels = []
     for name, src, tpu, key, counter in (
@@ -4464,7 +4639,7 @@ def main() -> int:
         if name == "attention_bwd_one_pass":
             entry["b32_pair_ms"] = b32_row["pair_ms"]
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "optimizer": optimizer}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -118,14 +118,9 @@ def load_training_state(model: torch.nn.Module, optimizer: AdaptAdamW, model_sta
                         ) -> None:
     """Load full (model, optimizer) state dicts into `model` and `optimizer`,
     through `shard` when one is given; the moments keep the optimizer's
-    moment_dtype. Shared with checkpoint/orbax_io.restore_checkpoint."""
+    moment_dtype (AdaptAdamW.load_state_dict). Shared with
+    checkpoint/orbax_io.restore_checkpoint."""
     if shard is not None:
         model_state, optimizer_state = shard(model_state, optimizer_state)
     model.load_state_dict(model_state)
     optimizer.load_state_dict(optimizer_state)
-    # Optimizer.load_state_dict casts the moments to the parameters' dtype;
-    # AdaptAdamW stores them in its own moment_dtype.
-    for moments in optimizer.state.values():
-        for key in ("exp_avg", "exp_avg_sq"):
-            if key in moments:
-                moments[key] = moments[key].to(optimizer.moment_dtype)

@@ -118,10 +118,10 @@ def counters() -> Dict[str, int]:
     """A snapshot of every counter: the program's (`count`) and the kernel
     wrappers' launch counters, read where they live, as
     "<wrapper>.launches"."""
-    from segclip_tpu_torch.ops.kernels import attention, grouping
+    from segclip_tpu_torch.ops.kernels import adamw, attention, grouping
     with _lock:
         out = dict(_counts)
-    for module in (attention, grouping):
+    for module in (attention, grouping, adamw):
         for name, obj in vars(module).items():
             if callable(obj) and isinstance(getattr(obj, "launches", None), int):
                 out[f"{name}.launches"] = obj.launches

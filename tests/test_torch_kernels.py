@@ -1606,3 +1606,123 @@ def test_long_bwd_limits_and_refusals(cuda, dtype):
     swapped = p.transpose(0, 1).contiguous().transpose(0, 1)
     assert all(torch.equal(a, b) for a, b in zip(fn(swapped, do, q, k, v),
                                                  fn(p.contiguous(), do, q, k, v)))
+
+
+# The multi-tensor clip and AdaptAdamW (csrc/adamw.cu, ops/kernels/adamw.py),
+# against the plain path (train/optimizer.py) on the card: leaves of one
+# element, of sizes off the vector width and past a chunk, and one with no
+# gradient (the last).
+MT_SHAPES = [(1,), (3,), (5, 7), (4096 + 3,), (2 * 16384 + 5,), (64, 33), (9,)]
+MT_SHARDED = (1, 3, 4)          # leaves flagged `model_shard` in the tensor-parallel case
+
+
+def _mt_side(device, p_dtype, m_dtype, tp):
+    from segclip_tpu_torch.train.optimizer import AdaptAdamW
+    gen = torch.Generator().manual_seed(0)
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen).to(device=device, dtype=p_dtype))
+              for s in MT_SHAPES]
+    for i in MT_SHARDED if tp else ():
+        params[i].model_shard = 0
+    # the leaf with no gradient moves by its decay alone: enough of it to
+    # move a bf16 parameter
+    opt = AdaptAdamW([{"params": params[:4], "lr": 1e-2, "weight_decay": 0.05},
+                      {"params": params[4:-1], "lr": 3e-3, "weight_decay": 0.0},
+                      {"params": params[-1:], "lr": 0.1, "weight_decay": 0.1}],
+                     t_total=10, warmup=0.15, moment_dtype=m_dtype)
+    return params, opt
+
+
+def _mt_close(out, ref, start=None):
+    """float32: within 1e-6 relative, or 1e-6 of the largest move from
+    `start`; bfloat16: within one ulp (checks.bf16_ulps)."""
+    if ref.dtype == torch.bfloat16:
+        assert bf16_ulps(out, ref).max().item() <= 1
+        return
+    scale = ref.abs().max() if start is None else (ref.float() - start.float()).abs().max()
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6 * scale.item())
+
+
+@pytest.mark.parametrize("tp", [False, True])
+@pytest.mark.parametrize("m_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_multi_tensor_clip_and_adamw_match_plain(cuda, p_dtype, m_dtype, tp):
+    """Three steps (the clip active, active, idle) of the kernels and of the
+    plain path on the same gradients: the norm within 2e-6 relative (its
+    sums' order differs), the clipped gradients, the parameters and both
+    moments within `_mt_close`; launches per step 2 (3 under tensor
+    parallelism, whose all-reduce is a row of two equal ranks here), 1, 1."""
+    from unittest import mock
+
+    from segclip_tpu_torch.ops.kernels import adamw as kadamw
+    from segclip_tpu_torch.train import optimizer as toptim
+    sides = {side: _mt_side(cuda, p_dtype, m_dtype, tp) for side in ("kernel", "plain")}
+    start = [p.detach().clone() for p in sides["plain"][0]]
+    group = "model row" if tp else None
+    gen = torch.Generator().manual_seed(1)
+    with mock.patch.object(toptim, "all_reduce_", lambda t, g: t.mul_(2)):
+        for step, max_norm in enumerate((1.0, 1.0, 1e4)):
+            grads = [torch.randn(s, generator=gen) * (1 + step) for s in MT_SHAPES[:-1]]
+            norms = {}
+            for side, (params, opt) in sides.items():
+                for p, g in zip(params, grads):
+                    p.grad = g.to(device=cuda, dtype=p_dtype)
+                before = [f.launches for f in (kadamw.multi_tensor_norm,
+                                               kadamw.multi_tensor_scale,
+                                               kadamw.multi_tensor_adamw)]
+                with mock.patch.object(toptim, "_plain", return_value=side == "plain"):
+                    norms[side] = toptim.global_norm_clip(params, max_norm, group)
+                    opt.step()
+                after = [f.launches for f in (kadamw.multi_tensor_norm,
+                                              kadamw.multi_tensor_scale,
+                                              kadamw.multi_tensor_adamw)]
+                launched = [a - b for a, b in zip(after, before)]
+                assert launched == ([3 if tp else 2, 1, 1] if side == "kernel" else [0, 0, 0])
+            torch.cuda.synchronize()
+            ref = norms["plain"].item()
+            assert abs(norms["kernel"].item() - ref) <= 2e-6 * ref, (norms, step)
+            for pk, pp in zip(sides["kernel"][0][:-1], sides["plain"][0][:-1]):
+                _mt_close(pk.grad, pp.grad)
+    (kparams, kopt), (pparams, popt) = sides["kernel"], sides["plain"]
+    assert kopt.step_count == popt.step_count == 3
+    for pk, pp, p0 in zip(kparams, pparams, start):
+        assert not torch.equal(pp, p0)
+        _mt_close(pk.detach(), pp.detach(), p0)
+        for key in ("exp_avg", "exp_avg_sq"):
+            mk, mp = kopt.state[pk][key], popt.state[pp][key]
+            assert mk.dtype == mp.dtype == getattr(torch, m_dtype)
+            _mt_close(mk, mp)
+
+
+def test_multi_tensor_norm_repeats_bit_for_bit(cuda):
+    from segclip_tpu_torch.ops.kernels import adamw as kadamw
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    grads = [torch.randn(n, generator=gen, device=cuda) for n in (5, 3 * 16384 + 1, 70000)]
+    table = kadamw.GradTable(grads)
+    first, second = kadamw.multi_tensor_norm(table, 1.0), kadamw.multi_tensor_norm(table, 1.0)
+    assert torch.equal(first, second)
+    ref = torch.sqrt(sum(g.double().square().sum() for g in grads))
+    assert abs(first[kadamw.NORM].item() - ref.item()) <= 1e-6 * ref.item()
+
+
+def test_multi_tensor_refuses_what_it_does_not_take(cuda):
+    """A float16 leaf, a non-contiguous gradient and leaves on two devices
+    raise on the card; nothing falls back to the plain path."""
+    from segclip_tpu_torch.train.optimizer import AdaptAdamW, global_norm_clip
+    half = torch.nn.Parameter(torch.zeros(5, device=cuda, dtype=torch.float16))
+    half.grad = torch.ones_like(half)
+    opt = AdaptAdamW([{"params": [half], "lr": 1e-3, "weight_decay": 0.0}], t_total=10)
+    with pytest.raises(TypeError, match="float16"):
+        global_norm_clip([half], 1.0)
+    with pytest.raises(TypeError, match="float16"):
+        opt.step()
+    square = torch.nn.Parameter(torch.zeros(4, 4, device=cuda))
+    square.grad = torch.ones(4, 4, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        global_norm_clip([square], 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        AdaptAdamW([{"params": [square], "lr": 1e-3, "weight_decay": 0.0}], t_total=10).step()
+    host = torch.nn.Parameter(torch.zeros(3))
+    host.grad = torch.ones(3)
+    square.grad = torch.ones(4, 4, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        global_norm_clip([square, host], 1.0)
